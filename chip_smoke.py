@@ -3,14 +3,18 @@
 
 Builds the port's CUDA kernels from ``speechcatcher_tpu_torch/csrc`` with
 nvcc for sm_90a, holds each kernel against its plain PyTorch version at the
-flagship main-path shapes and times both, streams three utterances through
-``Speech2TextStreaming`` at flagship width (random weights from a seed),
-replays the flagship fixture blessed by the JAX package, and prints JSON
-lines. The last line is ``{"ok": true, "device": {...}}``; any failure
-exits non-zero before it.
+flagship main-path shapes and times both, then drives the port's two paths
+at flagship width (random weights from a seed): three utterances through
+``Speech2TextStreaming``, and ten streams through the batched
+``StreamingEngine`` (8 slots), each final held against the single-stream
+session. It replays the fixtures blessed by the JAX package (one utterance,
+one engine run), times ticks with 32 busy slots, and prints JSON lines. The
+last line is ``{"ok": true, "device": {...}}``; any failure exits non-zero
+before it.
 
-    python3 chip_smoke.py                 # everything
-    python3 chip_smoke.py --profile       # device time of one utterance
+    python3 chip_smoke.py                    # everything
+    python3 chip_smoke.py --profile          # device time of one utterance
+    python3 chip_smoke.py --profile engine   # device time of engine ticks
 
 Imports neither JAX nor the JAX package.
 """
@@ -28,6 +32,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_flagship.json"
+ENGINE_FIXTURE = (ROOT / "tests" / "fixtures"
+                  / "torch_port_engine_flagship.json")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS = 67e12          # H100 SXM float32 peak outside the tensor cores
 CHUNK_SECONDS = 0.5
@@ -216,6 +222,97 @@ def check_ring_append(dev, cfg, n_new: int):
     }
 
 
+def device_us(fn, kernel: str, reps: int = 50):
+    """Device time per launch of `kernel` under torch.profiler (None when
+    the profiler shows no device time for it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if kernel in e.key and e.self_device_time_total > 0]
+    if not rows:
+        return None
+    return (sum(e.self_device_time_total for e in rows)
+            / sum(e.count for e in rows))
+
+
+def check_ring_append_rows(dev, cfg, n_slots: int):
+    """Kernel D at the engine's three ring shapes (flagship, 8192-sample
+    chunks), float32 and bfloat16, exact; timed at the enc_out append."""
+    import numpy as np
+    import torch
+
+    from speechcatcher_tpu_torch.ops.kernels.ring_append import (
+        ring_append_rows,
+        ring_append_rows_plain,
+    )
+
+    s = n_slots
+    d = cfg.encoder_dim
+    # (ring, T, D, TN): enc_out (ECAP_PAD rows), post (PCAP), raw (RCAP).
+    shapes = [("enc_out", 832, d, 40), ("post", 72, d, 16),
+              ("raw", 70, cfg.n_mels, 54)]
+    rng = np.random.default_rng(4)
+    errs = []
+    for name, t_cap, width, tn in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            cache0 = torch.from_numpy(rng.standard_normal(
+                (1, s, t_cap, width), dtype=np.float32)).to(dev, dtype)
+            new = torch.from_numpy(rng.standard_normal(
+                (1, s, tn, width), dtype=np.float32)).to(dev, dtype)
+            # Fill levels across the ring, counts 0..TN+3, one span hanging
+            # off the end.
+            start = rng.integers(0, t_cap - tn, size=s)
+            start[0], start[-1] = 0, t_cap - tn // 2
+            count = rng.integers(0, tn + 4, size=s)
+            count[1] = 0
+            start_t = torch.from_numpy(start.astype(np.int32)).to(dev)
+            count_t = torch.from_numpy(count.astype(np.int32)).to(dev)
+            got = ring_append_rows(cache0.clone(), new, start_t, count_t)
+            ref = ring_append_rows_plain(cache0.clone(), new, start_t,
+                                         count_t)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"ring_append_rows differs ({name}, {dtype})")
+            errs.append(float((got.float() - ref.float()).abs().max()))
+    # Timing: the flagship enc_out append of a first chunk at every slot.
+    t_cap, tn = 832, 40
+    cache = torch.zeros((1, s, t_cap, d), dtype=torch.float32, device=dev)
+    new = torch.randn((1, s, tn, d), device=dev)
+    start = torch.full((s,), 100, dtype=torch.int32, device=dev)
+    count = torch.full((s,), tn, dtype=torch.int32, device=dev)
+    s_idx = torch.arange(s, device=dev).repeat_interleave(tn)
+    t_idx = 100 + torch.arange(tn, device=dev).repeat(s)
+    vals = new[0].reshape(s * tn, d)
+
+    def library():
+        cache[0].index_put_((s_idx, t_idx), vals)
+
+    n_rows = int(count.sum())
+    b_ms, b_by = bound(2 * n_rows * d * 4 + 2 * s * 4, 0)
+    return {
+        "name": "ring_append_rows", "route": "cuda",
+        "source": "speechcatcher_tpu_torch/csrc/ring_append.cu",
+        "replaces": "speechcatcher_tpu/ops/pallas/ring_append.py:147",
+        "shape": [1, s, t_cap, d, tn], "max_abs_err": max(errs), "tol": 0.0,
+        "ms": cuda_ms(lambda: ring_append_rows(cache, new, start, count), 200),
+        "device_us": device_us(
+            lambda: ring_append_rows(cache, new, start, count),
+            "ring_append_rows_kernel"),
+        "plain_ms": cuda_ms(
+            lambda: ring_append_rows_plain(cache, new, start, count), 50),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(library, 200),
+        "library": "Tensor.index_put_ (precomputed indices)",
+    }
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -372,6 +469,295 @@ def small_reference(dev):
         fail("the card's decode differs from the CPU reference")
 
 
+# ---------------------------------------------------------------------------
+# Batched engine
+# ---------------------------------------------------------------------------
+
+def engine_streams(n: int, seconds, starts, int16_every: int, seed0: int,
+                   single=(), rate: int = 16000):
+    """Synthetic streams for drive_engine: audio (float32; the int16
+    quantised values for int16 streams), first tick, wire format and
+    whether the final goes through finalize() instead of finalize_batch."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    streams = []
+    for k in range(n):
+        audio = synth_audio(seconds[k], seed0 + k, rate=rate)
+        wire = "int16" if int16_every and k % int16_every == 0 else "float32"
+        if wire == "int16":
+            audio = (np.round(np.clip(audio, -1.0, 1.0) * 32767.0)
+                     .astype(np.int16).astype(np.float32) / 32767.0)
+        streams.append({"audio": audio, "start": int(starts[k]),
+                        "wire": wire, "single": k in single})
+    return streams
+
+
+def drive_engine(engine, streams, chunk: int, sync=None):
+    """Serve the streams through a StreamingEngine (the JAX package's or
+    the port's; they share the API). Stream k takes a free slot from tick
+    streams[k]["start"] on, in order; every tick feeds one chunk to each
+    stream with more than a chunk left; a stream with at most a chunk left
+    is finalized after that tick with its tail, together with the others
+    that end there (finalize_batch), or alone (finalize) where "single" is
+    set. Returns (finals {k: (yseq, xpos, score)}, tick seconds, slots
+    used per stream)."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.serve.wire import encode_chunk
+
+    waiting = list(range(len(streams)))
+    live = {}          # stream -> [slot, samples fed]
+    finals, tick_s, slot_of = {}, [], {}
+    t = 0
+    while waiting or live:
+        while waiting and streams[waiting[0]]["start"] <= t:
+            s = engine.acquire_slot()
+            if s is None:
+                break
+            k = waiting.pop(0)
+            live[k] = [s, 0]
+            slot_of[k] = s
+        batch = {}
+        for k, (s, pos) in live.items():
+            a = streams[k]["audio"]
+            if len(a) - pos > chunk:
+                batch[s] = encode_chunk(a[pos:pos + chunk],
+                                        streams[k]["wire"])
+                live[k][1] += chunk
+        if batch:
+            t0 = time.perf_counter()
+            engine.tick(batch)
+            if sync is not None:
+                sync()
+            tick_s.append(time.perf_counter() - t0)
+        done = [k for k, (s, pos) in live.items()
+                if len(streams[k]["audio"]) - pos <= chunk]
+
+        def tail(k):
+            return encode_chunk(streams[k]["audio"][live[k][1]:],
+                                streams[k]["wire"])
+
+        res = engine.finalize_batch({live[k][0]: tail(k) for k in done
+                                     if not streams[k]["single"]})
+        for k in done:
+            if streams[k]["single"]:
+                res[live[k][0]] = engine.finalize(live[k][0], tail(k))
+            if live[k][0] not in res:
+                fail(f"stream {k} was not finalized")
+            yseq, xpos, score = res[live[k][0]]
+            finals[k] = (np.asarray(yseq).astype(np.int64),
+                         np.asarray(xpos).astype(np.int64), float(score))
+            del live[k]
+        t += 1
+    return finals, tick_s, slot_of
+
+
+def single_stream_final(s2t, audio, chunk: int):
+    """The port's Speech2TextStreaming over the engine's chunking: full
+    chunks, then the tail (at most one chunk) as the final chunk."""
+    n_full = (len(audio) - 1) // chunk
+    for i in range(n_full):
+        s2t(audio[i * chunk:(i + 1) * chunk])
+    s2t.beam_search.process_block(
+        s2t.apply_frontend(audio[n_full * chunk:], s2t.frontend_states,
+                           True)[0], is_final=True)
+    yseq, xpos, score = s2t.beam_search.best_hypothesis()
+    s2t.reset()
+    return yseq.astype("int64"), xpos.astype("int64"), float(score)
+
+
+def _sync(dev):
+    import torch
+
+    return torch.cuda.synchronize if dev.type == "cuda" else None
+
+
+def engine_path(dev, counters, model=None, chunk: int = 8192):
+    """Ten streams of 3-6 s through the port's StreamingEngine at
+    n_slots=8, staggered, every other one int16; the last two wait for
+    freed slots; two finals go through finalize(). Each final must equal
+    the port's single-stream session on the same audio and chunking."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+
+    model = model or flagship_model(dev, seed=0)
+    n = 10
+    seconds = [3.0 + 3.0 * k / (n - 1) for k in range(n)]
+    streams = engine_streams(n, seconds, starts=[k // 2 for k in range(n)],
+                             int16_every=2, seed0=300, single=(3, 8),
+                             rate=model.cfg.sample_rate)
+    engine = StreamingEngine(model, n_slots=8, beam_size=5,
+                             chunk_samples=chunk, device=dev)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    finals, tick_s, slot_of = drive_engine(engine, streams, chunk,
+                                           sync=_sync(dev))
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    reused = len(slot_of) - len(set(slot_of.values()))
+    emit({"phase": "engine_path", "n_slots": 8, "streams": n,
+          "slots_reused": reused, "ticks": len(tick_s),
+          "p50_tick_ms": float(np.median(tick_s)) * 1e3,
+          "max_tick_ms": float(np.max(tick_s)) * 1e3,
+          "chunk_ms": chunk / model.cfg.sample_rate * 1e3,
+          "wall_s": wall, "audio_s": float(sum(seconds)),
+          "hbm_bytes_per_stream": engine.hbm_bytes_per_stream()["total"]})
+    emit({"phase": "engine_path_launches", **launches})
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched on the engine path")
+    if reused < 2:
+        fail(f"only {reused} streams reused a freed slot")
+
+    s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+    worst = 0.0
+    for k, st in enumerate(streams):
+        ry, rx, rs = single_stream_final(s2t, st["audio"], chunk)
+        ey, ex, es = finals[k]
+        rel = abs(es - rs) / max(1.0, abs(rs))
+        worst = max(worst, rel)
+        if not (np.array_equal(ey, ry) and np.array_equal(ex, rx)
+                and rel <= 1e-4):
+            fail(f"engine stream {k} ({st['wire']}, "
+                 f"{'finalize' if st['single'] else 'finalize_batch'}) "
+                 f"differs from the single-stream session: "
+                 f"{ey.tolist()} / {ry.tolist()}, score {es} / {rs}")
+    emit({"phase": "engine_vs_single_stream", "streams": n,
+          "tokens_equal": True, "xpos_equal": True,
+          "max_score_rel_err": worst,
+          "hyp_lens": [len(finals[k][0]) for k in range(n)]})
+    return launches
+
+
+def engine_load_point(dev, model, n_slots: int = 32, n_ticks: int = 12,
+                      chunk: int = 8192):
+    """All slots busy for about n_ticks ticks: tick time against the
+    chunk's duration (a tick slower than its chunk cannot keep up)."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+    seconds = [(n_ticks * chunk + 4000 + 37 * k) / model.cfg.sample_rate
+               for k in range(n_slots)]
+    streams = engine_streams(n_slots, seconds, starts=[0] * n_slots,
+                             int16_every=2, seed0=500,
+                             rate=model.cfg.sample_rate)
+    engine = StreamingEngine(model, n_slots=n_slots, beam_size=5,
+                             chunk_samples=chunk, device=dev)
+    t0 = time.perf_counter()
+    finals, tick_s, _ = drive_engine(engine, streams, chunk, sync=_sync(dev))
+    wall = time.perf_counter() - t0
+    chunk_ms = chunk / model.cfg.sample_rate * 1e3
+    bad = [k for k, (y, _, sc) in finals.items()
+           if len(y) < 2 or not math.isfinite(sc)]
+    if len(finals) != n_slots or bad:
+        fail(f"load point: bad finals for streams {bad}")
+    emit({"phase": "engine_load", "n_slots": n_slots, "ticks": len(tick_s),
+          "p50_tick_ms": float(np.median(tick_s)) * 1e3,
+          "max_tick_ms": float(np.max(tick_s)) * 1e3,
+          "chunk_ms": chunk_ms,
+          "p50_tick_over_chunk": float(np.median(tick_s)) * 1e3 / chunk_ms,
+          "final_batch_s": wall - float(np.sum(tick_s)),
+          "hbm_bytes_per_stream": engine.hbm_bytes_per_stream()["total"]})
+
+
+def engine_fixture_replay(dev):
+    """The engine fixture blessed by the JAX engine, replayed on the card."""
+    from speechcatcher_tpu_torch.config import ModelConfig, flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.params import params_checksum, random_params
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+    fx = json.loads(ENGINE_FIXTURE.read_text())
+    cfg = ModelConfig(**fx["cfg"])
+    if cfg != flagship_config():
+        fail("engine fixture config is not flagship_config()")
+    tree = random_params(cfg, fx["seed"])
+    if params_checksum(tree) != fx["weights_sha256"]:
+        fail("engine fixture weights checksum mismatch")
+    tree["decoder"]["output_layer"]["bias"][cfg.eos_id] += fx["eos_bias"]
+    tree["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += fx["blank_bias"]
+    model = ASRModel.from_numpy(cfg, tree, device=dev)
+    sp = fx["streams"]
+    streams = engine_streams(len(sp), [s["seconds"] for s in sp],
+                             [s["start"] for s in sp], fx["int16_every"],
+                             fx["audio_seed0"], rate=cfg.sample_rate)
+    engine = StreamingEngine(model, n_slots=fx["n_slots"],
+                             beam_size=fx["beam_size"],
+                             chunk_samples=fx["chunk_samples"], device=dev)
+    finals, _, _ = drive_engine(engine, streams, fx["chunk_samples"],
+                                sync=_sync(dev))
+    worst = 0.0
+    for k, ref in enumerate(fx["finals"]):
+        yseq, xpos, score = finals[k]
+        rel = abs(score - ref["score"]) / max(1.0, abs(ref["score"]))
+        worst = max(worst, rel)
+        if not (yseq.tolist() == ref["yseq"] and xpos.tolist() == ref["xpos"]
+                and rel <= 1e-4):
+            fail(f"engine fixture stream {k} disagrees with the JAX engine: "
+                 f"{yseq.tolist()} / {ref['yseq']}")
+    emit({"phase": "engine_fixture", "streams": len(sp), "tokens_equal": True,
+          "xpos_equal": True, "max_score_rel_err": worst,
+          "hyp_lens": [len(f["yseq"]) for f in fx["finals"]]})
+
+
+def profile_engine(dev):
+    """torch.profiler over warm engine ticks at S=8: device time by kernel
+    and the device's idle share of the ticks' wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+    model = flagship_model(dev, seed=0)
+    chunk = 8192
+    seconds = [(10 * chunk + 3000) / model.cfg.sample_rate] * 8
+    streams = engine_streams(8, seconds, [0] * 8, 2, 700,
+                             rate=model.cfg.sample_rate)
+    engine = StreamingEngine(model, n_slots=8, beam_size=5,
+                             chunk_samples=chunk, device=dev)
+    drive_engine(engine, streams, chunk, sync=_sync(dev))  # warm-up
+    engine = StreamingEngine(model, n_slots=8, beam_size=5,
+                             chunk_samples=chunk, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, tick_s, _ = drive_engine(engine, streams, chunk, sync=_sync(dev))
+        wall = time.perf_counter() - t0
+    report_profile(prof, {"phase": "profile_engine", "n_slots": 8,
+                          "ticks": len(tick_s),
+                          "tick_wall_ms": sum(tick_s) * 1e3}, wall)
+
+
+def report_profile(prof, head: dict, wall: float):
+    """Emit device busy time, idle share and the largest kernels of a
+    torch.profiler run (device events only: a CPU op's row repeats its
+    kernels' time)."""
+    import torch
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    emit(head | {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+                 "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
+                 "device_kernels": sum(e.count for e in rows)})
+    ours = ("block_attention_kernel", "ctc_forward_recursion_kernel",
+            "ring_append_cols_kernel", "ring_append_rows_kernel")
+    for i, e in enumerate(rows):
+        if i >= 12 and not any(k in e.key for k in ours):
+            continue
+        emit({"phase": head["phase"] + "_kernel", "name": e.key[:90],
+              "count": e.count, "device_ms": e.self_device_time_total / 1e3,
+              "share": e.self_device_time_total / busy_us})
+
+
 def profile_utterance(dev):
     """torch.profiler over one warm 6 s utterance of the main path: device
     busy time by kernel and the device's idle share of the wall time."""
@@ -391,29 +777,15 @@ def profile_utterance(dev):
         decode_chunked(s2t, audio, model.cfg.sample_rate)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # Device-side events only: a CPU op's row repeats its kernels' time.
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    emit({"phase": "profile", "audio_s": 6.0, "wall_ms": wall * 1e3,
-          "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
-          "device_kernels": sum(e.count for e in rows)})
-    ours = ("block_attention_kernel", "ctc_forward_recursion_kernel",
-            "ring_append_cols_kernel")
-    for i, e in enumerate(rows):
-        if i >= 12 and not any(k in e.key for k in ours):
-            continue
-        emit({"phase": "profile_kernel", "name": e.key[:90],
-              "count": e.count, "device_ms": e.self_device_time_total / 1e3})
+    report_profile(prof, {"phase": "profile", "audio_s": 6.0}, wall)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one main-path utterance, then stop")
+    ap.add_argument("--profile", nargs="?", const="utterance",
+                    choices=("utterance", "engine"),
+                    help="profile one main-path utterance (default) or "
+                    "engine ticks at S=8, then stop")
     args = ap.parse_args()
 
     import torch
@@ -432,6 +804,7 @@ def main() -> int:
     )
     from speechcatcher_tpu_torch.ops.kernels.ring_append import (
         ring_append_cols,
+        ring_append_rows,
     )
 
     dev = resolve_device("cuda")
@@ -447,29 +820,43 @@ def main() -> int:
     emit({"phase": "build", "seconds": lib.build_seconds, "built": lib.built,
           "library": str(lib.path.relative_to(ROOT))})
 
-    if args.profile:
+    if args.profile == "utterance":
         profile_utterance(dev)
+        return 0
+    if args.profile == "engine":
+        profile_engine(dev)
         return 0
     cfg = flagship_config()
     # Main-path shapes: 0.5 s chunks give the encoder one block per step
     # mostly, two on some; the beam is 5; each block appends hop_size frames.
+    # The engine's ring appends are timed at its enc_out shape with 8 slots.
     check_block_attention(dev, cfg, n_blocks=2)
     kernels = [
         check_block_attention(dev, cfg, n_blocks=1),
         check_ctc_recursion(dev, cfg, beam=5),
         check_ring_append(dev, cfg, n_new=cfg.hop_size),
+        check_ring_append_rows(dev, cfg, n_slots=8),
     ]
     for k in kernels:
         emit({"phase": "kernel", **k})
-    counters = [block_attention, ctc_forward_recursion, ring_append_cols]
-    launches = main_path(dev, counters)
+    counters = [block_attention, ctc_forward_recursion, ring_append_cols,
+                ring_append_rows]
+    by_path = {"utterance": main_path(dev, counters[:3])}
     fixture_replay(dev)
     small_reference(dev)
+    model = flagship_model(dev, seed=0)
+    by_path["engine"] = engine_path(dev, counters, model)
+    engine_fixture_replay(dev)
+    engine_load_point(dev, model)
     summary = []
     for k in kernels:
+        name = k["name"]
         summary.append({key: k[key] for key in (
             "name", "route", "source", "replaces")} | {
-            "launches": launches[k["name"]], "max_abs_err": k["max_abs_err"],
+            "launches": by_path["engine"][name],
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})

@@ -88,9 +88,8 @@ def init_beam_arrays(cfg: ModelConfig, n_streams: int, beam: int,
                        device=device)
     score[:, 0] = 0.0
     ctc = init_ctc_state(n_streams, beam, cfg.max_enc_frames, cfg.vocab_size,
-                         device, ring_dtype=cfg.ctc_ring_torch_dtype)
-    if snapshot:
-        ctc = ctc._replace(logp=_empty_ring(ctc.logp))
+                         device, ring_dtype=cfg.ctc_ring_torch_dtype,
+                         empty_ring=snapshot)
     zeros = torch.zeros((n_streams, beam), dtype=torch.float32, device=device)
     return BeamArrays(
         yseq=yseq,
@@ -218,8 +217,9 @@ def _beam_step_core(
     )
 
 
-def _sel0(m: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return torch.where(m.reshape((m.shape[0],) + (1,) * (x.dim() - 1)), x, y)
+def _sel0(m: torch.Tensor, x, y: torch.Tensor) -> torch.Tensor:
+    """where over the leading stream axis (x may be a scalar)."""
+    return torch.where(m.reshape((m.shape[0],) + (1,) * (y.dim() - 1)), x, y)
 
 
 def select_arrays(mask: torch.Tensor, a: BeamArrays, b: BeamArrays

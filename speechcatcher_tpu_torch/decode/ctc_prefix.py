@@ -39,10 +39,13 @@ class CTCScorerState(NamedTuple):
 
 def init_ctc_state(n_streams: int, beam: int, t_cap: int, vocab: int,
                    device: torch.device,
-                   ring_dtype: torch.dtype = torch.float32) -> CTCScorerState:
+                   ring_dtype: torch.dtype = torch.float32,
+                   empty_ring: bool = False) -> CTCScorerState:
+    """Fresh scorer state; empty_ring=True gives an (S, 0, 0) log-prob ring
+    (beam snapshots, slot resets), which allocates nothing."""
+    ring_shape = (n_streams, 0, 0) if empty_ring else (n_streams, vocab, t_cap)
     return CTCScorerState(
-        logp=torch.zeros((n_streams, vocab, t_cap), dtype=ring_dtype,
-                         device=device),
+        logp=torch.zeros(ring_shape, dtype=ring_dtype, device=device),
         enc_len=torch.zeros((n_streams,), dtype=torch.int32, device=device),
         r=torch.full((n_streams, beam, 2, t_cap), LOGZERO,
                      dtype=torch.float32, device=device),

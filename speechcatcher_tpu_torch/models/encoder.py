@@ -76,15 +76,20 @@ def apply_layers_infer(
     past_ctx: torch.Tensor,      # (B, L, d)
     has_past_ctx: torch.Tensor,  # (B,) bool
     n_head: int,
+    last_block: Optional[torch.Tensor] = None,  # (B,) last VALID block
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming layer stack with context propagation.
 
     Returns (ys_chunk (B, bn, bs+2, d), next_ctx (B, L, d)). After each
     layer, position 0 of block 0 takes the carried context (or the block's
     own last frame on the first chunk) and position 0 of block i takes block
-    i-1's last frame."""
+    i-1's last frame. The carried context is the last frame of block
+    ``last_block[b]`` (default: the last block); the batched engine passes
+    each stream's bn-1 when its trailing blocks are padding."""
     b, bn, w, d = xs_chunk.shape
     x = xs_chunk
+    rows = None if last_block is None else (
+        torch.arange(b, device=x.device), last_block.long())
     next_ctx = []
     for l, p_layer in enumerate(layers):
         h = _attn_ffn(p_layer, x.reshape(b * bn, w, d), mask, n_head)
@@ -93,7 +98,8 @@ def apply_layers_infer(
                                 x[:, 0, -1, :])
         shifted = torch.cat([first_ctx[:, None, :], x[:, :-1, -1, :]], dim=1)
         x[:, :, 0, :] = shifted  # x is this layer's fresh output
-        next_ctx.append(x[:, -1, -1, :])
+        next_ctx.append(x[:, -1, -1, :] if rows is None
+                        else x[rows[0], rows[1], -1, :])
     return x, torch.stack(next_ctx, dim=1)
 
 

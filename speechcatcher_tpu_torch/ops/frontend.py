@@ -55,7 +55,16 @@ def logmel_frontend(waveform: torch.Tensor, window: torch.Tensor,
                     inv_std: torch.Tensor, n_fft: int = 512,
                     hop: int = 160) -> torch.Tensor:
     """(B, S) float32 waveform → (B, frames, n_mels) normalized log-mel."""
-    frames = frame_signal(waveform, n_fft, hop) * window
+    return logmel_of_frames(frame_signal(waveform, n_fft, hop), window,
+                            mel_fb, mean, inv_std, n_fft)
+
+
+def logmel_of_frames(frames: torch.Tensor, window: torch.Tensor,
+                     mel_fb: torch.Tensor, mean: torch.Tensor,
+                     inv_std: torch.Tensor, n_fft: int = 512) -> torch.Tensor:
+    """(B, frames, n_fft) unwindowed frames → (B, frames, n_mels)
+    normalized log-mel."""
+    frames = frames * window
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     power = spec.real.square() + spec.imag.square()
     # Full-f32 mel projection (TF32 is off in every entry point).

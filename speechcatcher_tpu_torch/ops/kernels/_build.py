@@ -39,6 +39,7 @@ _SIGNATURES = {
     "sc_ctc_forward_recursion": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "sc_ring_append_cols_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sc_ring_append_cols_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sc_ring_append_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

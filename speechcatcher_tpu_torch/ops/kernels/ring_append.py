@@ -1,14 +1,18 @@
-"""In-place column append on the time-minor CTC log-prob ring.
+"""In-place appends on the engine's rings: columns of the time-minor CTC
+log-prob ring and rows of the (L, S, T, D) frame rings.
 
-Port of ``speechcatcher_tpu/ops/pallas/ring_append.py::ring_append_cols``
-(``pallas_call`` at :227):
-``ring[s, :, start[s]+i] = new[s, :, i]`` for ``i < min(n_new[s], TN)``,
-``start`` clipped to [0, T-1], columns at or past T dropped.
+Ports of ``speechcatcher_tpu/ops/pallas/ring_append.py``:
 
-The ring is written IN PLACE (the JAX version donates it) and returned. On a
-CUDA tensor the wrapper launches ``csrc/ring_append.cu`` (one thread per
-written element; only the written columns move). On a CPU tensor it runs
-``ring_append_cols_plain``. float32 and bfloat16 rings.
+- ``ring_append_cols`` (``pallas_call`` at :227):
+  ``ring[s, :, start[s]+i] = new[s, :, i]`` for ``i < min(n_new[s], TN)``;
+- ``ring_append_rows`` (``pallas_call`` at :147):
+  ``cache[l, s, start[s]+i, :] = new[l, s, i, :]`` for the same ``i``.
+
+``start`` is clipped to [0, T-1] and whatever lands at or past T is dropped.
+The ring is written IN PLACE (the JAX versions donate it) and returned. On a
+CUDA tensor each wrapper launches its kernel in ``csrc/ring_append.cu``
+(only the written elements move); on a CPU tensor it runs its ``*_plain``
+twin. float32 and bfloat16 rings.
 """
 
 from __future__ import annotations
@@ -66,3 +70,67 @@ def ring_append_cols(ring: torch.Tensor, new: torch.Tensor,
 
 
 ring_append_cols.launches = 0
+
+
+def ring_append_rows_plain(cache, new, start, n_new):
+    """Plain PyTorch version; writes into ``cache`` and returns it."""
+    _, s_dim, t_cap, _ = cache.shape
+    tn = new.shape[2]
+    starts = start.clamp(0, t_cap - 1).tolist()
+    counts = n_new.tolist()
+    for s in range(s_dim):
+        cnt = max(0, min(int(counts[s]), tn, t_cap - starts[s]))
+        if cnt:
+            cache[:, s, starts[s]:starts[s] + cnt] = new[:, s, :cnt].to(
+                cache.dtype)
+    return cache
+
+
+def _unit_bytes(row_bytes: int, *ptrs: int) -> int:
+    """The widest copy unit (16, 4 or 2 bytes) that divides the row pitch
+    and both base addresses."""
+    for unit in (16, 4, 2):
+        if row_bytes % unit == 0 and all(p % unit == 0 for p in ptrs):
+            return unit
+    raise ValueError(f"ring_append_rows: rows of {row_bytes} B are not "
+                     "2-byte aligned")
+
+
+def ring_append_rows(cache: torch.Tensor, new: torch.Tensor,
+                     start: torch.Tensor, n_new: torch.Tensor) -> torch.Tensor:
+    """cache (L, S, T, D) float32/bfloat16, modified in place; new
+    (L, S, TN, D) of the cache's dtype; start, n_new (S,) int32. Returns
+    cache."""
+    if (cache.dim() != 4 or new.dim() != 4 or new.shape[:2] != cache.shape[:2]
+            or new.shape[3] != cache.shape[3]):
+        raise ValueError(f"ring_append_rows: cache (L, S, T, D) and new "
+                         f"(L, S, TN, D) expected, got {tuple(cache.shape)} "
+                         f"and {tuple(new.shape)}")
+    l_dim, s_dim, t_cap, d_dim = cache.shape
+    if start.shape != (s_dim,) or n_new.shape != (s_dim,):
+        raise ValueError("ring_append_rows: start and n_new must be (S,)")
+    if t_cap == 0:
+        raise ValueError("ring_append_rows: the ring holds no rows")
+    if cache.dtype not in _ENTRY:
+        raise TypeError(f"ring_append_rows: cache dtype {cache.dtype} "
+                        "unsupported")
+    if cache.device.type == "cpu":
+        return ring_append_rows_plain(cache, new, start, n_new)
+    if new.dtype != cache.dtype:
+        raise TypeError(f"ring_append_rows: new is {new.dtype}, cache is "
+                        f"{cache.dtype}")
+    for name, a in (("start", start), ("n_new", n_new)):
+        if a.dtype != torch.int32:
+            raise TypeError(f"ring_append_rows: {name} must be int32")
+    _build.check_cuda("ring_append_rows", cache, new, start, n_new)
+    row_bytes = d_dim * cache.element_size()
+    unit = _unit_bytes(row_bytes, cache.data_ptr(), new.data_ptr())
+    lib = _build.library()
+    lib.call("sc_ring_append_rows", cache.data_ptr(), new.data_ptr(),
+             start.data_ptr(), n_new.data_ptr(), l_dim, s_dim, t_cap,
+             new.shape[2], row_bytes, unit, _build.stream_ptr(cache))
+    ring_append_rows.launches += 1
+    return cache
+
+
+ring_append_rows.launches = 0

@@ -1,0 +1,1274 @@
+"""Batched multi-stream streaming engine: S concurrent sessions, one card.
+
+Port of ``speechcatcher_tpu/serve/engine.py``. S streams share one copy of
+the weights and advance in lockstep ticks. Every device computation is
+batched over the stream axis with fixed capacity shapes and per-stream
+length masks.
+
+- All length bookkeeping (buffer fills, block counts, beam-round schedule)
+  is host-side numpy: lengths are data-independent functions of the
+  per-stream chunk counts. The encode and each beam round upload their
+  per-stream integers in one packed (K, S) int32 transfer each.
+- Device state is capacity-padded: waveform carry, pre/post-subsample
+  feature carries, the emitted-encoder-frame ring ``enc_out``, the CTC
+  log-prob ring and forward variables, beam arrays, the decoder cache.
+- A tick encodes every consuming stream, then runs beam rounds in a plain
+  host loop over the host-known schedule (``_round_schedule``): each round
+  makes one block visible to the ready streams (``ctc_log_softmax`` →
+  ``ctc_extend`` → ``decode_block_device``); the other streams' state passes
+  through unchanged (masked lockstep).
+- Finals go through ``finalize_batch`` (a compact copy of the finishing
+  slots: batched final encode, drain and final rounds) or ``finalize`` (the
+  slot's state injected into the single-stream beam search).
+
+Every per-stream ring append (the ``raw`` and ``post`` feature carries and
+``enc_out``) is the ``ring_append_rows`` kernel, in place. Appends never
+reach past a ring's capacity: the capacities are sized for it and the host
+asserts it from its counters before each append, since the kernel drops
+rows past the end where the JAX one-hot scatter clipped them to the last.
+
+In place, and why it is safe: the engine's rings (``raw``, ``post``,
+``enc_out``, the CTC log-prob ring, the decoder cache) are written in place
+and no snapshot holds them; every other field is replaced by new tensors.
+``finalize`` clones what the single-stream finalizer writes (its memory
+ring, CTC ring and decoder cache), so nothing lands in the engine's rings
+through a view.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from speechcatcher_tpu_torch.config import ModelConfig
+from speechcatcher_tpu_torch.decode.beam_search import (
+    BeamArrays,
+    BlockDecodeState,
+    BlockwiseSynchronousBeamSearch,
+    _sel0,
+    decode_block_device,
+    init_beam_arrays,
+    select_arrays,
+)
+from speechcatcher_tpu_torch.decode.ctc_prefix import (
+    CTCScorerState,
+    ctc_extend,
+)
+from speechcatcher_tpu_torch.device import resolve_device
+from speechcatcher_tpu_torch.models.asr_model import ASRModel
+from speechcatcher_tpu_torch.models.ctc import ctc_log_softmax
+from speechcatcher_tpu_torch.models.decoder import (
+    DecoderCache,
+    init_decoder_cache,
+)
+from speechcatcher_tpu_torch.models.encoder import (
+    EncoderState,
+    apply_layers_infer,
+    block_attention_mask,
+    conv2d_subsample,
+    subsampled_len,
+)
+from speechcatcher_tpu_torch.ops.frontend import (
+    logmel_frontend,
+    logmel_of_frames,
+)
+from speechcatcher_tpu_torch.ops.kernels.ring_append import ring_append_rows
+from speechcatcher_tpu_torch.ops.layers import layer_norm
+from speechcatcher_tpu_torch.params import CONV_SPECS
+from speechcatcher_tpu_torch.serve.wire import mulaw_decode as _mulaw_decode
+
+logger = logging.getLogger(__name__)
+
+# uint8 wire expansion table: one row per mu-law code, computed by the same
+# host function clients use, so the uint8 ingest equals host decoding
+# bit for bit.
+_MULAW_TABLE = _mulaw_decode(np.arange(256, dtype=np.uint8))
+
+
+class EngineBuffers(NamedTuple):
+    """Device-resident per-stream buffers (fixed capacities)."""
+
+    wave: torch.Tensor        # (S, WCAP) waveform carry, right-aligned
+    raw: torch.Tensor         # (S, RCAP, n_mels) pre-subsample feature carry
+    post: torch.Tensor        # (S, PCAP, d) post-subsample frame carry
+    prev_addin: torch.Tensor  # (S, 1, d)
+    past_ctx: torch.Tensor    # (S, L, d)
+    enc_out: torch.Tensor     # (S, ECAP_PAD, d) emitted encoder frames
+
+
+def _roll_left(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """Per-stream circular left roll along axis 1; shift (S,) integer."""
+    n = x.shape[1]
+    idx = (torch.arange(n, device=x.device)[None, :]
+           + shift.long()[:, None]) % n
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(x.shape)
+    return x.gather(1, idx)
+
+
+def _scatter_append(buf: torch.Tensor, new: torch.Tensor,
+                    offset: torch.Tensor, n_valid: torch.Tensor
+                    ) -> torch.Tensor:
+    """buf[s, offset[s] + i] = new[s, i] for i < n_valid[s], in place
+    (``ring_append_rows`` with L = 1). offset, n_valid: (S,) int32."""
+    ring_append_rows(buf[None], new[None].to(buf.dtype).contiguous(), offset,
+                     n_valid)
+    return buf
+
+
+def _assert_fits(name: str, fill: np.ndarray, add: np.ndarray,
+                 cap: int) -> None:
+    """Host check that an append stays inside its ring."""
+    over = np.asarray(fill) + np.asarray(add) > cap
+    if over.any():
+        raise AssertionError(
+            f"{name} append past capacity {cap}: fill {np.asarray(fill)[over]}"
+            f" + {np.asarray(add)[over]}")
+
+
+# ---------------------------------------------------------------------------
+# Tick computations
+# ---------------------------------------------------------------------------
+
+def _tick_frontend(wave, audio, wave_len, trim_start, keep_from, keep_len,
+                   window, mel_fb, mean, inv_std, n_fft: int, hop: int):
+    """Waveform-carry concat + log-mel + per-stream trim alignment.
+
+    Returns (feats (S, FCAP, n_mels) valid from index 0, new wave (S, WCAP)
+    holding the carry right-aligned)."""
+    wcap = wave.shape[1]
+    combined = torch.cat([wave, audio], dim=1)                  # (S, WCAP+A)
+    combined = _roll_left(combined, wcap - wave_len)            # data at 0
+    feats = logmel_frontend(combined, window, mel_fb, mean, inv_std,
+                            n_fft=n_fft, hop=hop)
+    feats = _roll_left(feats, trim_start)                       # valid at 0
+    # Right-aligned, so next tick's (wcap - wave_len) roll lands the data at
+    # position 0 of the combined window.
+    new_wave = _roll_left(combined, keep_from + keep_len - wcap)[:, :wcap]
+    return feats, new_wave.contiguous()
+
+
+def _tick_subsample(p_embed, raw, feats, raw_len, n_feats, consumed,
+                    cfg: ModelConfig):
+    """Append feats to the raw carry (in place), run the conv subsampling
+    over the whole capacity. The conv is translation-invariant with VALID
+    padding, so the frames it gives over the padded buffer are exactly those
+    of slicing first. Returns (sub (S, SUBCAP, d), new raw)."""
+    _scatter_append(raw, feats, raw_len, n_feats)
+    sub = conv2d_subsample(p_embed, raw, cfg.input_layer)
+    return sub, _roll_left(raw, consumed)
+
+
+def _block_inputs(pe, post, npb, has_prev, prev_addin, cfg: ModelConfig,
+                  maxb: int, post_total=None):
+    """Assemble (S, maxb, bs+2, d) block inputs from the post carry.
+
+    Blocks i = 0..maxb-1 start at i*hop. With post_total (final blocks),
+    frames past each stream's end are masked: the add-in averages only the
+    valid frames and padding stays exactly zero after the PE. Returns
+    (xs_chunk, addins (S, maxb, 1, d))."""
+    d = cfg.encoder_dim
+    bs, hop = cfg.block_size, cfg.hop_size
+    sqrt_d = math.sqrt(d)
+    pcap = post.shape[1]
+    npb = npb.long()
+    chunks, addins = [], []
+    for i in range(maxb):
+        st = min(i * hop, pcap - bs)   # the JAX slice clamps the same way
+        blk = post[:, st:st + bs]
+        if post_total is None:
+            fmask = None
+            addin = (blk.mean(dim=1, keepdim=True) if cfg.init_average
+                     else blk.amax(dim=1, keepdim=True))
+        else:
+            cl = (post_total.long() - i * hop).clamp(1, bs)
+            fmask = (torch.arange(bs, device=post.device)[None, :]
+                     < cl[:, None])[:, :, None]
+            blk = torch.where(fmask, blk, 0.0)
+            if cfg.init_average:
+                addin = blk.sum(dim=1, keepdim=True) / cl[:, None, None]
+            else:
+                addin = torch.where(fmask, blk, -math.inf).amax(
+                    dim=1, keepdim=True)
+        if cfg.ctx_pos_enc:
+            pe_a = pe[(npb + i).clamp(0, pe.shape[0] - 1)]
+            addin = addin * sqrt_d + pe_a[:, None, :]
+        addins.append(addin)
+        start = (i * hop + hop * npb).clamp(0, pe.shape[0] - bs)
+        pe_c = pe[start[:, None] + torch.arange(bs, device=pe.device)]
+        chunk = blk * sqrt_d + pe_c
+        if fmask is not None:
+            chunk = torch.where(fmask, chunk, 0.0)
+        chunks.append(chunk)
+    first_prev = torch.where(has_prev[:, None, None], prev_addin, addins[0])
+    prev_list = [first_prev] + addins[:-1]
+    xs_chunk = torch.stack(
+        [torch.cat([prev_list[i], chunks[i], addins[i]], dim=1)
+         for i in range(maxb)], dim=1)
+    return xs_chunk, torch.stack(addins, dim=1)
+
+
+def _tick_blocks(p_enc, pe, mask, post, bn, npb, has_prev, has_past,
+                 prev_addin, past_ctx, enc_out, buf_len, emitted,
+                 cfg: ModelConfig, maxb: int):
+    """Run up to ``maxb`` FULL blocks per stream (streaming path) and append
+    the emitted frames to enc_out in place. Returns (new post, new
+    prev_addin, new past_ctx)."""
+    s = post.shape[0]
+    d = cfg.encoder_dim
+    bs, hop, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
+    offset = bs - la - hop
+    xs_chunk, addins = _block_inputs(pe, post, npb, has_prev, prev_addin, cfg,
+                                     maxb)
+    any_blocks = bn > 0
+    last_idx = (bn.long() - 1).clamp(0, maxb - 1)
+    ys_chunk, next_ctx = apply_layers_infer(
+        p_enc["layers"], xs_chunk, mask, past_ctx, has_past,
+        cfg.encoder_heads, last_block=last_idx)
+    ys_chunk = ys_chunk[:, :, 1:bs + 1, :]                      # (S,maxb,bs,d)
+
+    # Context and add-in carry come from each stream's LAST VALID block;
+    # streams with bn == 0 keep their state.
+    rows = torch.arange(s, device=post.device)
+    new_prev_addin = torch.where(any_blocks[:, None, None],
+                                 addins[rows, last_idx], prev_addin)
+    new_past_ctx = torch.where(any_blocks[:, None, None], next_ctx, past_ctx)
+
+    # Emission staging: a stream's first chunk also emits the leading
+    # `offset` frames of block 0.
+    lead = ys_chunk[:, 0, 0:offset, :]
+    body = torch.cat([ys_chunk[:, i, offset:offset + hop, :]
+                      for i in range(maxb)], dim=1)
+    first = npb == 0
+    stage_first = torch.cat([lead, body], dim=1)
+    stage_later = torch.cat(
+        [body, torch.zeros((s, offset, d), dtype=post.dtype,
+                           device=post.device)], dim=1)
+    staging = torch.where(first[:, None, None], stage_first, stage_later)
+    if cfg.normalize_before:
+        staging = layer_norm(p_enc["after_norm"], staging)
+    _scatter_append(enc_out, staging, buf_len, emitted)
+    return _roll_left(post, bn * hop), new_prev_addin, new_past_ctx
+
+
+def _final_frontend(wave, audio, wave_len, total_p, trim_start, window,
+                    mel_fb, mean, inv_std, n_fft: int, hop: int, fcap: int):
+    """Exact-length final frontend, batched over the capacity buffers.
+
+    The final chunk runs the exact-length STFT of the reference
+    (``apply_frontend`` final): centre reflect padding at the TRUE end of
+    each stream's audio, zero padding to win_length for short tails, no
+    trailing trim. The right reflection is the reversed pre-end tail written
+    at each stream's end; the left one is static (data starts at 0)."""
+    s, wcap = wave.shape
+    dev = wave.device
+    combined = torch.cat([wave, audio], dim=1)
+    combined = _roll_left(combined, wcap - wave_len)            # data at 0
+    n = combined.shape[1]
+    total_p = total_p.long()
+    combined = torch.where(
+        torch.arange(n, device=dev)[None, :] < total_p[:, None], combined, 0.0)
+    pad = n_fft // 2
+    combined = torch.cat(
+        [combined, torch.zeros((s, pad), dtype=combined.dtype, device=dev)],
+        dim=1)                                                  # (S, n+pad)
+    j = torch.arange(pad, device=dev)[None, :]
+    # x[tp-2], x[tp-3], ... (total_p ≥ win_length > pad: checked at init).
+    tail = combined.gather(1, (total_p - 1 - pad).clamp(min=0)[:, None]
+                           + (pad - 1 - j))
+    combined = combined.scatter(1, total_p[:, None] + j, tail)
+    left = combined[:, 1:pad + 1].flip(1)                       # x[-i] = x[i]
+    padded = torch.cat([left, combined], dim=1)                 # (S, n+2pad)
+    feats = logmel_of_frames(padded.unfold(1, n_fft, hop)[:, :fcap], window,
+                             mel_fb, mean, inv_std, n_fft)
+    return _roll_left(feats, trim_start)                        # valid at 0
+
+
+def _final_blocks(p_enc, pe, mask, post, bn, npb, has_prev, has_past,
+                  prev_addin, past_ctx, enc_out, buf_len, post_total, first,
+                  y_emit, cfg: ModelConfig, maxb: int):
+    """Final-block encoder step, batched: the single-stream is_final
+    semantics (short last block masked in the add-in average and zero after
+    the PE; each block emits hop frames, the last one the remainder).
+    Appends the emitted frames to enc_out in place."""
+    s = post.shape[0]
+    d = cfg.encoder_dim
+    bs, hop, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
+    offset = bs - la - hop
+    dev = post.device
+    xs_chunk, _ = _block_inputs(pe, post, npb, has_prev, prev_addin, cfg,
+                                maxb, post_total=post_total)
+    last_idx = (bn.long() - 1).clamp(0, maxb - 1)
+    ys_chunk, _ = apply_layers_infer(
+        p_enc["layers"], xs_chunk, mask, past_ctx, has_past,
+        cfg.encoder_heads, last_block=last_idx)
+    ys_chunk = ys_chunk[:, :, 1:bs + 1, :]                      # (S,maxb,bs,d)
+
+    # Emission gather: emitted position p maps back to (block, index in
+    # block); the lead `offset` frames of block 0 come first for first-chunk
+    # streams, and the last block emits up to hop + la frames.
+    stcap = offset + (maxb - 1) * hop + hop + la
+    p = torch.arange(stcap, device=dev)[None, :]
+    lead_n = torch.where(first, offset, 0)[:, None]
+    q = p - lead_n
+    blk = torch.minimum(torch.div(q, hop, rounding_mode="floor").clamp(min=0),
+                        last_idx[:, None])
+    idx_in = torch.where(q < 0, p, offset + q - blk * hop)
+    flat = (blk * bs + idx_in).clamp(0, maxb * bs - 1)          # (S, stcap)
+    ys_flat = ys_chunk.reshape(s, maxb * bs, d)
+    staging = ys_flat.gather(1, flat[:, :, None].expand(-1, -1, d))
+    if cfg.normalize_before:
+        staging = layer_norm(p_enc["after_norm"], staging)
+    _scatter_append(enc_out, staging, buf_len, y_emit)
+
+
+def _gather_new_frames(enc_out: torch.Tensor, vis_len: torch.Tensor,
+                       extcap: int) -> torch.Tensor:
+    """enc_out[s, vis[s] : vis[s] + extcap] per stream (garbage past the
+    valid range). enc_out carries extcap rows of tail padding, so the start
+    never clips: a clipped start would hand ctc_extend the wrong frames
+    near a full ring."""
+    start = vis_len.long().clamp(0, enc_out.shape[1] - extcap)
+    dev = enc_out.device
+    idx = start[:, None] + torch.arange(extcap, device=dev)[None]
+    return enc_out[torch.arange(enc_out.shape[0], device=dev)[:, None], idx]
+
+
+def _reset_program(mask: torch.Tensor, arrays: BeamArrays,
+                   prev_arrays: BeamArrays, buffers: EngineBuffers,
+                   prev_valid: torch.Tensor, process_idx: torch.Tensor,
+                   output_index: torch.Tensor, cfg: ModelConfig, beam: int):
+    """Fresh-session state for the masked slots, as new tensors.
+
+    Three large per-stream buffers are left as they are: the decoder cache
+    (a fresh session writes each position's rows before any step reads
+    them), the enc_out ring and the CTC log-prob ring (every read is bounded
+    by buf_len / ctc.enc_len, both reset, and a fresh session's appends
+    overwrite the rows before they are read)."""
+    fresh = init_beam_arrays(cfg, mask.shape[0], beam, mask.device,
+                             snapshot=True)
+    sel = select_arrays(mask, fresh, arrays)
+    arrays = sel._replace(ctc=sel.ctc._replace(logp=arrays.ctc.logp))
+    buffers = buffers._replace(**{
+        f: _sel0(mask, 0.0, getattr(buffers, f))
+        for f in buffers._fields if f != "enc_out"})
+    return (
+        arrays,
+        select_arrays(mask, fresh, prev_arrays),
+        buffers,
+        torch.where(mask, False, prev_valid),
+        torch.where(mask, 0, process_idx),
+        torch.where(mask, 0, output_index),
+    )
+
+
+def _rows_arrays(a: BeamArrays, rows: torch.Tensor) -> BeamArrays:
+    """Copies of the given streams' rows of every BeamArrays field."""
+    return BeamArrays(
+        yseq=a.yseq[rows], xpos=a.xpos[rows], lane=a.lane[rows],
+        ylen=a.ylen[rows], score=a.score[rows], score_dec=a.score_dec[rows],
+        score_ctc=a.score_ctc[rows],
+        ctc=CTCScorerState(logp=a.ctc.logp[rows], enc_len=a.ctc.enc_len[rows],
+                           r=a.ctc.r[rows], s=a.ctc.s[rows]),
+    )
+
+
+def _extract_rows(buffers: EngineBuffers, arrays: BeamArrays,
+                  prev_arrays: BeamArrays, dec_cache: DecoderCache,
+                  prev_valid, process_idx, output_index,
+                  rows: torch.Tensor, beam: int):
+    """Copy the state of F slots into a compact F-wide working set, so the
+    final encode, drain and final rounds run at width F, not S."""
+    l_dim, s_b, lmax, d = dec_cache.h.shape
+    h = dec_cache.h.reshape(l_dim, s_b // beam, beam, lmax, d)[:, rows]
+    return (
+        EngineBuffers(*[x[rows] for x in buffers]),
+        _rows_arrays(arrays, rows),
+        _rows_arrays(prev_arrays, rows),
+        DecoderCache(h=h.reshape(l_dim, rows.shape[0] * beam, lmax, d)),
+        prev_valid[rows],
+        process_idx[rows],
+        output_index[rows],
+    )
+
+
+def _gather_final_rows(arrays: BeamArrays) -> np.ndarray:
+    """Best hypothesis of every row, packed [ylen | yseq | xpos | score] in
+    float64 (token ids and positions are exact there) for one readback."""
+    return torch.cat([
+        arrays.ylen[:, None].double(),
+        arrays.yseq[:, 0].double(),
+        arrays.xpos[:, 0].double(),
+        arrays.score[:, 0, None].double(),
+    ], dim=1).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SlotCounters:
+    """Host-side per-slot bookkeeping (numpy, one entry per stream slot)."""
+
+    active: np.ndarray
+    first_wave: np.ndarray
+    wave_len: np.ndarray
+    raw_len: np.ndarray
+    post_len: np.ndarray
+    npb: np.ndarray
+    has_prev: np.ndarray
+    has_past: np.ndarray
+    buf_len: np.ndarray
+    vis_len: np.ndarray
+    processed_block: np.ndarray
+
+    @classmethod
+    def zeros(cls, s: int) -> "SlotCounters":
+        return cls(
+            active=np.zeros(s, bool),
+            first_wave=np.ones(s, bool),
+            wave_len=np.zeros(s, np.int64),
+            raw_len=np.zeros(s, np.int64),
+            post_len=np.zeros(s, np.int64),
+            npb=np.zeros(s, np.int64),
+            has_prev=np.zeros(s, bool),
+            has_past=np.zeros(s, bool),
+            buf_len=np.zeros(s, np.int64),
+            vis_len=np.zeros(s, np.int64),
+            processed_block=np.zeros(s, np.int64),
+        )
+
+    def reset_slot(self, s: int):
+        self.active[s] = False
+        self.first_wave[s] = True
+        for a in (self.wave_len, self.raw_len, self.post_len, self.npb,
+                  self.buf_len, self.vis_len, self.processed_block):
+            a[s] = 0
+        self.has_prev[s] = self.has_past[s] = False
+
+
+class StreamingEngine:
+    """S-slot batched streaming decoder (one model copy, one card)."""
+
+    def __init__(
+        self,
+        model: ASRModel,
+        n_slots: int = 8,
+        beam_size: int = 5,
+        ctc_weight: float = 0.3,
+        use_bbd: bool = True,
+        chunk_samples: int = 8192,
+        pre_beam_size: Optional[int] = None,
+        penalty: float = 0.0,
+        max_length: Optional[int] = None,
+        eos_commit: str = "native",
+        device: Union[str, torch.device] = "cuda",
+    ):
+        dev = resolve_device(device)
+        if model.device.type != dev.type:
+            raise ValueError(f"model lies on {model.device}, engine asked "
+                             f"for {dev}")
+        self.model = model
+        self.device = model.device
+        cfg = model.cfg
+        self.cfg = cfg
+        self.S = n_slots
+        self.beam = beam_size
+        self.ctc_weight = ctc_weight
+        self.use_bbd = use_bbd
+        self.pre_beam = min(pre_beam_size or cfg.pre_beam_size, cfg.vocab_size)
+        self.penalty = penalty
+        self.eos_commit = eos_commit
+        self.A = chunk_samples
+        # Per-utterance beam-step budget (each step pays an O(visible
+        # frames) CTC recursion).
+        self.max_length = min(max_length or cfg.max_tokens - 1,
+                              cfg.max_tokens - 1)
+
+        # Capacities. _final_frontend's right reflection needs its start
+        # total_p-1-pad ≥ 0, i.e. win_length > n_fft//2.
+        if cfg.win_length <= cfg.n_fft // 2:
+            raise ValueError(
+                "win_length must exceed n_fft//2 for the final-frontend "
+                f"reflection (got win_length={cfg.win_length}, "
+                f"n_fft={cfg.n_fft})")
+        self.WCAP = cfg.win_length  # carry ≤ win_length always
+        ccap = self.WCAP + self.A
+        self.FCAP = 1 + ccap // cfg.hop_length
+        self.RCAP = self.FCAP + 3 * cfg.subsample + 4
+        self.SUBCAP = subsampled_len(self.RCAP, cfg.input_layer)
+        # Blocks per tick: carry < block_size plus ≤ SUBCAP new frames.
+        self.MAXB = max(1, -(-self.SUBCAP // cfg.hop_size) + 1)
+        self.PCAP = max(
+            (self.MAXB - 1) * cfg.hop_size + cfg.block_size + cfg.hop_size,
+            cfg.block_size + self.SUBCAP,
+        )
+        self.ECAP = cfg.max_enc_frames
+        self.EXTCAP = cfg.block_size  # max frames made visible per round
+        # enc_out carries EXTCAP rows of tail padding so the new-frames
+        # gather never clips its start (see _gather_new_frames); writes are
+        # bounded to ECAP by the stall and overflow guards. Rounded to a
+        # multiple of 64 as in the JAX engine, so both rings have one shape.
+        self.ECAP_PAD = -(-(self.ECAP + self.EXTCAP) // 64) * 64
+
+        d = cfg.encoder_dim
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.buffers = EngineBuffers(
+            wave=torch.zeros((self.S, self.WCAP), **f32),
+            raw=torch.zeros((self.S, self.RCAP, cfg.n_mels), **f32),
+            post=torch.zeros((self.S, self.PCAP, d), **f32),
+            prev_addin=torch.zeros((self.S, 1, d), **f32),
+            past_ctx=torch.zeros((self.S, cfg.encoder_layers, d), **f32),
+            enc_out=torch.zeros((self.S, self.ECAP_PAD, d),
+                                dtype=cfg.enc_ring_torch_dtype, device=dev),
+        )
+        self.arrays = init_beam_arrays(cfg, self.S, beam_size, dev)
+        # The snapshot carries an EMPTY CTC log-prob ring (append-only,
+        # always read from the live arrays).
+        self.prev_arrays = init_beam_arrays(cfg, self.S, beam_size, dev,
+                                            snapshot=True)
+        # One lane-resident decoder cache for all hypotheses (rows are
+        # append-only; rollback restores the lane map instead).
+        self.dec_cache = init_decoder_cache(cfg, self.S * beam_size, dev)
+        self.prev_valid_dev = torch.zeros((self.S,), dtype=torch.bool,
+                                          device=dev)
+        self.process_idx_dev = torch.zeros((self.S,), dtype=torch.int32,
+                                           device=dev)
+        self.output_index_dev = torch.zeros((self.S,), dtype=torch.int32,
+                                            device=dev)
+        self.c = SlotCounters.zeros(self.S)
+        self._slot_clean = np.ones(self.S, bool)  # fresh-state slots
+
+        self.trim = math.ceil(math.ceil(cfg.win_length / cfg.hop_length) / 2)
+        self._mask = torch.from_numpy(
+            block_attention_mask(cfg.block_size)).to(dev)
+        self._mulaw = torch.from_numpy(_MULAW_TABLE).to(dev)
+        # Host upper bound on any stream's prefix length (from the per-tick
+        # readback).
+        self.ylen_upper = 1
+        self._last_packed: Optional[np.ndarray] = None
+        # Largest new-frames gather start of the last compact drain (-1
+        # until finalize_batch ran the compact path).
+        self._last_drain_max_start = -1
+        # Partials lag one tick: the last round's [ylen | best yseq] stays
+        # on the device until the next tick reads it. A slot reset between
+        # the two must not resurface the previous utterance's tokens for
+        # the session that reuses the slot: _reset_slots patches
+        # _last_packed, flags the slot stale and marks its pending row not
+        # fresh; tick() re-applies the stale mask after every read until a
+        # row computed after the reset arrives.
+        self._pending_packed: Optional[torch.Tensor] = None
+        self._pending_fresh: Optional[np.ndarray] = None
+        self._stale_partial = np.zeros(self.S, bool)
+
+        # Single-stream finalizer (shares the weights).
+        self._finalizer = BlockwiseSynchronousBeamSearch(
+            model, beam_size=beam_size, ctc_weight=ctc_weight,
+            use_bbd=use_bbd, penalty=penalty, max_length=self.max_length,
+            eos_commit=eos_commit,
+        )
+
+    def _ints(self, rows) -> torch.Tensor:
+        """One packed (K, n) int32 upload of per-stream host integers."""
+        return torch.from_numpy(
+            np.stack([np.asarray(r) for r in rows]).astype(np.int32)
+        ).to(self.device)
+
+    # ------------------------------------------------------------------
+    # Memory accounting
+    # ------------------------------------------------------------------
+    def hbm_bytes_per_stream(self) -> Dict[str, int]:
+        """Bytes of device state per stream slot, by component (weights
+        excluded: one copy, shared by all slots)."""
+        def tree_bytes(t) -> int:
+            if isinstance(t, torch.Tensor):
+                return t.numel() * t.element_size()
+            return sum(tree_bytes(x) for x in t)
+
+        per = {
+            "frontend_buffers": tree_bytes(self.buffers),
+            "beam_arrays": tree_bytes(self.arrays),
+            "rewind_snapshot": tree_bytes(self.prev_arrays),
+            "decoder_cache": tree_bytes(self.dec_cache),
+        }
+        return {k: v // self.S for k, v in per.items()} | {
+            "total": sum(per.values()) // self.S
+        }
+
+    # ------------------------------------------------------------------
+    # Slot management
+    # ------------------------------------------------------------------
+    def acquire_slot(self) -> Optional[int]:
+        free = np.flatnonzero(~self.c.active)
+        if len(free) == 0:
+            return None
+        # Prefer slots already reset (finalize_batch leaves them clean).
+        clean = free[self._slot_clean[free]]
+        s = int(clean[0]) if len(clean) else int(free[0])
+        if not self._slot_clean[s]:
+            self._reset_slot(s)
+        self.c.reset_slot(s)
+        self._slot_clean[s] = False
+        self.c.active[s] = True
+        return s
+
+    def release_slot(self, s: int):
+        self._reset_slot(s)
+
+    def slot_would_stall(self, s: int) -> bool:
+        """True when one more chunk could overflow the encoder ring: the
+        guard tick() applies before consuming a slot's audio (tick() skips
+        a stalled slot, so a chunk passed anyway is dropped)."""
+        cfg = self.cfg
+        offset = cfg.block_size - cfg.look_ahead - cfg.hop_size
+        emit_max = self.MAXB * cfg.hop_size + offset
+        return bool(self.c.buf_len[s] + emit_max > self.ECAP)
+
+    def _reset_slot(self, s: int):
+        self._reset_slots([s])
+
+    def _reset_slots(self, slots: List[int]):
+        """Reset several slots at once."""
+        mask = np.zeros(self.S, bool)
+        for s in slots:
+            self.c.reset_slot(s)
+            mask[s] = True
+        (self.arrays, self.prev_arrays, self.buffers, self.prev_valid_dev,
+         self.process_idx_dev, self.output_index_dev) = _reset_program(
+            torch.from_numpy(mask).to(self.device), self.arrays,
+            self.prev_arrays, self.buffers, self.prev_valid_dev,
+            self.process_idx_dev, self.output_index_dev, self.cfg, self.beam)
+        self._slot_clean[slots] = True
+        if self._last_packed is not None:
+            for s in slots:
+                self._last_packed[s, 0] = 1  # stale partials cleared
+        self._stale_partial[slots] = True
+        if self._pending_fresh is not None:
+            self._pending_fresh[slots] = False
+
+    # ------------------------------------------------------------------
+    # Tick
+    # ------------------------------------------------------------------
+    def tick(self, audio: Dict[int, np.ndarray]) -> Dict[int, List[int]]:
+        """Advance all streams by one chunk.
+
+        audio: slot → exactly `chunk_samples` samples: float32 in [-1, 1],
+        int16 PCM (normalised by /32767 on the device) or uint8 mu-law.
+        Returns slot → committed token ids of the best hypothesis (partial
+        output, one tick behind).
+        """
+        c = self.c
+        cfg = self.cfg
+        slots = sorted(k for k in audio if c.active[k])
+        if not slots:
+            return {}
+        do = np.zeros(self.S, bool)
+        dtypes = {np.asarray(audio[s]).dtype for s in slots}
+        if dtypes == {np.dtype(np.uint8)}:
+            # Fill 128 is the mu-law zero code.
+            wire_dtype: np.dtype = np.dtype(np.uint8)
+            audio_batch = np.full((self.S, self.A), 128, np.uint8)
+        else:
+            wire_dtype = (
+                np.dtype(np.int16)
+                if dtypes == {np.dtype(np.int16)}
+                else np.dtype(np.float32)
+            )
+            audio_batch = np.zeros((self.S, self.A), wire_dtype)
+        offset = cfg.block_size - cfg.look_ahead - cfg.hop_size
+        emit_max = self.MAXB * cfg.hop_size + offset
+        for s in slots:
+            chunk = audio[s]
+            if len(chunk) != self.A:
+                raise ValueError(f"tick requires chunks of {self.A} samples, "
+                                 f"slot {s} got {len(chunk)}")
+            # Capacity stall: a stream whose encoder ring could overflow
+            # stops consuming audio (slot_would_stall is this predicate).
+            if c.buf_len[s] + emit_max > self.ECAP:
+                continue
+            chunk = np.asarray(chunk)
+            if chunk.dtype != wire_dtype:
+                # Mixed-format tick: normalise stragglers to the batch
+                # dtype on the host.
+                if chunk.dtype == np.uint8:
+                    chunk = _mulaw_decode(chunk)
+                elif chunk.dtype == np.int16:
+                    chunk = chunk.astype(np.float32) / 32767.0
+                chunk = chunk.astype(wire_dtype)
+            audio_batch[s] = chunk
+            do[s] = True
+        if not do.any():
+            return {s: self.partial_tokens(s) for s in slots}
+
+        audio_dev = torch.from_numpy(audio_batch).to(self.device)
+        # Read the PREVIOUS tick's [ylen | best yseq]: partials lag one tick.
+        if self._pending_packed is not None:
+            self._last_packed = self._pending_packed.cpu().numpy()
+            self._pending_packed = None
+            if self._pending_fresh is not None:
+                # Rows computed after the slot's reset clear its staleness;
+                # rows computed before it stay masked.
+                self._stale_partial &= ~self._pending_fresh
+                self._pending_fresh = None
+            self._last_packed[self._stale_partial, 0] = 1
+
+        packed_dev = self._tick_device(audio_dev, do)
+        if packed_dev is not None:
+            self._pending_packed = packed_dev
+            # Every row reflects post-(any prior)reset state; _reset_slots
+            # un-marks rows if a reset lands before the read.
+            self._pending_fresh = np.ones(self.S, bool)
+
+        out: Dict[int, List[int]] = {}
+        drop = {self.cfg.blank_id, self.cfg.eos_id}
+        if self._last_packed is None:
+            return {s: [] for s in slots}
+        ylen = self._last_packed[:, 0]
+        self.ylen_upper = max(int(ylen.max()), 1)
+        best = self._last_packed[:, 1:]
+        for s in slots:
+            n = int(ylen[s])
+            out[s] = (
+                [int(t) for t in best[s, 1 : n - 1] if int(t) not in drop]
+                if n > 2
+                else []
+            )
+        return out
+
+    def _tick_device(self, audio_dev: torch.Tensor, do: np.ndarray
+                     ) -> Optional[torch.Tensor]:
+        """Device portion of one tick: the encode, then every beam round of
+        the host-known schedule. Returns the last round's packed
+        [ylen | best yseq] (None if no round ran)."""
+        bk = self._encode_bookkeeping(do)
+        rounds, vis_f, pb_f = self._round_schedule(do, bk["buf_new"])
+        self._encode(audio_dev, bk)
+        self._apply_encode_counters(bk)
+        if not rounds:
+            return None
+        st = self._decode_state()
+        for vis, new_vis, ready in rounds:
+            st = self._round(self.buffers.enc_out, st, vis, new_vis, ready,
+                             np.zeros(self.S, bool))
+        self._store_decode_state(st)
+        self.c.vis_len = vis_f
+        self.c.processed_block = pb_f
+        a = self.arrays
+        return torch.cat([a.ylen[:, None], a.yseq[:, 0, :]], dim=1)
+
+    # -- frontend + encoder -------------------------------------------------
+    def _encode_bookkeeping(self, do: np.ndarray) -> dict:
+        """All host-side length arithmetic of one tick's encode (pure: no
+        counter changes)."""
+        c = self.c
+        cfg = self.cfg
+        win, hop = cfg.win_length, cfg.hop_length
+        sub = cfg.subsample
+
+        total = np.where(do, c.wave_len + self.A, c.wave_len)
+        can = do & (total > win)
+        n_frames = np.where(can, (total - (win - hop)) // hop, 0)
+        n_res = np.where(can, (total - (win - hop)) % hop, 0)
+        keep_len = np.where(can, (win - hop) + n_res, total)
+        stft_frames = n_frames + 2  # 1 + proc_len//hop, proc=240+n*hop
+        trim_start = np.where(c.first_wave, 0, self.trim)
+        valid_feats = np.where(
+            can, np.maximum(stft_frames - trim_start - self.trim, 0), 0)
+        keep_from = np.where(can, total - keep_len, 0)
+
+        # Subsampling.
+        raw_total = c.raw_len + valid_feats
+        n_samples = raw_total // sub - 1
+        can_sub = can & (n_samples >= 2)
+        n_sub_in = np.where(can_sub, n_samples * sub, 0)  # frames consumed
+        outs = n_sub_in.astype(np.int64)
+        if cfg.input_layer != "linear":  # linear keeps the length
+            kernels, strides = CONV_SPECS[cfg.input_layer]
+            for k, st in zip(kernels, strides):
+                outs = (outs - k) // st + 1
+        n_sub_out = np.where(can_sub, outs, 0)
+        n_res_raw = np.where(can_sub, raw_total % sub + sub * 2, raw_total)
+        consumed = np.where(can_sub, raw_total - n_res_raw, 0)
+
+        # Blocks.
+        post_total = c.post_len + n_sub_out
+        overlap = cfg.block_size - cfg.hop_size
+        bn = np.where(
+            post_total > cfg.block_size,
+            np.maximum(0, post_total - overlap) // cfg.hop_size,
+            0,
+        )
+        bn = np.minimum(bn, self.MAXB)
+        maxb_tick = int(bn.max())
+        offset = cfg.block_size - cfg.look_ahead - cfg.hop_size
+        emitted = np.where(
+            bn > 0, bn * cfg.hop_size + np.where(c.npb == 0, offset, 0), 0)
+
+        _assert_fits("raw", c.raw_len, valid_feats, self.RCAP)
+        _assert_fits("post", c.post_len, n_sub_out, self.PCAP)
+        _assert_fits("enc_out", c.buf_len, emitted, self.ECAP)
+        ints = [c.wave_len, trim_start, keep_from, keep_len, c.raw_len,
+                valid_feats, consumed, c.post_len, n_sub_out, bn,
+                c.has_prev, c.has_past, c.buf_len, c.npb, emitted]
+        return {
+            "ints": ints, "maxb": maxb_tick, "can": can,
+            "keep_len": keep_len, "n_res_raw": n_res_raw,
+            "post_total": post_total, "bn": bn, "emitted": emitted,
+            "buf_new": c.buf_len + emitted,
+        }
+
+    def _encode(self, audio: torch.Tensor, bk: dict):
+        """Frontend → subsample → post append → blocks → enc_out append
+        for every stream, with this tick's bookkeeping."""
+        cfg = self.cfg
+        model = self.model
+        p_enc = model.params["encoder"]
+        fe = model.frontend
+        (wave_len, trim_start, keep_from, keep_len, raw_len, valid_feats,
+         consumed, post_len, n_sub_out, bn, has_prev, has_past, buf_len, npb,
+         emitted) = self._ints(bk["ints"]).unbind(0)
+        if audio.dtype == torch.int16:
+            audio = audio.float() / 32767.0
+        elif audio.dtype == torch.uint8:
+            audio = self._mulaw[audio.long()]
+        buf = self.buffers
+        feats, new_wave = _tick_frontend(
+            buf.wave, audio, wave_len.long(), trim_start.long(),
+            keep_from.long(), keep_len.long(), fe.window, fe.mel_fb, fe.mean,
+            fe.inv_std, cfg.n_fft, cfg.hop_length)
+        sub_frames, new_raw = _tick_subsample(
+            p_enc["embed"], buf.raw, feats, raw_len, valid_feats, consumed,
+            cfg)
+        _scatter_append(buf.post, sub_frames[:, :self.SUBCAP], post_len,
+                        n_sub_out)
+        buf = buf._replace(wave=new_wave, raw=new_raw)
+        maxb = bk["maxb"]
+        if maxb > 0:
+            new_post, new_prev, new_past = _tick_blocks(
+                p_enc, model.enc_pe, self._mask, buf.post, bn, npb,
+                has_prev.bool(), has_past.bool(), buf.prev_addin,
+                buf.past_ctx, buf.enc_out, buf_len, emitted, cfg, maxb)
+            buf = buf._replace(post=new_post, prev_addin=new_prev,
+                               past_ctx=new_past)
+        self.buffers = buf
+
+    def _apply_encode_counters(self, bk: dict):
+        """Host counter updates for an encode (exactly once per encode)."""
+        c = self.c
+        cfg = self.cfg
+        c.wave_len = bk["keep_len"]
+        c.first_wave = np.where(bk["can"], False, c.first_wave)
+        c.raw_len = bk["n_res_raw"]
+        if bk["maxb"] == 0:
+            c.post_len = bk["post_total"]
+            return
+        bn = bk["bn"]
+        c.buf_len = c.buf_len + bk["emitted"]
+        c.post_len = bk["post_total"] - bn * cfg.hop_size
+        c.has_prev = c.has_prev | (bn > 0)
+        c.has_past = c.has_past | (bn > 0)
+        c.npb = c.npb + bn
+
+    # -- beam rounds ---------------------------------------------------------
+    def _round_schedule(self, do: np.ndarray, buf_new: np.ndarray):
+        """The tick's beam rounds, from host counters alone: a list of
+        (vis, new_vis, ready) per round, and the final vis_len and
+        processed_block. A round makes the next block visible to every
+        stream whose block boundary lies inside its emitted frames."""
+        c = self.c
+        cfg = self.cfg
+        vis = c.vis_len.copy()
+        pb = c.processed_block.copy()
+        rounds = []
+        while True:
+            cur_end = (cfg.block_size - cfg.look_ahead
+                       + cfg.hop_size * pb)
+            ready = do & c.active & (cur_end < buf_new)
+            if not ready.any():
+                break
+            new_vis = np.where(ready, cur_end, vis)
+            assert (new_vis - vis <= self.EXTCAP).all(), \
+                (new_vis - vis, self.EXTCAP)
+            rounds.append((vis, new_vis, ready))
+            vis = new_vis
+            pb = np.where(ready, pb + 1, pb)
+        return rounds, vis, pb
+
+    def _decode_state(self) -> BlockDecodeState:
+        return BlockDecodeState(
+            arrays=self.arrays,
+            prev_arrays=self.prev_arrays,
+            dec_cache=self.dec_cache,
+            prev_valid=self.prev_valid_dev,
+            process_idx=self.process_idx_dev,
+            output_index=self.output_index_dev,
+            stepping=self.prev_valid_dev,  # replaced in every round
+        )
+
+    def _store_decode_state(self, st: BlockDecodeState):
+        self.arrays = st.arrays
+        self.prev_arrays = st.prev_arrays
+        self.dec_cache = st.dec_cache
+        self.prev_valid_dev = st.prev_valid
+        self.process_idx_dev = st.process_idx
+        self.output_index_dev = st.output_index
+
+    def _round(self, enc_out: torch.Tensor, st: BlockDecodeState,
+               vis: np.ndarray, new_vis: np.ndarray, stepping: np.ndarray,
+               block_final: np.ndarray) -> BlockDecodeState:
+        """One beam round: make frames [vis, new_vis) visible to the CTC
+        scorer (ctc_log_softmax → ctc_extend) and run the block beam loop
+        for the stepping streams. The cross-attention memory is the enc_out
+        ring itself, masked by new_vis."""
+        n_ext = np.clip(new_vis - vis, 0, self.EXTCAP)
+        ints = self._ints([vis, n_ext, new_vis, stepping, block_final])
+        # A bfloat16 ring's frames widen exactly to float32, as JAX's
+        # mixed-type einsum promotes them.
+        new_frames = _gather_new_frames(enc_out, ints[0], self.EXTCAP).float()
+        new_logp = ctc_log_softmax(self.model.params["ctc"], new_frames)
+        st = st._replace(
+            arrays=st.arrays._replace(
+                ctc=ctc_extend(st.arrays.ctc, new_logp, ints[1])),
+            stepping=ints[3].bool(),
+        )
+        return decode_block_device(
+            self.model.params, self.model.dec_pe, enc_out, st, ints[2],
+            ints[4].bool(), self.cfg, self.beam, self.pre_beam,
+            self.ctc_weight, self.use_bbd, self.max_length,
+            penalty=self.penalty, eos_commit=self.eos_commit,
+        )
+
+    # ------------------------------------------------------------------
+    # Output + finalize
+    # ------------------------------------------------------------------
+    def partial_tokens(self, s: int) -> List[int]:
+        """Committed tokens of the best hypothesis (yseq[1:-1], non-blank)."""
+        ylen = int(self.arrays.ylen[s])
+        if ylen <= 2:
+            return []
+        yseq = self.arrays.yseq[s, 0, :ylen].cpu().numpy()
+        drop = {self.cfg.blank_id, self.cfg.eos_id}
+        return [int(t) for t in yseq[1:-1] if int(t) not in drop]
+
+    def partial_result(self, s: int):
+        ylen = int(self.arrays.ylen[s])
+        yseq = self.arrays.yseq[s, 0, :ylen].cpu().numpy()
+        xpos = self.arrays.xpos[s, 0, :ylen].cpu().numpy()
+        return yseq, xpos
+
+    @staticmethod
+    def _float_audio(a: Optional[np.ndarray]) -> np.ndarray:
+        """A final tail as float32 (int16 /32767, uint8 mu-law decoded)."""
+        if a is None:
+            return np.zeros(0, np.float32)
+        a = np.asarray(a).reshape(-1)
+        if a.dtype == np.int16:
+            return a.astype(np.float32) / 32767.0
+        if a.dtype == np.uint8:
+            return _mulaw_decode(a)
+        return a.astype(np.float32)
+
+    def finalize(self, s: int, last_audio: Optional[np.ndarray] = None):
+        """Final chunk for slot s: inject the slot's state into the
+        single-stream beam search, decode to completion, reset the slot.
+
+        Returns (yseq, xpos, score) of the best final hypothesis.
+        """
+        last_audio = None if last_audio is None else self._float_audio(
+            last_audio)
+        c = self.c
+        cfg = self.cfg
+        buf = self.buffers
+        fin = self._finalizer
+        fin.reset()
+        st = fin.state
+
+        # Encoder state: exact-length views of the capacity buffers (the
+        # encoder only reads them).
+        raw = (buf.raw[s:s + 1, :int(c.raw_len[s])]
+               if c.raw_len[s] > 0 else None)
+        post = (buf.post[s:s + 1, :int(c.post_len[s])]
+                if c.post_len[s] > 0 else None)
+        if (c.npb[s] > 0 or c.has_prev[s] or raw is not None
+                or post is not None):
+            st.enc_state = EncoderState(
+                prev_addin=(buf.prev_addin[s:s + 1] if c.has_prev[s]
+                            else None),
+                buf_before=raw,
+                buf_after=post,
+                n_processed_blocks=int(c.npb[s]),
+                past_ctx=buf.past_ctx[s:s + 1] if c.has_past[s] else None,
+            )
+        if c.buf_len[s] > 0:
+            # float32, as JAX's concatenation with the final frames makes it.
+            st.enc_buf = buf.enc_out[s:s + 1, :int(c.buf_len[s])].float()
+        st.vis_len = int(c.vis_len[s])
+        st.processed_block = int(c.processed_block[s])
+        st.process_idx = int(self.process_idx_dev[s])
+        st.output_index = int(self.output_index_dev[s])
+
+        # The finalizer never writes the beam fields in place, but it
+        # appends into its CTC ring, decoder cache and memory ring: those
+        # are copies, not views of the engine's rings.
+        b = self.beam
+        a = self.arrays
+        one = slice(s, s + 1)
+        st.arrays = BeamArrays(
+            yseq=a.yseq[one], xpos=a.xpos[one], lane=a.lane[one],
+            ylen=a.ylen[one], score=a.score[one], score_dec=a.score_dec[one],
+            score_ctc=a.score_ctc[one],
+            ctc=CTCScorerState(logp=a.ctc.logp[one].clone(),
+                               enc_len=a.ctc.enc_len[one], r=a.ctc.r[one],
+                               s=a.ctc.s[one]),
+        )
+        st.dec_cache = DecoderCache(h=self.dec_cache.h[:, s * b:(s + 1) * b]
+                                    .clone())
+        if bool(self.prev_valid_dev[s]):
+            p = self.prev_arrays
+            st.prev_arrays = BeamArrays(
+                yseq=p.yseq[one], xpos=p.xpos[one], lane=p.lane[one],
+                ylen=p.ylen[one], score=p.score[one],
+                score_dec=p.score_dec[one], score_ctc=p.score_ctc[one],
+                ctc=CTCScorerState(logp=p.ctc.logp[one],
+                                   enc_len=p.ctc.enc_len[one],
+                                   r=p.ctc.r[one], s=p.ctc.s[one]),
+            )
+        st.memory = buf.enc_out[one, :cfg.max_enc_frames].clone()
+        fin.state = st
+
+        # Frontend final: the right-aligned wave carry + the last audio
+        # through the exact-length path.
+        wl = int(c.wave_len[s])
+        wave = (buf.wave[s, self.WCAP - wl:].cpu().numpy() if wl
+                else np.zeros(0, np.float32))
+        audio = (np.concatenate([wave, last_audio])
+                 if last_audio is not None and len(last_audio) else wave)
+        if len(audio) <= cfg.win_length:
+            audio = np.concatenate(
+                [audio, np.zeros(cfg.win_length - len(audio), np.float32)])
+        feats = self.model.frontend(audio)
+        if not c.first_wave[s] and feats.shape[1] > self.trim:
+            feats = feats[:, self.trim:, :]
+
+        fin.process_block(feats, is_final=True)
+        yseq, xpos, score = fin.best_hypothesis()
+        self._reset_slot(s)
+        self.c.active[s] = False
+        return yseq, xpos, score
+
+    def finalize_batch(
+        self, finals: Dict[int, Optional[np.ndarray]]
+    ) -> Dict[int, Tuple[np.ndarray, np.ndarray, float]]:
+        """Finalize several slots together.
+
+        All finishing streams share one batched final encode, one drain of
+        their remaining and final blocks, one readback and one reset, on a
+        compact copy of their state (``_finalize_compact``). Slots that need
+        the short-segment encoder path (npb == 0 and at most one block of
+        frames), have an oversize (more than one chunk) tail or degenerate
+        geometry go through ``finalize`` instead; a slot at ring capacity is
+        clamped to a decode-only drain. A fallback slot whose finalize
+        raises is quarantined (reset, absent from the result).
+
+        Returns slot → (yseq, xpos, score), token-exact against ``finalize``
+        (except the capacity clamp, where ``finalize`` raises).
+        """
+        c = self.c
+        cfg = self.cfg
+
+        items: Dict[int, np.ndarray] = {}
+        oversize: List[int] = []
+        for s, a in finals.items():
+            if not c.active[s]:
+                continue
+            a = self._float_audio(a)
+            if len(a) > self.A:
+                oversize.append(s)
+            items[s] = a
+        if not items:
+            return {}
+
+        bs, hop_b, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
+        offset = bs - la - hop_b
+        win, hop = cfg.win_length, cfg.hop_length
+
+        batch: List[int] = []
+        fallback: List[int] = list(oversize)
+        meta: Dict[int, Tuple[int, ...]] = {}
+        for s, a in items.items():
+            if s in oversize:
+                continue
+            total = int(c.wave_len[s]) + len(a)
+            total_p = max(total, win)
+            if total_p <= cfg.n_fft // 2 + 1:
+                fallback.append(s)  # the reflection needs total_p > pad
+                continue
+            nf = 1 + total_p // hop
+            trim_start = 0 if c.first_wave[s] else self.trim
+            # Consume-all on final: even a 1-2 frame tail flows through,
+            # and a dropped tiny tail still flushes the carried frames.
+            valid_feats = max(0, nf - trim_start)
+            raw_total = int(c.raw_len[s]) + valid_feats
+            n_sub = (max(0, subsampled_len(raw_total, cfg.input_layer))
+                     if raw_total > 0 else 0)
+            post_total = int(c.post_len[s]) + n_sub
+            npb = int(c.npb[s])
+            if npb == 0 and 0 < post_total <= bs:
+                fallback.append(s)  # short-segment path
+                continue
+            if post_total > 0:
+                bn = max(1, -(-(post_total - offset - la) // hop_b))
+                y_emit = post_total if npb == 0 else post_total - offset
+            else:
+                bn, y_emit = 0, 0  # nothing carried: decode-only drain
+            if y_emit < 0:
+                fallback.append(s)  # degenerate geometry: exact slow path
+                continue
+            if int(c.buf_len[s]) + y_emit > self.ECAP:
+                # Ring full: decode-only drain of the ringed frames; the
+                # carried sub-block tail is dropped rather than failing the
+                # whole utterance (finalize would raise here).
+                logger.warning(
+                    "slot %d finalized at ring capacity: dropping %d "
+                    "carried frames (decode-only drain)", s, y_emit,
+                )
+                bn, y_emit = 0, 0
+            meta[s] = (total_p, trim_start, valid_feats, n_sub, post_total,
+                       bn, y_emit)
+            batch.append(s)
+
+        out: Dict[int, Tuple[np.ndarray, np.ndarray, float]] = {}
+        if batch:
+            out.update(self._finalize_compact(batch, items, meta))
+
+        for s in fallback:
+            # A failing fallback slot must not discard the results the
+            # compact batch already produced (and reset): quarantine it.
+            try:
+                out[s] = self.finalize(s, items[s])
+            except Exception:
+                logger.exception("finalize failed for slot %d; "
+                                 "quarantining", s)
+                try:
+                    self._reset_slot(s)
+                finally:
+                    self.c.active[s] = False
+        return out
+
+    def _finalize_compact(
+        self,
+        batch: List[int],
+        items: Dict[int, np.ndarray],
+        meta: Dict[int, Tuple[int, ...]],
+    ) -> Dict[int, Tuple[np.ndarray, np.ndarray, float]]:
+        """Batched finalization at compact width F = len(batch): extract
+        the slots' state, final-encode, drain the remaining full blocks and
+        run each stream's final block, read the best hypotheses back, reset
+        the slots. The final block may burst to max_length beam steps, so
+        its per-step cost should scale with F, not S."""
+        c = self.c
+        cfg = self.cfg
+        bs, hop_b, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
+        f = len(batch)
+        rows = torch.tensor(batch, dtype=torch.long, device=self.device)
+        (cb, carr, cprev, ccache, cpv, cpi, coi) = _extract_rows(
+            self.buffers, self.arrays, self.prev_arrays, self.dec_cache,
+            self.prev_valid_dev, self.process_idx_dev,
+            self.output_index_dev, rows, self.beam)
+
+        do_f = np.ones(f, bool)
+        buf_f = c.buf_len[batch].astype(np.int64)
+        vis_f = c.vis_len[batch].astype(np.int64)
+        pb_f = c.processed_block[batch].astype(np.int64)
+
+        maxb = max(meta[s][5] for s in batch)
+        if maxb > 0:
+            audio = np.zeros((f, self.A), np.float32)
+            cols = []
+            for i, s in enumerate(batch):
+                (total_p, trim_start, valid_feats, n_sub, post_total,
+                 bn, y_emit) = meta[s]
+                audio[i, :len(items[s])] = items[s]
+                cols.append((c.wave_len[s], total_p, trim_start, c.raw_len[s],
+                             valid_feats, c.post_len[s], n_sub, bn, c.npb[s],
+                             post_total, y_emit, c.has_prev[s], c.has_past[s],
+                             c.npb[s] == 0, buf_f[i]))
+            cols = np.array(cols, np.int64).T
+            _assert_fits("raw", cols[3], cols[4], self.RCAP)
+            _assert_fits("post", cols[5], cols[6], self.PCAP)
+            _assert_fits("enc_out", cols[14], cols[10], self.ECAP)
+            self._final_encode(cb, torch.from_numpy(audio).to(self.device),
+                               self._ints(cols), maxb)
+            buf_f = buf_f + np.array([meta[s][6] for s in batch], np.int64)
+
+        # Drain: each stream runs its remaining full blocks, then its final
+        # block (block_final set, visibility extends to every emitted
+        # frame). Rounds are lockstep across streams; each stream's own
+        # sequence is that of the single-stream loop.
+        st = BlockDecodeState(arrays=carr, prev_arrays=cprev,
+                              dec_cache=ccache, prev_valid=cpv,
+                              process_idx=cpi, output_index=coi,
+                              stepping=cpv)
+        vis, pb = vis_f.copy(), pb_f.copy()
+        fdone = np.zeros(f, bool)
+        max_start = -1
+        while True:
+            cur_end = bs - la + hop_b * pb
+            ready = do_f & (cur_end < buf_f)
+            final = do_f & ~ready & ~fdone & (buf_f > 0)
+            step = ready | final
+            if not step.any():
+                break
+            new_vis = np.where(ready, np.minimum(cur_end, buf_f),
+                               np.where(final, buf_f, vis))
+            ext = new_vis - vis
+            assert ext.max() <= self.EXTCAP, (ext.max(), self.EXTCAP)
+            max_start = max(max_start, int(vis[step].max()))
+            st = self._round(cb.enc_out, st, vis, new_vis, step, final)
+            vis = new_vis
+            pb = np.where(ready, pb + 1, pb)
+            fdone = fdone | final
+        self._last_drain_max_start = max_start
+
+        packed = _gather_final_rows(st.arrays)
+        lcap = st.arrays.yseq.shape[2]
+        out = {}
+        for i, s in enumerate(batch):
+            n = int(packed[i, 0])
+            out[s] = (packed[i, 1:1 + n].astype(np.int64),
+                      packed[i, 1 + lcap:1 + lcap + n].astype(np.int64),
+                      float(np.float32(packed[i, -1])))
+        self._reset_slots(batch)
+        for s in batch:
+            c.active[s] = False
+        return out
+
+    def _final_encode(self, cb: EngineBuffers, audio: torch.Tensor,
+                      ints: torch.Tensor, maxb: int):
+        """Batched final encode of the compact slots: exact-length
+        frontend tail → consume-all subsample → final blocks → append to
+        the compact enc_out (in place; the other compact carries are dead
+        after)."""
+        cfg = self.cfg
+        model = self.model
+        p_enc = model.params["encoder"]
+        fe = model.frontend
+        (wave_len, total_p, trim_start, raw_len, valid_feats, post_len,
+         n_sub_out, bn, npb, post_total, y_emit, has_prev, has_past, first,
+         buf_len) = ints.unbind(0)
+        feats = _final_frontend(
+            cb.wave, audio, wave_len.long(), total_p, trim_start.long(),
+            fe.window, fe.mel_fb, fe.mean, fe.inv_std, cfg.n_fft,
+            cfg.hop_length, self.FCAP)
+        _scatter_append(cb.raw, feats, raw_len, valid_feats)
+        sub = conv2d_subsample(p_enc["embed"], cb.raw, cfg.input_layer)
+        _scatter_append(cb.post, sub[:, :self.SUBCAP], post_len, n_sub_out)
+        _final_blocks(
+            p_enc, model.enc_pe, self._mask, cb.post, bn, npb,
+            has_prev.bool(), has_past.bool(), cb.prev_addin, cb.past_ctx,
+            cb.enc_out, buf_len, post_total, first.bool(), y_emit, cfg, maxb)

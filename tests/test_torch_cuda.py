@@ -4,7 +4,7 @@ These need an NVIDIA GPU with nvcc; elsewhere they skip. On the card
 (where JAX, which tests/conftest.py imports, is not installed):
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q``.
 The tolerances are those of chip_smoke.py: A within 1e-5, B within
-1e-5 + 1e-6·|ref| (same operation order on both sides), C exact.
+1e-5 + 1e-6·|ref| (same operation order on both sides), C and D exact.
 """
 
 import numpy as np
@@ -24,6 +24,8 @@ from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
 from speechcatcher_tpu_torch.ops.kernels.ring_append import (
     ring_append_cols,
     ring_append_cols_plain,
+    ring_append_rows,
+    ring_append_rows_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +88,31 @@ def test_ring_append_kernel(dev, dtype):
     ref = ring_append_cols_plain(ring.clone(), new, start, n_new)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l_dim,t_cap,d,tn", [
+    (1, 832, 512, 40),   # flagship enc_out: 16-byte units
+    (2, 70, 80, 54),     # raw carry (80 mels), two layers
+    (1, 33, 7, 5),       # odd rows: 4-byte (f32) or 2-byte (bf16) units
+])
+def test_ring_append_rows_kernel(dev, dtype, l_dim, t_cap, d, tn):
+    rng = np.random.default_rng(t_cap)
+    s = 6
+    cache = torch.from_numpy(rng.standard_normal(
+        (l_dim, s, t_cap, d), dtype=np.float32)).to(dev, dtype)
+    new = torch.from_numpy(rng.standard_normal(
+        (l_dim, s, tn, d), dtype=np.float32)).to(dev, dtype)
+    start = torch.tensor([0, t_cap - tn, 3, t_cap - 2, t_cap + 9, 1],
+                         dtype=torch.int32, device=dev)
+    n_new = torch.tensor([tn, tn, 0, tn, 2, tn + 3], dtype=torch.int32,
+                         device=dev)
+    before = ring_append_rows.launches
+    got = ring_append_rows(cache.clone(), new, start, n_new)
+    ref = ring_append_rows_plain(cache.clone(), new, start, n_new)
+    torch.cuda.synchronize()
+    assert ring_append_rows.launches == before + 1
+    assert torch.equal(got, ref)
+    with pytest.raises(TypeError):  # no silent dtype conversion
+        ring_append_rows(cache, new.float() if dtype != torch.float32
+                         else new.double(), start, n_new)

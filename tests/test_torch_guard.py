@@ -41,6 +41,7 @@ def test_package_imports_with_jax_blocked():
         "import speechcatcher_tpu_torch.streaming\n"
         "import speechcatcher_tpu_torch.decode.scorers\n"
         "import speechcatcher_tpu_torch.ops.kernels._build\n"
+        "import speechcatcher_tpu_torch.serve.engine\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

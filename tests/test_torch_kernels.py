@@ -18,13 +18,18 @@ from speechcatcher_tpu.ops.pallas.ctc_recursion import (
 )
 from speechcatcher_tpu.ops.pallas.ring_append import (
     ring_append_cols as jax_ring_append_cols,
+    ring_append_rows as jax_ring_append_rows,
 )
 from speechcatcher_tpu_torch.ops.kernels.block_attention import block_attention
 from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
     LOGZERO,
     ctc_forward_recursion,
 )
-from speechcatcher_tpu_torch.ops.kernels.ring_append import ring_append_cols
+from speechcatcher_tpu_torch.ops.kernels.ring_append import (
+    ring_append_cols,
+    ring_append_rows,
+    ring_append_rows_plain,
+)
 
 
 @pytest.mark.parametrize("n_blk,h,w,dk", [(3, 8, 42, 64), (5, 2, 6, 4)])
@@ -82,6 +87,32 @@ def test_ring_append_cols_equals_pallas(dtype):
                                   np.asarray(ref.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_append_rows_equals_pallas(dtype):
+    """The edges of the Pallas kernel's own test: start 0, start T-TN, a
+    zero count, counts above TN and spans hanging off the ring end."""
+    rng = np.random.default_rng(2)
+    l_dim, s_dim, t_cap, d, tn = 2, 9, 128, 8, 5
+    cache = rng.standard_normal((l_dim, s_dim, t_cap, d)).astype(np.float32)
+    new = rng.standard_normal((l_dim, s_dim, tn, d)).astype(np.float32)
+    start = np.array([0, t_cap - tn, 40, t_cap - 2, 127, 64, 3, 90, 200],
+                     np.int32)
+    n_new = np.array([tn, tn, 0, tn, tn + 4, 3, 1, tn + 1, 2], np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ref = jax_ring_append_rows(jnp.asarray(cache, jdt), jnp.asarray(new, jdt),
+                               jnp.asarray(start), jnp.asarray(n_new),
+                               interpret=True)
+    tdt = getattr(torch, dtype)
+    cache_t = t(cache).to(tdt)
+    got = ring_append_rows(cache_t, t(new).to(tdt), t(start), t(n_new))
+    assert got.data_ptr() == cache_t.data_ptr()  # in place
+    np.testing.assert_array_equal(n(got.float()),
+                                  np.asarray(ref.astype(jnp.float32)))
+    plain = ring_append_rows_plain(t(cache).to(tdt), t(new).to(tdt),
+                                   t(start), t(n_new))
+    assert torch.equal(plain, got)
+
+
 def test_wrappers_check_shapes():
     x = torch.zeros(2, 3, 6, 4)
     with pytest.raises(ValueError):
@@ -92,5 +123,9 @@ def test_wrappers_check_shapes():
                               torch.zeros(3), torch.zeros(3))
     with pytest.raises(ValueError):
         ring_append_cols(torch.zeros(2, 3, 8), torch.zeros(2, 4, 2),
+                         torch.zeros(2, dtype=torch.int32),
+                         torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ring_append_rows(torch.zeros(1, 2, 8, 4), torch.zeros(1, 2, 3, 5),
                          torch.zeros(2, dtype=torch.int32),
                          torch.zeros(2, dtype=torch.int32))
