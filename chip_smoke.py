@@ -3,18 +3,22 @@
 
 Builds the port's CUDA kernels from ``speechcatcher_tpu_torch/csrc`` with
 nvcc for sm_90a, holds each kernel against its plain PyTorch version at the
-flagship main-path shapes and times both, then drives the port's two paths
-at flagship width (random weights from a seed): three utterances through
-``Speech2TextStreaming``, and ten streams through the batched
-``StreamingEngine`` (8 slots), each final held against the single-stream
-session. It replays the fixtures blessed by the JAX package (one utterance,
-one engine run), times ticks with 32 busy slots, and prints JSON lines. The
-last line is ``{"ok": true, "device": {...}}``; any failure exits non-zero
-before it.
+flagship main-path shapes and times both, then drives the port's paths at
+flagship width (random weights from a seed), for the transformer encoder and
+for the conformer encoder (``flagship_config(encoder_type="conformer")``):
+three utterances through ``Speech2TextStreaming``, and ten streams through
+the batched ``StreamingEngine`` (8 slots), each final held against the
+single-stream session. Each path reads the launch counts of all five
+kernels, set to 0 just before it. It replays the fixtures blessed by the JAX
+package (one transformer and one conformer utterance, one engine run),
+decodes at small width on the card and the CPU, times ticks with 32 busy
+slots, and prints JSON lines. The last line is
+``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 
-    python3 chip_smoke.py                    # everything
-    python3 chip_smoke.py --profile          # device time of one utterance
-    python3 chip_smoke.py --profile engine   # device time of engine ticks
+    python3 chip_smoke.py                       # everything
+    python3 chip_smoke.py --profile             # device time of one utterance
+    python3 chip_smoke.py --profile engine      # device time of engine ticks
+    python3 chip_smoke.py --profile conformer   # one conformer utterance
 
 Imports neither JAX nor the JAX package.
 """
@@ -34,9 +38,12 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_flagship.json"
 ENGINE_FIXTURE = (ROOT / "tests" / "fixtures"
                   / "torch_port_engine_flagship.json")
+CONFORMER_FIXTURE = (ROOT / "tests" / "fixtures"
+                     / "torch_port_conformer_flagship.json")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS = 67e12          # H100 SXM float32 peak outside the tensor cores
 CHUNK_SECONDS = 0.5
+ENGINE_MAXB = 2  # StreamingEngine.MAXB at flagship with 8192-sample chunks
 
 
 def emit(obj) -> None:
@@ -313,17 +320,83 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
     }
 
 
+def check_rel_block_attention(dev, cfg, n_blocks: int):
+    """Kernel E at (n_blocks, H, W, dk): the conformer session runs one or
+    two blocks per step, the engine 8 slots x ENGINE_MAXB."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from speechcatcher_tpu_torch.models.encoder import block_attention_mask
+    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+        MASK_MIN,
+        rel_block_attention,
+        rel_block_attention_plain,
+        rel_shift,
+    )
+
+    h, w = cfg.encoder_heads, cfg.block_size + 2
+    dk = cfg.encoder_dim // h
+    rng = np.random.default_rng(5)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev)
+
+    q, k, v = (rand(n_blocks, h, w, dk) for _ in range(3))
+    pos, bias_u, bias_v = rand(h, w, dk), rand(h, dk), rand(h, dk)
+    mask = torch.from_numpy(block_attention_mask(cfg.block_size)).to(dev)
+    args = (q, k, v, pos, bias_u, bias_v, mask)
+    got = rel_block_attention(*args)
+    ref = rel_block_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    tol = 1e-5
+    if not err <= tol or not bool((got[:, :, 0] == 0).all()):
+        fail(f"rel_block_attention disagrees at N={n_blocks}: "
+             f"max_abs_err={err} (tol {tol})")
+    # Library yardstick: SDPA with (q+u) and the shifted, scaled position
+    # scores precomputed as an additive float mask (masked: the float32
+    # minimum). Not the same function: SDPA does not zero row 0.
+    q_u = q + bias_u[None, :, None, :]
+    bd = rel_shift(torch.matmul(q + bias_v[None, :, None, :],
+                                pos.transpose(-1, -2)[None]))
+    add_mask = torch.where(mask != 0, bd / math.sqrt(dk), MASK_MIN)
+    n_bytes = (4 * q.numel() + pos.numel() + 2 * bias_u.numel()
+               + mask.numel()) * 4
+    n_ops = 3 * (2 * n_blocks * h * w * w * dk)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return {
+        "name": "rel_block_attention", "route": "cuda",
+        "source": "speechcatcher_tpu_torch/csrc/rel_attention.cu",
+        "replaces": "speechcatcher_tpu/ops/pallas/rel_attention.py:151",
+        "shape": [n_blocks, h, w, dk], "max_abs_err": err, "tol": tol,
+        "ms": cuda_ms(lambda: rel_block_attention(*args), 200),
+        "device_us": device_us(lambda: rel_block_attention(*args),
+                               "rel_block_attention_kernel"),
+        "plain_ms": cuda_ms(lambda: rel_block_attention_plain(*args), 200),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(q_u, k, v,
+                                                   attn_mask=add_mask),
+            200),
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "(shifted position scores precomputed as an additive "
+                   "float mask; row 0 not zeroed)",
+    }
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
 
-def flagship_model(dev, seed: int):
+def flagship_model(dev, seed: int, encoder_type: str = "transformer"):
     import torch
 
     from speechcatcher_tpu_torch.config import flagship_config
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
 
-    cfg = flagship_config()
+    cfg = flagship_config(encoder_type=encoder_type)
     model = ASRModel.random_init(cfg, seed=seed, device=dev)
     # Emission profile of a trained model: EOS +4 on the decoder output,
     # blank +10 on the CTC head, so finals stop after a few steps.
@@ -361,13 +434,26 @@ def decode_chunked(s2t, audio, rate: int):
     return results, nbest, lat
 
 
-def main_path(dev, counters):
+def check_launches(phase: str, counters, launches: dict, zero=()) -> None:
+    """Emit a path's launch counts; fail unless every kernel of the path
+    (all but those in `zero`) launched and none of `zero` did."""
+    emit({"phase": phase + "_launches", **launches})
+    for c in counters:
+        count = launches[c.__name__]
+        if c in zero and count:
+            fail(f"kernel {c.__name__} was launched {count} times on the "
+                 f"{phase}, which must not run it")
+        if c not in zero and count <= 0:
+            fail(f"kernel {c.__name__} was not launched on the {phase}")
+
+
+def main_path(dev, counters, model, phase: str = "main_path", zero=()):
+    """Three flagship utterances of 4, 5 and 6 s in 0.5 s chunks."""
     import numpy as np
 
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
     from speechcatcher_tpu_torch.synth import synth_audio
 
-    model = flagship_model(dev, seed=0)
     s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
     rate = model.cfg.sample_rate
     for c in counters:
@@ -382,7 +468,7 @@ def main_path(dev, counters):
         if not math.isfinite(best_score) or len(nbest[0][0]) < 2:
             fail(f"utterance {i}: bad best hypothesis {nbest[0]}")
         rows.append({
-            "phase": "main_path", "utterance": i,
+            "phase": phase, "utterance": i,
             "tokens": len(results[0][2]) if results else 0,
             "hyp_len": int(len(nbest[0][0])),
             "score": best_score, "audio_s": seconds, "wall_s": wall,
@@ -393,24 +479,25 @@ def main_path(dev, counters):
     launches = {c.__name__: c.launches for c in counters}
     for row in rows:
         emit(row)
-    emit({"phase": "main_path_launches", **launches})
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    check_launches(phase, counters, launches, zero)
     return launches
 
 
-def fixture_replay(dev):
+def fixture_replay(dev, path=FIXTURE, encoder_type: str = "transformer",
+                   tol: float = 1e-4):
+    """A fixture blessed by the JAX session, replayed on the card: tokens
+    and positions exact, score within rel. `tol`."""
     from speechcatcher_tpu_torch.config import ModelConfig, flagship_config
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
     from speechcatcher_tpu_torch.params import params_checksum, random_params
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
     from speechcatcher_tpu_torch.synth import synth_audio
 
-    fx = json.loads(FIXTURE.read_text())
+    fx = json.loads(path.read_text())
     cfg = ModelConfig(**fx["cfg"])
-    if cfg != flagship_config():
-        fail("fixture config is not flagship_config()")
+    if cfg != flagship_config(encoder_type=encoder_type):
+        fail(f"{path.name}: config is not flagship_config("
+             f"encoder_type={encoder_type!r})")
     tree = random_params(cfg, fx["seed"])
     if params_checksum(tree) != fx["weights_sha256"]:
         fail("fixture weights checksum mismatch")
@@ -428,18 +515,19 @@ def fixture_replay(dev):
     tokens_ok = [int(x) for x in yseq] == fx["yseq"]
     xpos_ok = [int(x) for x in xpos] == fx["xpos"]
     rel = abs(score - fx["score"]) / max(1.0, abs(fx["score"]))
-    emit({"phase": "fixture", "tokens_equal": tokens_ok,
-          "xpos_equal": xpos_ok, "score": score, "score_ref": fx["score"],
-          "score_rel_err": rel, "hyp_len": len(yseq), "wall_s": wall})
-    if not (tokens_ok and xpos_ok and rel <= 1e-4):
-        fail("fixture replay disagrees with the JAX-blessed decode")
+    emit({"phase": "fixture", "fixture": path.name,
+          "tokens_equal": tokens_ok, "xpos_equal": xpos_ok, "score": score,
+          "score_ref": fx["score"], "score_rel_err": rel, "tol": tol,
+          "hyp_len": len(yseq), "wall_s": wall})
+    if not (tokens_ok and xpos_ok and rel <= tol):
+        fail(f"{path.name}: replay disagrees with the JAX-blessed decode")
 
 
-def small_reference(dev):
+def small_reference(dev, encoder_type: str = "transformer"):
     """A decode with many tokens, at the real block geometry and small
     widths: the card (kernels) against the port's plain path on the CPU.
-    Seed 1's smallest gap between the two best expansions is 4.3e-3 on the
-    CPU, far above float noise."""
+    For the transformer, seed 1's smallest gap between the two best
+    expansions is 4.3e-3 on the CPU, far above float noise."""
     import numpy as np
     import torch
 
@@ -451,7 +539,8 @@ def small_reference(dev):
 
     cfg = flagship_config(encoder_dim=64, encoder_heads=4, encoder_layers=4,
                           decoder_dim=64, decoder_heads=4, decoder_layers=2,
-                          encoder_linear_units=256, decoder_linear_units=256)
+                          encoder_linear_units=256, decoder_linear_units=256,
+                          encoder_type=encoder_type)
     tree = random_params(cfg, 1)
     audio = synth_audio(6.0, 201, rate=cfg.sample_rate)
     best = {}
@@ -462,7 +551,8 @@ def small_reference(dev):
     (cy, cx, cs), (gy, gx, gs) = best["cpu"], best["cuda"]
     rel = abs(gs - cs) / max(1.0, abs(cs))
     same = np.array_equal(cy, gy) and np.array_equal(cx, gx)
-    emit({"phase": "small_reference", "hyp_len": len(gy),
+    emit({"phase": "small_reference", "encoder_type": encoder_type,
+          "hyp_len": len(gy),
           "tokens_equal": bool(same), "score": gs, "score_cpu": cs,
           "score_rel_err": rel})
     if not (same and rel <= 1e-4):
@@ -574,7 +664,8 @@ def _sync(dev):
     return torch.cuda.synchronize if dev.type == "cuda" else None
 
 
-def engine_path(dev, counters, model=None, chunk: int = 8192):
+def engine_path(dev, counters, model, chunk: int = 8192,
+                phase: str = "engine_path", zero=()):
     """Ten streams of 3-6 s through the port's StreamingEngine at
     n_slots=8, staggered, every other one int16; the last two wait for
     freed slots; two finals go through finalize(). Each final must equal
@@ -584,7 +675,6 @@ def engine_path(dev, counters, model=None, chunk: int = 8192):
     from speechcatcher_tpu_torch.serve.engine import StreamingEngine
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
 
-    model = model or flagship_model(dev, seed=0)
     n = 10
     seconds = [3.0 + 3.0 * k / (n - 1) for k in range(n)]
     streams = engine_streams(n, seconds, starts=[k // 2 for k in range(n)],
@@ -592,6 +682,9 @@ def engine_path(dev, counters, model=None, chunk: int = 8192):
                              rate=model.cfg.sample_rate)
     engine = StreamingEngine(model, n_slots=8, beam_size=5,
                              chunk_samples=chunk, device=dev)
+    if engine.MAXB != ENGINE_MAXB:
+        fail(f"engine MAXB is {engine.MAXB}; kernel E was checked at "
+             f"{ENGINE_MAXB} blocks per slot")
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -600,17 +693,14 @@ def engine_path(dev, counters, model=None, chunk: int = 8192):
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
     reused = len(slot_of) - len(set(slot_of.values()))
-    emit({"phase": "engine_path", "n_slots": 8, "streams": n,
+    emit({"phase": phase, "n_slots": 8, "streams": n,
           "slots_reused": reused, "ticks": len(tick_s),
           "p50_tick_ms": float(np.median(tick_s)) * 1e3,
           "max_tick_ms": float(np.max(tick_s)) * 1e3,
           "chunk_ms": chunk / model.cfg.sample_rate * 1e3,
           "wall_s": wall, "audio_s": float(sum(seconds)),
           "hbm_bytes_per_stream": engine.hbm_bytes_per_stream()["total"]})
-    emit({"phase": "engine_path_launches", **launches})
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the engine path")
+    check_launches(phase, counters, launches, zero)
     if reused < 2:
         fail(f"only {reused} streams reused a freed slot")
 
@@ -623,11 +713,11 @@ def engine_path(dev, counters, model=None, chunk: int = 8192):
         worst = max(worst, rel)
         if not (np.array_equal(ey, ry) and np.array_equal(ex, rx)
                 and rel <= 1e-4):
-            fail(f"engine stream {k} ({st['wire']}, "
+            fail(f"{phase} stream {k} ({st['wire']}, "
                  f"{'finalize' if st['single'] else 'finalize_batch'}) "
                  f"differs from the single-stream session: "
                  f"{ey.tolist()} / {ry.tolist()}, score {es} / {rs}")
-    emit({"phase": "engine_vs_single_stream", "streams": n,
+    emit({"phase": phase + "_vs_single_stream", "streams": n,
           "tokens_equal": True, "xpos_equal": True,
           "max_score_rel_err": worst,
           "hyp_lens": [len(finals[k][0]) for k in range(n)]})
@@ -748,17 +838,27 @@ def report_profile(prof, head: dict, wall: float):
     emit(head | {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
                  "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
                  "device_kernels": sum(e.count for e in rows)})
-    ours = ("block_attention_kernel", "ctc_forward_recursion_kernel",
-            "ring_append_cols_kernel", "ring_append_rows_kernel")
+    ours = ("block_attention_kernel", "rel_block_attention_kernel",
+            "ctc_forward_recursion_kernel", "ring_append_cols_kernel",
+            "ring_append_rows_kernel")
     for i, e in enumerate(rows):
         if i >= 12 and not any(k in e.key for k in ours):
             continue
         emit({"phase": head["phase"] + "_kernel", "name": e.key[:90],
               "count": e.count, "device_ms": e.self_device_time_total / 1e3,
               "share": e.self_device_time_total / busy_us})
+    # The host side: the PyTorch operators that take most host time.
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")]
+    ops.sort(key=lambda e: -e.self_cpu_time_total)
+    for e in ops[:10]:
+        emit({"phase": head["phase"] + "_host_op", "name": e.key,
+              "count": e.count, "self_host_ms": e.self_cpu_time_total / 1e3,
+              "share_of_wall": e.self_cpu_time_total / 1e3 / (wall * 1e3)})
 
 
-def profile_utterance(dev):
+def profile_utterance(dev, encoder_type: str = "transformer"):
     """torch.profiler over one warm 6 s utterance of the main path: device
     busy time by kernel and the device's idle share of the wall time."""
     import torch
@@ -767,7 +867,7 @@ def profile_utterance(dev):
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
     from speechcatcher_tpu_torch.synth import synth_audio
 
-    model = flagship_model(dev, seed=0)
+    model = flagship_model(dev, seed=0, encoder_type=encoder_type)
     s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
     audio = synth_audio(6.0, seed=102, rate=model.cfg.sample_rate)
     decode_chunked(s2t, audio, model.cfg.sample_rate)  # warm-up
@@ -777,15 +877,17 @@ def profile_utterance(dev):
         decode_chunked(s2t, audio, model.cfg.sample_rate)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, {"phase": "profile", "audio_s": 6.0}, wall)
+    report_profile(prof, {"phase": "profile", "encoder_type": encoder_type,
+                          "audio_s": 6.0}, wall)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="utterance",
-                    choices=("utterance", "engine"),
-                    help="profile one main-path utterance (default) or "
-                    "engine ticks at S=8, then stop")
+                    choices=("utterance", "engine", "conformer"),
+                    help="profile one main-path utterance (default), "
+                    "engine ticks at S=8 or one conformer utterance, then "
+                    "stop")
     args = ap.parse_args()
 
     import torch
@@ -801,6 +903,9 @@ def main() -> int:
     )
     from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
         ctc_forward_recursion,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+        rel_block_attention,
     )
     from speechcatcher_tpu_torch.ops.kernels.ring_append import (
         ring_append_cols,
@@ -826,37 +931,64 @@ def main() -> int:
     if args.profile == "engine":
         profile_engine(dev)
         return 0
+    if args.profile == "conformer":
+        profile_utterance(dev, encoder_type="conformer")
+        return 0
     cfg = flagship_config()
     # Main-path shapes: 0.5 s chunks give the encoder one block per step
     # mostly, two on some; the beam is 5; each block appends hop_size frames.
-    # The engine's ring appends are timed at its enc_out shape with 8 slots.
-    check_block_attention(dev, cfg, n_blocks=2)
+    # The engine's ring appends are timed at its enc_out shape with 8 slots;
+    # the engine runs up to 8 x ENGINE_MAXB attention windows per layer.
+    checks = [
+        check_block_attention(dev, cfg, n_blocks=2),
+        check_rel_block_attention(dev, cfg, n_blocks=2),
+        check_rel_block_attention(dev, cfg, n_blocks=8 * ENGINE_MAXB),
+    ]
     kernels = [
         check_block_attention(dev, cfg, n_blocks=1),
+        check_rel_block_attention(dev, cfg, n_blocks=1),
         check_ctc_recursion(dev, cfg, beam=5),
         check_ring_append(dev, cfg, n_new=cfg.hop_size),
         check_ring_append_rows(dev, cfg, n_slots=8),
     ]
-    for k in kernels:
+    for k in checks + kernels:
         emit({"phase": "kernel", **k})
-    counters = [block_attention, ctc_forward_recursion, ring_append_cols,
-                ring_append_rows]
-    by_path = {"utterance": main_path(dev, counters[:3])}
+    worst = {}
+    for k in checks + kernels:
+        worst[k["name"]] = max(worst.get(k["name"], 0.0), k["max_abs_err"])
+    counters = [block_attention, rel_block_attention, ctc_forward_recursion,
+                ring_append_cols, ring_append_rows]
+    # Each path runs every kernel but those it must not: the session never
+    # appends engine rows (D), the transformer never runs E, the conformer
+    # never A.
+    model = flagship_model(dev, seed=0)
+    by_path = {"utterance": main_path(
+        dev, counters, model, zero=(rel_block_attention, ring_append_rows))}
     fixture_replay(dev)
     small_reference(dev)
-    model = flagship_model(dev, seed=0)
-    by_path["engine"] = engine_path(dev, counters, model)
+    by_path["engine"] = engine_path(dev, counters, model,
+                                    zero=(rel_block_attention,))
     engine_fixture_replay(dev)
     engine_load_point(dev, model)
+    del model
+    conformer = flagship_model(dev, seed=0, encoder_type="conformer")
+    by_path["conformer_utterance"] = main_path(
+        dev, counters, conformer, phase="conformer_path",
+        zero=(block_attention, ring_append_rows))
+    fixture_replay(dev, CONFORMER_FIXTURE, encoder_type="conformer",
+                   tol=1e-5)
+    small_reference(dev, encoder_type="conformer")
+    by_path["conformer_engine"] = engine_path(
+        dev, counters, conformer, phase="conformer_engine_path",
+        zero=(block_attention,))
     summary = []
     for k in kernels:
         name = k["name"]
         summary.append({key: k[key] for key in (
             "name", "route", "source", "replaces")} | {
-            "launches": by_path["engine"][name],
-            "launches_by_path": {p: c.get(name, 0)
-                                 for p, c in by_path.items()},
-            "max_abs_err": k["max_abs_err"],
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "max_abs_err": worst[name],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})

@@ -1,11 +1,13 @@
-"""Contextual block transformer encoder, streaming inference path.
+"""Contextual block transformer/conformer encoder, streaming inference path.
 
-Port of ``speechcatcher_tpu/models/encoder.py`` (transformer layers only):
-conv2d subsampling, block assembly with context ("addin") vectors, the layer
-stack with the per-layer context carry, emit-window extraction, and the
-host-side chunk buffering of ``StreamingEncoder.step``. Attention inside the
-(block_size+2)-wide windows goes through the ``block_attention`` kernel via
-``ops.layers.multi_head_attention``.
+Port of ``speechcatcher_tpu/models/encoder.py``: conv2d subsampling, block
+assembly with context ("addin") vectors, the layer stack with the per-layer
+context carry, emit-window extraction, and the host-side chunk buffering of
+``StreamingEncoder.step``. Transformer layers attend inside the
+(block_size+2)-wide windows through the ``block_attention`` kernel
+(``ops.layers.multi_head_attention``); conformer layers through the
+``rel_block_attention`` kernel (``ops.conformer.rel_position_attention``),
+with the raw sinusoid table of the window as position embedding.
 
 Parameters: the encoder subtree of the port's model parameters, whose
 ``layers`` entry is a list of per-layer dicts (see ``params.unstack_layers``).
@@ -22,6 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from speechcatcher_tpu_torch.config import ModelConfig
+from speechcatcher_tpu_torch.ops.conformer import (
+    conv_module,
+    rel_position_attention,
+)
 from speechcatcher_tpu_torch.ops.layers import (
     Params,
     add_positional_encoding,
@@ -61,12 +67,34 @@ def conv2d_subsample(p: Params, x: torch.Tensor, input_layer: str
 
 
 def _attn_ffn(p_layer: Params, h: torch.Tensor, mask: Optional[torch.Tensor],
-              n_head: int) -> torch.Tensor:
-    """Pre-norm self-attention + FFN block."""
+              n_head: int, pos_emb: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Pre-norm self-attention + FFN block (pos_emb unused)."""
     hn = layer_norm(p_layer["norm1"], h)
     h = h + multi_head_attention(p_layer["self_attn"], hn, hn, hn, mask, n_head)
     hn = layer_norm(p_layer["norm2"], h)
     return h + feed_forward(p_layer["feed_forward"], hn)
+
+
+def _conformer_block(p_layer: Params, h: torch.Tensor,
+                     mask: Optional[torch.Tensor], n_head: int,
+                     pos_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Macaron conformer layer: ½FFN → rel-pos MHSA → conv module → ½FFN →
+    final LayerNorm, each sub-block pre-norm with a residual."""
+    hn = layer_norm(p_layer["norm_ff_macaron"], h)
+    h = h + 0.5 * feed_forward(p_layer["feed_forward_macaron"], hn)
+    hn = layer_norm(p_layer["norm_mha"], h)
+    h = h + rel_position_attention(p_layer["self_attn"], hn, hn, hn, pos_emb,
+                                   mask, n_head)
+    hn = layer_norm(p_layer["norm_conv"], h)
+    h = h + conv_module(p_layer["conv_module"], hn)
+    hn = layer_norm(p_layer["norm_ff"], h)
+    h = h + 0.5 * feed_forward(p_layer["feed_forward"], hn)
+    return layer_norm(p_layer["norm_final"], h)
+
+
+def _layer_fn(layer_kind: str):
+    return _conformer_block if layer_kind == "conformer" else _attn_ffn
 
 
 def apply_layers_infer(
@@ -77,6 +105,8 @@ def apply_layers_infer(
     has_past_ctx: torch.Tensor,  # (B,) bool
     n_head: int,
     last_block: Optional[torch.Tensor] = None,  # (B,) last VALID block
+    layer_kind: str = "transformer",
+    pos_emb: Optional[torch.Tensor] = None,     # (1, bs+2, d) for conformer
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming layer stack with context propagation.
 
@@ -90,9 +120,10 @@ def apply_layers_infer(
     x = xs_chunk
     rows = None if last_block is None else (
         torch.arange(b, device=x.device), last_block.long())
+    layer_fn = _layer_fn(layer_kind)
     next_ctx = []
     for l, p_layer in enumerate(layers):
-        h = _attn_ffn(p_layer, x.reshape(b * bn, w, d), mask, n_head)
+        h = layer_fn(p_layer, x.reshape(b * bn, w, d), mask, n_head, pos_emb)
         x = h.reshape(b, bn, w, d)
         first_ctx = torch.where(has_past_ctx[:, None], past_ctx[:, l],
                                 x[:, 0, -1, :])
@@ -104,11 +135,14 @@ def apply_layers_infer(
 
 
 def apply_layers_plain(layers: List[Params], x: torch.Tensor,
-                       mask: Optional[torch.Tensor], n_head: int
+                       mask: Optional[torch.Tensor], n_head: int,
+                       layer_kind: str = "transformer",
+                       pos_emb: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Layer stack without blocking or context (short-utterance path)."""
+    layer_fn = _layer_fn(layer_kind)
     for p_layer in layers:
-        x = _attn_ffn(p_layer, x, mask, n_head)
+        x = layer_fn(p_layer, x, mask, n_head, pos_emb)
     return x
 
 
@@ -193,7 +227,8 @@ def _infer_core(params: Params, pe: torch.Tensor, mask: torch.Tensor,
     )
     ys_chunk, next_ctx = apply_layers_infer(
         params["layers"], xs_chunk, mask, past_ctx, has_past_ctx,
-        cfg.encoder_heads,
+        cfg.encoder_heads, layer_kind=cfg.encoder_type,
+        pos_emb=pe[None, :cfg.block_size + 2],
     )
     ys_chunk = ys_chunk[:, :, 1 : cfg.block_size + 1, :]
     ys = _extract_infer(ys_chunk, cfg, first_chunk, is_final, y_length)
@@ -206,7 +241,9 @@ def _infer_short(params: Params, pe: torch.Tensor, xs: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Short-segment path: whole segment, no blocking, no mask."""
     x = add_positional_encoding(xs, pe, 0)
-    x = apply_layers_plain(params["layers"], x, None, cfg.encoder_heads)
+    x = apply_layers_plain(params["layers"], x, None, cfg.encoder_heads,
+                           layer_kind=cfg.encoder_type,
+                           pos_emb=pe[None, :xs.shape[1]])
     if cfg.normalize_before:
         x = layer_norm(params["after_norm"], x)
     return x
@@ -228,11 +265,6 @@ class StreamingEncoder:
 
     def __init__(self, params: Params, cfg: ModelConfig,
                  pe_table: Optional[torch.Tensor] = None):
-        if cfg.encoder_type != "transformer":
-            raise NotImplementedError(
-                "the port's encoder runs transformer layers only; the "
-                "conformer is a later slice (see ROADMAP.md)"
-            )
         self.params = params
         self.cfg = cfg
         self.device = params["after_norm"]["weight"].device

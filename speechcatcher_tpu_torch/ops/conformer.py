@@ -1,0 +1,104 @@
+"""Conformer building blocks: convolution module and relative-position MHA.
+
+Port of ``speechcatcher_tpu/ops/conformer.py`` (inference):
+
+- ``conv_module``: optional LayerNorm → pointwise (2C) → GLU → depthwise
+  'same' conv → BatchNorm from running statistics → Swish → pointwise.
+- ``rel_position_attention``: Transformer-XL "legacy" relative attention
+  with learned pos_bias_u / pos_bias_v and the reshape-trick ``rel_shift``.
+  The streaming encoder's windows (a shared 2-D geometry mask, one shared
+  position table, tq == tk) go to the ``rel_block_attention`` kernel, as the
+  JAX package routes them to its Pallas kernel; every other call takes the
+  plain PyTorch path, which the JAX package also computes outside Pallas.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+    MASK_MIN,
+    rel_block_attention,
+    rel_shift,
+)
+from speechcatcher_tpu_torch.ops.layers import (
+    Params,
+    layer_norm,
+    linear,
+    mha_project,
+)
+
+
+def conv_module(p: Params, x: torch.Tensor, eps: float = 1e-5
+                ) -> torch.Tensor:
+    """(B, T, C) → (B, T, C). Conv weights keep torch's Conv1d layout
+    (out, in/groups, k); the inner LayerNorm is applied only when the
+    parameters have one."""
+    if "layernorm" in p:
+        x = layer_norm(p["layernorm"], x, eps=1e-5)
+    h = linear({"weight": p["pointwise_conv1"]["weight"][:, :, 0],
+                "bias": p["pointwise_conv1"]["bias"]}, x)
+    a, b = h.chunk(2, dim=-1)
+    h = a * torch.sigmoid(b)
+
+    # Depthwise conv with 'same' zero padding over the whole window.
+    dw = p["depthwise_conv"]["weight"]                     # (C, 1, k)
+    h = F.conv1d(h.transpose(1, 2), dw, p["depthwise_conv"]["bias"],
+                 padding=(dw.shape[-1] - 1) // 2, groups=dw.shape[0])
+    h = h.transpose(1, 2)
+
+    bn = p["batch_norm"]
+    h = (h - bn["running_mean"]) * torch.rsqrt(bn["running_var"] + eps)
+    h = h * bn["weight"] + bn["bias"]
+    h = h * torch.sigmoid(h)
+    return linear({"weight": p["pointwise_conv2"]["weight"][:, :, 0],
+                   "bias": p["pointwise_conv2"]["bias"]}, h)
+
+
+def rel_position_attention(
+    p: Params,
+    query: torch.Tensor,    # (B, Tq, d)
+    key: torch.Tensor,      # (B, Tk, d)
+    value: torch.Tensor,    # (B, Tk, d)
+    pos_emb: torch.Tensor,  # (1 or B, Tk, d)
+    mask: Optional[torch.Tensor],
+    n_head: int,
+) -> torch.Tensor:
+    """Relative-position multi-head attention; mask 2-D (Tq, Tk), 3-D
+    (B, Tq, Tk) or (B, 1, Tk), nonzero = attend."""
+    b, tq, d = query.shape
+    dk = d // n_head
+    q = mha_project(p, query, "linear_q", n_head)
+    k = mha_project(p, key, "linear_k", n_head)
+    v = mha_project(p, value, "linear_v", n_head)
+    pos = linear(p["linear_pos"], pos_emb)
+    pos = pos.reshape(pos_emb.shape[0], -1, n_head, dk).transpose(1, 2)
+
+    if (mask is not None and mask.dim() == 2 and pos.shape[0] == 1
+            and pos.shape[2] == key.shape[1] and tq == key.shape[1]):
+        out = rel_block_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            pos[0].contiguous(), p["pos_bias_u"].contiguous(),
+            p["pos_bias_v"].contiguous(), mask)
+    else:
+        q_u = q + p["pos_bias_u"][None, :, None, :]
+        q_v = q + p["pos_bias_v"][None, :, None, :]
+        ac = torch.matmul(q_u, k.transpose(-1, -2))
+        bd = rel_shift(torch.matmul(q_v, pos.transpose(-1, -2)))
+        scores = (ac + bd) / math.sqrt(dk)
+        if mask is not None:
+            if mask.dim() == 3:
+                mask = mask[:, None, :, :]
+            keep = mask != 0
+            scores = torch.where(keep, scores, MASK_MIN)
+            attn = torch.softmax(scores, dim=-1)
+            attn = torch.where(keep, attn, 0.0)
+        else:
+            attn = torch.softmax(scores, dim=-1)
+        out = torch.matmul(attn, v)
+    out = out.transpose(1, 2).reshape(b, tq, d)
+    return linear(p["linear_out"], out)

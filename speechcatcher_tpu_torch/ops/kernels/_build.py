@@ -36,6 +36,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sc_block_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sc_block_attention_smem_bytes": [_I, _I],
+    "sc_rel_block_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _F, _P],
+    "sc_rel_block_attention_smem_bytes": [_I, _I],
     "sc_ctc_forward_recursion": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "sc_ring_append_cols_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sc_ring_append_cols_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

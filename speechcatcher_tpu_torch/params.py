@@ -5,9 +5,10 @@ of the JAX package's ``ASRModel.random_init(...).params``: nested dicts (and
 the ``convs`` list), layer-stacked ``layers`` leaves with a leading layer
 axis, torch-layout (out, in) Linear weights, float32 everywhere. The
 distributions are those of the JAX initialisers (uniform ±1/sqrt(fan_in)
-weights, zero biases, unit LayerNorm, standard-normal token embedding), drawn
-from ``np.random.default_rng(seed)``; the numbers differ from JAX's own
-random_init, which uses JAX keys.
+weights, zero biases, unit LayerNorm, standard-normal token embedding; for
+the conformer also Xavier-uniform position biases and identity BatchNorm
+statistics), drawn from ``np.random.default_rng(seed)``; the numbers differ
+from JAX's own random_init, which uses JAX keys.
 
 ``params_from_numpy(tree, device)`` turns any such numpy tree into tensors,
 whether it came from here or from the JAX package.
@@ -70,6 +71,40 @@ def _ffn(rng, d: int, hidden: int, lead) -> Dict[str, Any]:
             "w_2": _linear(rng, hidden, d, lead)}
 
 
+def _rel_mha(rng, d: int, n_head: int, lead) -> Dict[str, Any]:
+    """Relative-position attention: the four projections, a bias-free
+    linear_pos and Xavier-uniform pos_bias_u / pos_bias_v (H, dk)."""
+    p = _mha(rng, d, lead)
+    p["linear_pos"] = {"weight": _uniform(rng, tuple(lead) + (d, d),
+                                          1.0 / math.sqrt(d))}
+    dk = d // n_head
+    bound = math.sqrt(6.0 / (n_head + dk))
+    p["pos_bias_u"] = _uniform(rng, tuple(lead) + (n_head, dk), bound)
+    p["pos_bias_v"] = _uniform(rng, tuple(lead) + (n_head, dk), bound)
+    return p
+
+
+def _conv_module(rng, c: int, kernel_size: int, lead) -> Dict[str, Any]:
+    """Conformer convolution module: torch Conv1d layout (out, in/groups,
+    k), identity BatchNorm running statistics."""
+    lead = tuple(lead)
+
+    def conv(out_ch, in_ch, k, bound):
+        return {"weight": _uniform(rng, lead + (out_ch, in_ch, k), bound),
+                "bias": np.zeros(lead + (out_ch,), np.float32)}
+
+    return {
+        "pointwise_conv1": conv(2 * c, c, 1, 1.0 / math.sqrt(c)),
+        "depthwise_conv": conv(c, 1, kernel_size,
+                               1.0 / math.sqrt(kernel_size)),
+        "batch_norm": {"weight": np.ones(lead + (c,), np.float32),
+                       "bias": np.zeros(lead + (c,), np.float32),
+                       "running_mean": np.zeros(lead + (c,), np.float32),
+                       "running_var": np.ones(lead + (c,), np.float32)},
+        "pointwise_conv2": conv(c, c, 1, 1.0 / math.sqrt(c)),
+    }
+
+
 def _encoder(rng, cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.encoder_dim
     if cfg.input_layer == "linear":
@@ -89,12 +124,25 @@ def _encoder(rng, cfg: ModelConfig) -> Dict[str, Any]:
         feat = conv_len(cfg.n_mels, cfg.input_layer)
         embed = {"convs": convs, "out": _linear(rng, d * feat, d)}
     lead = (cfg.encoder_layers,)
-    layers = {
-        "self_attn": _mha(rng, d, lead),
-        "feed_forward": _ffn(rng, d, cfg.encoder_linear_units, lead),
-        "norm1": _layer_norm(d, lead),
-        "norm2": _layer_norm(d, lead),
-    }
+    if cfg.encoder_type == "conformer":
+        layers = {
+            "self_attn": _rel_mha(rng, d, cfg.encoder_heads, lead),
+            "feed_forward": _ffn(rng, d, cfg.encoder_linear_units, lead),
+            "feed_forward_macaron": _ffn(rng, d, cfg.encoder_linear_units,
+                                         lead),
+            "conv_module": _conv_module(rng, d, cfg.conformer_kernel_size,
+                                        lead),
+            **{name: _layer_norm(d, lead) for name in (
+                "norm_ff", "norm_ff_macaron", "norm_mha", "norm_conv",
+                "norm_final")},
+        }
+    else:
+        layers = {
+            "self_attn": _mha(rng, d, lead),
+            "feed_forward": _ffn(rng, d, cfg.encoder_linear_units, lead),
+            "norm1": _layer_norm(d, lead),
+            "norm2": _layer_norm(d, lead),
+        }
     return {"embed": embed, "layers": layers, "after_norm": _layer_norm(d)}
 
 
@@ -117,11 +165,6 @@ def _decoder(rng, cfg: ModelConfig) -> Dict[str, Any]:
 
 def random_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
     """Random numpy parameter tree with the JAX package's exact layout."""
-    if cfg.encoder_type != "transformer":
-        raise NotImplementedError(
-            "the port runs the transformer encoder only; the conformer is a "
-            "later slice (see ROADMAP.md)"
-        )
     rng = np.random.default_rng(seed)
     return {
         "encoder": _encoder(rng, cfg),

@@ -228,7 +228,8 @@ def _tick_blocks(p_enc, pe, mask, post, bn, npb, has_prev, has_past,
     last_idx = (bn.long() - 1).clamp(0, maxb - 1)
     ys_chunk, next_ctx = apply_layers_infer(
         p_enc["layers"], xs_chunk, mask, past_ctx, has_past,
-        cfg.encoder_heads, last_block=last_idx)
+        cfg.encoder_heads, last_block=last_idx, layer_kind=cfg.encoder_type,
+        pos_emb=pe[None, :bs + 2])
     ys_chunk = ys_chunk[:, :, 1:bs + 1, :]                      # (S,maxb,bs,d)
 
     # Context and add-in carry come from each stream's LAST VALID block;
@@ -305,7 +306,8 @@ def _final_blocks(p_enc, pe, mask, post, bn, npb, has_prev, has_past,
     last_idx = (bn.long() - 1).clamp(0, maxb - 1)
     ys_chunk, _ = apply_layers_infer(
         p_enc["layers"], xs_chunk, mask, past_ctx, has_past,
-        cfg.encoder_heads, last_block=last_idx)
+        cfg.encoder_heads, last_block=last_idx, layer_kind=cfg.encoder_type,
+        pos_emb=pe[None, :bs + 2])
     ys_chunk = ys_chunk[:, :, 1:bs + 1, :]                      # (S,maxb,bs,d)
 
     # Emission gather: emitted position p maps back to (block, index in

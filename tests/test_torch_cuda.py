@@ -3,7 +3,7 @@
 These need an NVIDIA GPU with nvcc; elsewhere they skip. On the card
 (where JAX, which tests/conftest.py imports, is not installed):
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q``.
-The tolerances are those of chip_smoke.py: A within 1e-5, B within
+The tolerances are those of chip_smoke.py: A and E within 1e-5, B within
 1e-5 + 1e-6·|ref| (same operation order on both sides), C and D exact.
 """
 
@@ -20,6 +20,10 @@ from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
     LOGZERO,
     ctc_forward_recursion,
     ctc_forward_recursion_plain,
+)
+from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+    rel_block_attention,
+    rel_block_attention_plain,
 )
 from speechcatcher_tpu_torch.ops.kernels.ring_append import (
     ring_append_cols,
@@ -116,3 +120,29 @@ def test_ring_append_rows_kernel(dev, dtype, l_dim, t_cap, d, tn):
     with pytest.raises(TypeError):  # no silent dtype conversion
         ring_append_rows(cache, new.float() if dtype != torch.float32
                          else new.double(), start, n_new)
+
+
+@pytest.mark.parametrize("n,h,w,dk", [
+    (1, 8, 42, 64),    # flagship session, one block
+    (24, 8, 42, 64),   # flagship engine, 8 slots x 3 blocks
+    (11, 4, 10, 16),   # small window
+])
+def test_rel_block_attention_kernel(dev, n, h, w, dk):
+    rng = np.random.default_rng(n + w)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev)
+
+    q, k, v = (rand(n, h, w, dk) for _ in range(3))
+    pos, bias_u, bias_v = rand(h, w, dk), rand(h, dk), rand(h, dk)
+    mask = torch.from_numpy(block_attention_mask(w - 2)).to(dev)
+    before = rel_block_attention.launches
+    got = rel_block_attention(q, k, v, pos, bias_u, bias_v, mask)
+    ref = rel_block_attention_plain(q, k, v, pos, bias_u, bias_v, mask)
+    torch.cuda.synchronize()
+    assert rel_block_attention.launches == before + 1
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert bool((got[:, :, 0] == 0).all())
+    with pytest.raises(ValueError):  # no silent fallback
+        rel_block_attention(q, k, v, pos.cpu(), bias_u, bias_v, mask)

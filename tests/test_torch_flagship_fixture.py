@@ -103,14 +103,15 @@ def _port_decode_with_gaps(cfg, tree, chunks):
     return best, gaps
 
 
-def bless(seeds=range(8)):
+def bless(cfg=None, fixture=FIXTURE, seeds=range(8)):
+    """Bless `fixture` for `cfg` (default: the flagship transformer)."""
     import copy
 
     from test_torch_common import bias_outputs, jax_model, synth_audio
 
     from speechcatcher_tpu.streaming import Speech2TextStreaming
 
-    cfg = flagship_config()
+    cfg = cfg or flagship_config()
     for seed in seeds:
         tree = random_params(cfg, seed)
         checksum = params_checksum(tree)
@@ -131,7 +132,7 @@ def bless(seeds=range(8)):
         if same and min_gap >= MIN_GAP:
             import dataclasses
 
-            FIXTURE.write_text(json.dumps({
+            fixture.write_text(json.dumps({
                 "cfg": dataclasses.asdict(cfg),
                 "seed": seed,
                 "weights_sha256": checksum,
@@ -147,7 +148,7 @@ def bless(seeds=range(8)):
                 "min_gap": min_gap,
                 "n_steps": len(gaps),
             }, indent=1) + "\n")
-            print(f"wrote {FIXTURE}")
+            print(f"wrote {fixture}")
             return
     raise SystemExit("no seed met the gap criterion")
 

@@ -16,6 +16,10 @@ from speechcatcher_tpu.ops.pallas.ctc_recursion import (
     LANES,
     ctc_forward_recursion as jax_ctc_forward_recursion,
 )
+from speechcatcher_tpu.ops.conformer import rel_shift as jax_rel_shift
+from speechcatcher_tpu.ops.pallas.rel_attention import (
+    rel_block_attention as jax_rel_block_attention,
+)
 from speechcatcher_tpu.ops.pallas.ring_append import (
     ring_append_cols as jax_ring_append_cols,
     ring_append_rows as jax_ring_append_rows,
@@ -24,6 +28,10 @@ from speechcatcher_tpu_torch.ops.kernels.block_attention import block_attention
 from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
     LOGZERO,
     ctc_forward_recursion,
+)
+from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+    rel_block_attention,
+    rel_shift,
 )
 from speechcatcher_tpu_torch.ops.kernels.ring_append import (
     ring_append_cols,
@@ -43,6 +51,32 @@ def test_block_attention_matches_pallas(n_blk, h, w, dk):
     got = block_attention(t(q), t(k), t(v), t(mask))
     np.testing.assert_allclose(n(got), n(ref), rtol=0, atol=1e-5)
     assert np.all(n(got)[:, :, 0, :] == 0.0)  # fully masked row
+
+
+@pytest.mark.parametrize("n_blk,h,w,dk", [(11, 4, 42, 16), (11, 2, 7, 8)])
+def test_rel_block_attention_matches_pallas(n_blk, h, w, dk):
+    """n = 11 is not a multiple of the Pallas kernel's 8-window tile."""
+    rng = np.random.default_rng(w + 100)
+
+    def rand(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    q, k, v = (rand(n_blk, h, w, dk) for _ in range(3))
+    pos, bias_u, bias_v = rand(h, w, dk), rand(h, dk), rand(h, dk)
+    mask = block_attention_mask(w - 2)
+    args = (q, k, v, pos, bias_u, bias_v, mask)
+    ref = jax_rel_block_attention(*map(jnp.asarray, args), interpret=True)
+    got = rel_block_attention(*map(t, args))
+    np.testing.assert_allclose(n(got), n(ref), rtol=0, atol=1e-5)
+    assert np.all(n(got)[:, :, 0, :] == 0.0)  # fully masked row
+
+
+@pytest.mark.parametrize("tq,tk", [(6, 6), (4, 7), (7, 4)])
+def test_rel_shift_matches_jax(tq, tk):
+    x = np.random.default_rng(tq * 10 + tk).standard_normal(
+        (2, 3, tq, tk), dtype=np.float32)
+    np.testing.assert_array_equal(n(rel_shift(t(x))),
+                                  n(jax_rel_shift(jnp.asarray(x))))
 
 
 def test_ctc_forward_recursion_matches_pallas():
@@ -117,6 +151,9 @@ def test_wrappers_check_shapes():
     x = torch.zeros(2, 3, 6, 4)
     with pytest.raises(ValueError):
         block_attention(x, x, x, torch.zeros(5, 5))
+    with pytest.raises(ValueError):
+        rel_block_attention(x, x, x, torch.zeros(3, 6, 5), torch.zeros(3, 4),
+                            torch.zeros(3, 4), torch.zeros(6, 6))
     with pytest.raises(ValueError):
         ctc_forward_recursion(torch.zeros(4, 3), torch.zeros(4, 3),
                               torch.zeros(4, 3), torch.zeros(2),

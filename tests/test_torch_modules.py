@@ -98,11 +98,16 @@ def test_frontend_matches_jax(stats):
 @pytest.mark.parametrize("input_layer",
                          ["conv2d", "conv2d6", "conv2d8", "linear"])
 def test_streaming_encoder_step_matches_jax(input_layer):
+    cfg = tiny_config(input_layer=input_layer)
+    encoder_steps_match_jax(cfg, random_params(cfg, 5))
+
+
+def encoder_steps_match_jax(cfg, tree):
+    """StreamingEncoder.step over chunks of several sizes, then a final
+    chunk short enough for the unblocked path, through both packages."""
     from speechcatcher_tpu.models.encoder import StreamingEncoder as JE
     from speechcatcher_tpu_torch.models.encoder import StreamingEncoder as PE
 
-    cfg = tiny_config(input_layer=input_layer)
-    tree = random_params(cfg, 5)
     model = ASRModel.from_numpy(cfg, tree, device="cpu")
     je = JE(_jp(tree["encoder"]), jax_config(cfg))
     pe = PE(model.params["encoder"], cfg, model.enc_pe)
@@ -124,6 +129,7 @@ def test_streaming_encoder_step_matches_jax(input_layer):
     feats = rng.standard_normal((1, 6 * sub, 80)).astype(np.float32)
     jy, _ = je.step(jnp.asarray(feats), je.init_state(), True)
     py, _ = pe.step(t(feats), pe.init_state(), True)
+    assert py.shape[1] > 0
     np.testing.assert_allclose(n(py), n(jy), **TOL)
 
 

@@ -20,10 +20,14 @@ from speechcatcher_tpu_torch.params import (
 )
 
 
-@pytest.mark.parametrize("input_layer",
-                         ["conv2d", "conv2d6", "conv2d8", "linear"])
-def test_random_params_has_jax_structure(input_layer):
-    cfg = tiny_config(input_layer=input_layer)
+@pytest.mark.parametrize("input_layer,encoder_type", [
+    ("conv2d", "transformer"), ("conv2d6", "transformer"),
+    ("conv2d8", "transformer"), ("linear", "transformer"),
+    ("conv2d", "conformer"), ("linear", "conformer"),
+])
+def test_random_params_has_jax_structure(input_layer, encoder_type):
+    cfg = tiny_config(input_layer=input_layer, encoder_type=encoder_type,
+                      conformer_kernel_size=7)
     ref = JaxModel.random_init(jax_config(cfg), seed=0).params
     ours = random_params(cfg, seed=0)
     assert (jax.tree.structure(ours) == jax.tree.structure(ref))
