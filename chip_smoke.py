@@ -177,7 +177,26 @@ def check_ctc_recursion(dev, cfg, beam: int):
     }
 
 
-def check_ring_append(dev, cfg, n_new: int):
+def timed_pairs(kernel, library, reps: int = 200, pairs: int = 3):
+    """Kernel and library call timed in turns (kernel, library, kernel,
+    ...), `pairs` times each by cuda_ms; the median of each side."""
+    import statistics
+
+    k_ms, l_ms = [], []
+    for _ in range(pairs):
+        k_ms.append(cuda_ms(kernel, reps))
+        l_ms.append(cuda_ms(library, reps))
+    return statistics.median(k_ms), statistics.median(l_ms), k_ms, l_ms
+
+
+def check_ring_append(dev, cfg, n_new: int, n_slots: int):
+    """Kernel C, exact against its plain version: a contiguous (S, V, TN)
+    `new` of the ring's dtype, and the main path's form, the transposed
+    view of time-major (S, TN, V) float32 log-probs, into float32 and
+    bfloat16 rings, at the session's (1, V, T) ring with n_new columns and
+    at the engine's (n_slots, V, T) ring with up to EXTCAP = block_size.
+    Timed at the session's form against one slice assignment from the
+    same view, in interleaved pairs."""
     import numpy as np
     import torch
 
@@ -186,72 +205,111 @@ def check_ring_append(dev, cfg, n_new: int):
         ring_append_cols_plain,
     )
 
-    s, v, t_cap = 1, cfg.vocab_size, cfg.max_enc_frames
+    v, t_cap, extcap = cfg.vocab_size, cfg.max_enc_frames, cfg.block_size
     rng = np.random.default_rng(3)
     errs = []
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    def check(s, tn, dtype, time_major, starts, counts):
+        ring0 = rand(s, v, t_cap).to(dev, dtype)
+        if time_major:
+            new = rand(s, tn, v).to(dev).transpose(1, 2)
+        else:
+            new = rand(s, v, tn).to(dev, dtype)
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        count = torch.tensor(counts, dtype=torch.int32, device=dev)
+        got = ring_append_cols(ring0.clone(), new, start, count)
+        ref = ring_append_cols_plain(ring0.clone(), new, start, count)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"ring_append_cols differs ({s} slots, TN {tn}, {dtype}, "
+                 f"{'time-major f32' if time_major else 'contiguous'} new, "
+                 f"starts {starts}, counts {counts})")
+        errs.append(float((got.float() - ref.float()).abs().max()))
+
     for dtype in (torch.float32, torch.bfloat16):
-        ring0 = torch.from_numpy(rng.standard_normal((s, v, t_cap),
-                                                     dtype=np.float32))
-        new = torch.from_numpy(rng.standard_normal((s, v, n_new),
-                                                   dtype=np.float32))
-        ring0, new = ring0.to(dev, dtype), new.to(dev, dtype)
-        for st0, cnt in ((100, n_new), (t_cap - 5, n_new), (7, 0),
-                         (40, n_new + 9)):
-            start = torch.tensor([st0], dtype=torch.int32, device=dev)
-            count = torch.tensor([cnt], dtype=torch.int32, device=dev)
-            got = ring_append_cols(ring0.clone(), new, start, count)
-            ref = ring_append_cols_plain(ring0.clone(), new, start, count)
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                fail(f"ring_append_cols differs ({dtype}, start {st0}, "
-                     f"n_new {cnt})")
-            errs.append(float((got.float() - ref.float()).abs().max()))
+        for time_major in (False, True):
+            for st0, cnt in ((100, n_new), (t_cap - 5, n_new), (7, 0),
+                             (40, n_new + 9)):
+                check(1, n_new, dtype, time_major, [st0], [cnt])
+        # The engine's ring: fill levels across it, counts 0..EXTCAP+3, one
+        # span hanging off the end.
+        starts = rng.integers(0, t_cap - extcap, size=n_slots)
+        starts[0], starts[-1] = 0, t_cap - extcap // 2
+        counts = rng.integers(0, extcap + 4, size=n_slots)
+        counts[1] = 0
+        for tn in (extcap, n_new):
+            check(n_slots, tn, dtype, True, starts.tolist(), counts.tolist())
+    s = 1
     ring = torch.zeros((s, v, t_cap), dtype=torch.float32, device=dev)
-    new = torch.randn((s, v, n_new), device=dev)
+    new_tm = torch.randn((s, n_new, v), device=dev)
     start = torch.tensor([100], dtype=torch.int32, device=dev)
     count = torch.tensor([n_new], dtype=torch.int32, device=dev)
 
-    def library():
-        ring[:, :, 100:100 + n_new] = new
+    def kernel():
+        ring_append_cols(ring, new_tm.transpose(1, 2), start, count)
 
+    def library():
+        ring[:, :, 100:100 + n_new] = new_tm.transpose(1, 2)
+
+    ms, lib_ms, k_all, l_all = timed_pairs(kernel, library)
+    ring_e = torch.zeros((n_slots, v, t_cap), dtype=torch.float32, device=dev)
+    new_e = torch.randn((n_slots, extcap, v), device=dev)
+    start_e = torch.full((n_slots,), 100, dtype=torch.int32, device=dev)
+    count_e = torch.full((n_slots,), extcap, dtype=torch.int32, device=dev)
     b_ms, b_by = bound(2 * s * v * n_new * 4 + 2 * s * 4, 0)
     return {
         "name": "ring_append_cols", "route": "cuda",
         "source": "speechcatcher_tpu_torch/csrc/ring_append.cu",
         "replaces": "speechcatcher_tpu/ops/pallas/ring_append.py:227",
-        "shape": [s, v, t_cap, n_new], "max_abs_err": max(errs), "tol": 0.0,
-        "ms": cuda_ms(lambda: ring_append_cols(ring, new, start, count), 200),
-        "plain_ms": cuda_ms(
-            lambda: ring_append_cols_plain(ring, new, start, count), 200),
+        "shape": [s, v, t_cap, n_new], "new": "time-major f32, transposed",
+        "max_abs_err": max(errs), "tol": 0.0,
+        "ms": ms, "ms_runs": k_all,
+        "device_us": device_us(kernel, "ring_append_cols_kernel"),
+        "device_us_engine": device_us(
+            lambda: ring_append_cols(ring_e, new_e.transpose(1, 2), start_e,
+                                     count_e),
+            "ring_append_cols_kernel"),
+        "engine_shape": [n_slots, v, t_cap, extcap],
+        "plain_ms": cuda_ms(lambda: ring_append_cols_plain(
+            ring, new_tm.transpose(1, 2), start, count), 200),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(library, 200),
-        "library": "slice assignment",
+        "library_ms": lib_ms, "library_ms_runs": l_all,
+        "library": "slice assignment from the transposed view",
     }
 
 
 def device_us(fn, kernel: str, reps: int = 50):
     """Device time per launch of `kernel` under torch.profiler (None when
-    the profiler shows no device time for it)."""
+    the profiler shows no device time for it in three tries: a trace now
+    and then comes back without the kernel's device rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if kernel in e.key and e.self_device_time_total > 0]
-    if not rows:
-        return None
-    return (sum(e.self_device_time_total for e in rows)
-            / sum(e.count for e in rows))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if kernel in e.key and e.self_device_time_total > 0]
+        if rows:
+            return (sum(e.self_device_time_total for e in rows)
+                    / sum(e.count for e in rows))
+    return None
 
 
 def check_ring_append_rows(dev, cfg, n_slots: int):
     """Kernel D at the engine's three ring shapes (flagship, 8192-sample
-    chunks), float32 and bfloat16, exact; timed at the enc_out append."""
+    chunks), float32 and bfloat16 rings, exact, for a contiguous `new` of
+    the ring's dtype, a strided one (a slice along time, as the post carry
+    gets `sub[:, :SUBCAP]`) and float32 into bfloat16 (contiguous and
+    strided); timed at the enc_out append against `index_put_`, in
+    interleaved pairs."""
     import numpy as np
     import torch
 
@@ -271,8 +329,13 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
         for dtype in (torch.float32, torch.bfloat16):
             cache0 = torch.from_numpy(rng.standard_normal(
                 (1, s, t_cap, width), dtype=np.float32)).to(dev, dtype)
-            new = torch.from_numpy(rng.standard_normal(
-                (1, s, tn, width), dtype=np.float32)).to(dev, dtype)
+            big = torch.from_numpy(rng.standard_normal(
+                (1, s, tn + 7, width), dtype=np.float32)).to(dev)
+            forms = {"contiguous": big[:, :, :tn].contiguous().to(dtype),
+                     "strided": big.to(dtype)[:, :, 3:tn + 3]}
+            if dtype == torch.bfloat16:
+                forms["f32 contiguous"] = big[:, :, :tn].contiguous()
+                forms["f32 strided"] = big[:, :, 3:tn + 3]
             # Fill levels across the ring, counts 0..TN+3, one span hanging
             # off the end.
             start = rng.integers(0, t_cap - tn, size=s)
@@ -281,13 +344,15 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
             count[1] = 0
             start_t = torch.from_numpy(start.astype(np.int32)).to(dev)
             count_t = torch.from_numpy(count.astype(np.int32)).to(dev)
-            got = ring_append_rows(cache0.clone(), new, start_t, count_t)
-            ref = ring_append_rows_plain(cache0.clone(), new, start_t,
-                                         count_t)
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                fail(f"ring_append_rows differs ({name}, {dtype})")
-            errs.append(float((got.float() - ref.float()).abs().max()))
+            for form, new in forms.items():
+                got = ring_append_rows(cache0.clone(), new, start_t, count_t)
+                ref = ring_append_rows_plain(cache0.clone(), new, start_t,
+                                             count_t)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    fail(f"ring_append_rows differs ({name}, {dtype}, "
+                         f"{form} new)")
+                errs.append(float((got.float() - ref.float()).abs().max()))
     # Timing: the flagship enc_out append of a first chunk at every slot.
     t_cap, tn = 832, 40
     cache = torch.zeros((1, s, t_cap, d), dtype=torch.float32, device=dev)
@@ -298,9 +363,13 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
     t_idx = 100 + torch.arange(tn, device=dev).repeat(s)
     vals = new[0].reshape(s * tn, d)
 
+    def kernel():
+        ring_append_rows(cache, new, start, count)
+
     def library():
         cache[0].index_put_((s_idx, t_idx), vals)
 
+    ms, lib_ms, k_all, l_all = timed_pairs(kernel, library)
     n_rows = int(count.sum())
     b_ms, b_by = bound(2 * n_rows * d * 4 + 2 * s * 4, 0)
     return {
@@ -308,14 +377,12 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
         "source": "speechcatcher_tpu_torch/csrc/ring_append.cu",
         "replaces": "speechcatcher_tpu/ops/pallas/ring_append.py:147",
         "shape": [1, s, t_cap, d, tn], "max_abs_err": max(errs), "tol": 0.0,
-        "ms": cuda_ms(lambda: ring_append_rows(cache, new, start, count), 200),
-        "device_us": device_us(
-            lambda: ring_append_rows(cache, new, start, count),
-            "ring_append_rows_kernel"),
+        "ms": ms, "ms_runs": k_all,
+        "device_us": device_us(kernel, "ring_append_rows_kernel"),
         "plain_ms": cuda_ms(
             lambda: ring_append_rows_plain(cache, new, start, count), 50),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(library, 200),
+        "library_ms": lib_ms, "library_ms_runs": l_all,
         "library": "Tensor.index_put_ (precomputed indices)",
     }
 
@@ -948,7 +1015,7 @@ def main() -> int:
         check_block_attention(dev, cfg, n_blocks=1),
         check_rel_block_attention(dev, cfg, n_blocks=1),
         check_ctc_recursion(dev, cfg, beam=5),
-        check_ring_append(dev, cfg, n_new=cfg.hop_size),
+        check_ring_append(dev, cfg, n_new=cfg.hop_size, n_slots=8),
         check_ring_append_rows(dev, cfg, n_slots=8),
     ]
     for k in checks + kernels:

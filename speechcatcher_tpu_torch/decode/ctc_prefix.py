@@ -66,11 +66,10 @@ def ctc_extend(state: CTCScorerState, new_logp: torch.Tensor,
     # Non-finite frames must never enter the ring: NaN would propagate
     # through _fill_blank's cumulative sums.
     new_logp = torch.where(torch.isfinite(new_logp), new_logp, LOGZERO)
-    logp = ring_append_cols(
-        state.logp,
-        new_logp.transpose(1, 2).to(state.logp.dtype).contiguous(),
-        old_len, n_new,
-    )
+    # The kernel reads the time-major frames through the transposed view
+    # and casts float32 into a bfloat16 ring itself: no copy in front.
+    logp = ring_append_cols(state.logp, new_logp.transpose(1, 2), old_len,
+                            n_new)
     new_len = old_len + n_new
     r = _fill_blank(logp, state.r, old_len, new_len)
     return CTCScorerState(logp=logp, enc_len=new_len, r=r, s=state.s)

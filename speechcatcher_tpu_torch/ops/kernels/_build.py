@@ -32,7 +32,8 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# name -> argtypes; every function returns the launch's cudaError_t as int.
+# name -> argtypes; every function returns the launch's cudaError_t as int
+# (the ring appends also -1 when the plan or the pointers do not fit).
 _SIGNATURES = {
     "sc_block_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sc_block_attention_smem_bytes": [_I, _I],
@@ -40,28 +41,31 @@ _SIGNATURES = {
                                _I, _F, _P],
     "sc_rel_block_attention_smem_bytes": [_I, _I],
     "sc_ctc_forward_recursion": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "sc_ring_append_cols_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sc_ring_append_cols_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sc_ring_append_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # ring, new, start, n_new, plan (a struct, by address), stream
+    "sc_ring_append_cols": [_P, _P, _P, _P, _P, _P],
+    "sc_ring_append_rows": [_P, _P, _P, _P, _P, _P],
 }
 
 
 class KernelLibrary:
-    """The loaded shared library and how long it took to get it."""
+    """The loaded shared library and how long it took to get it. ``fns``
+    holds each entry point's ctypes function object, bound once at load."""
 
     def __init__(self, path: Path, build_seconds: float, built: bool):
         self.path = path
         self.build_seconds = build_seconds
         self.built = built
         self.lib = ctypes.CDLL(str(path))
+        self.fns = {}
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            self.fns[name] = fn
 
     def call(self, name: str, *args) -> None:
         """Launch through the C entry point; raise on a launch error."""
-        err = getattr(self.lib, name)(*args)
+        err = self.fns[name](*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
@@ -121,8 +125,11 @@ def _compile(out_dir: Path) -> Path:
 
 
 def library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library. Once it is
+    loaded, a call takes no lock."""
     global _library
+    if _library is not None:
+        return _library
     with _lock:
         if _library is not None:
             return _library
@@ -149,10 +156,11 @@ def library() -> KernelLibrary:
 
 
 def stream_ptr(t) -> int:
-    """The raw handle of PyTorch's current stream on t's device."""
+    """The raw handle of PyTorch's current stream on t's device: the
+    capture stream while a CUDA graph is being captured."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_cuda(name: str, *tensors) -> None:

@@ -9,20 +9,149 @@ Ports of ``speechcatcher_tpu/ops/pallas/ring_append.py``:
   ``cache[l, s, start[s]+i, :] = new[l, s, i, :]`` for the same ``i``.
 
 ``start`` is clipped to [0, T-1] and whatever lands at or past T is dropped.
-The ring is written IN PLACE (the JAX versions donate it) and returned. On a
-CUDA tensor each wrapper launches its kernel in ``csrc/ring_append.cu``
-(only the written elements move); on a CPU tensor it runs its ``*_plain``
-twin. float32 and bfloat16 rings.
+The ring is written IN PLACE (the JAX versions donate it) and returned.
+float32 and bfloat16 rings; ``new`` is of the ring's dtype or float32, cast
+on the way in as the JAX versions cast (``new.astype(ring.dtype)``), and may
+have any strides (``ring_append_rows`` needs its last dim contiguous), so
+callers pass their producers' tensors as they are.
+
+Both routes check the operands alike, once per input signature: the plan
+(``_cols_plan`` / ``_rows_plan``, plain Python) does every check and holds
+the launch's integers in a ``ctypes.Structure``, cached under the
+signature. On a CUDA tensor a call is then one dict lookup, four
+``data_ptr()`` reads, the raw current stream and one foreign call into
+``csrc/ring_append.cu`` (only the written elements move); on a CPU tensor it
+runs the ``*_plain`` twin.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from speechcatcher_tpu_torch.ops.kernels import _build
 
-_ENTRY = {torch.float32: "sc_ring_append_cols_f32",
-          torch.bfloat16: "sc_ring_append_cols_bf16"}
+_RING_DTYPES = (torch.float32, torch.bfloat16)
+_BAD_PLAN = -1  # kBadPlan in csrc/ring_append.cu
+
+
+class _ColsArgs(ctypes.Structure):
+    """The launch's integers of ``sc_ring_append_cols`` (``ColsArgs``)."""
+
+    _fields_ = [("new_ss", ctypes.c_longlong), ("new_sv", ctypes.c_longlong),
+                ("new_st", ctypes.c_longlong), ("s_dim", ctypes.c_int),
+                ("v_dim", ctypes.c_int), ("t_cap", ctypes.c_int),
+                ("tn", ctypes.c_int), ("in_bytes", ctypes.c_int),
+                ("out_bytes", ctypes.c_int), ("t_fastest", ctypes.c_int)]
+
+
+class _RowsArgs(ctypes.Structure):
+    """The launch's integers of ``sc_ring_append_rows`` (``RowsArgs``)."""
+
+    _fields_ = [("new_sl", ctypes.c_longlong), ("new_ss", ctypes.c_longlong),
+                ("new_st", ctypes.c_longlong), ("l_dim", ctypes.c_int),
+                ("s_dim", ctypes.c_int), ("t_cap", ctypes.c_int),
+                ("tn", ctypes.c_int), ("d", ctypes.c_int),
+                ("in_bytes", ctypes.c_int), ("out_bytes", ctypes.c_int)]
+
+
+class _Launch(NamedTuple):
+    """A cached plan: its arguments, their address, and the bound entry
+    point (None on the CPU, where the plain twin runs)."""
+
+    args: ctypes.Structure
+    address: int
+    fn: object
+
+
+def _signature(ring, new, start, n_new) -> tuple:
+    return (ring.shape, ring.stride(), ring.dtype, ring.device,
+            new.shape, new.stride(), new.dtype, new.device,
+            start.shape, start.stride(), start.dtype, start.device,
+            n_new.shape, n_new.stride(), n_new.dtype, n_new.device)
+
+
+def _strides(t: torch.Tensor) -> list:
+    """t's strides in elements, 0 on dims of extent 1 (never stepped)."""
+    return [0 if n == 1 else st for n, st in zip(t.shape, t.stride())]
+
+
+def _check_common(name: str, ring, new, start, n_new) -> None:
+    """The checks both kernels share (S is the ring's third dim from the
+    end)."""
+    if ring.dtype not in _RING_DTYPES:
+        raise TypeError(f"{name}: ring dtype {ring.dtype} unsupported")
+    if new.dtype not in (ring.dtype, torch.float32):
+        raise TypeError(f"{name}: new is {new.dtype}, ring is {ring.dtype} "
+                        "(the ring's dtype or float32 expected)")
+    s_dim = ring.shape[-3]
+    for what, a in (("start", start), ("n_new", n_new)):
+        if a.shape != (s_dim,):
+            raise ValueError(f"{name}: {what} must be ({s_dim},), got "
+                             f"{tuple(a.shape)}")
+        if a.dtype != torch.int32:
+            raise TypeError(f"{name}: {what} must be int32, got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    dev = ring.device
+    if dev.type not in ("cpu", "cuda") or any(
+            a.device != dev for a in (new, start, n_new)):
+        raise ValueError(f"{name}: operands must share one CPU or CUDA "
+                         f"device, got {ring.device}, {new.device}, "
+                         f"{start.device}, {n_new.device}")
+    if not ring.is_contiguous():
+        raise ValueError(f"{name}: the ring must be contiguous")
+
+
+def _cols_plan(ring, new, start, n_new) -> _ColsArgs:
+    """Check a ``ring_append_cols`` signature; its launch arguments."""
+    if ring.dim() != 3 or new.dim() != 3 or new.shape[:2] != ring.shape[:2]:
+        raise ValueError(f"ring_append_cols: ring (S, V, T) and new "
+                         f"(S, V, TN) expected, got {tuple(ring.shape)} and "
+                         f"{tuple(new.shape)}")
+    _check_common("ring_append_cols", ring, new, start, n_new)
+    s_dim, v_dim, t_cap = ring.shape
+    ss, sv, st = _strides(new)
+    return _ColsArgs(ss, sv, st, s_dim, v_dim, t_cap, new.shape[2],
+                     new.element_size(), ring.element_size(), int(st == 1))
+
+
+def _rows_plan(cache, new, start, n_new) -> _RowsArgs:
+    """Check a ``ring_append_rows`` signature; its launch arguments."""
+    if (cache.dim() != 4 or new.dim() != 4 or new.shape[:2] != cache.shape[:2]
+            or new.shape[3] != cache.shape[3]):
+        raise ValueError(f"ring_append_rows: cache (L, S, T, D) and new "
+                         f"(L, S, TN, D) expected, got {tuple(cache.shape)} "
+                         f"and {tuple(new.shape)}")
+    l_dim, s_dim, t_cap, d = cache.shape
+    if t_cap == 0:
+        raise ValueError("ring_append_rows: the ring holds no rows")
+    _check_common("ring_append_rows", cache, new, start, n_new)
+    sl, ss, st, sd = _strides(new)
+    if sd not in (0, 1):
+        raise ValueError("ring_append_rows: new's last dim must be "
+                         "contiguous")
+    return _RowsArgs(sl, ss, st, l_dim, s_dim, t_cap, new.shape[2], d,
+                     new.element_size(), cache.element_size())
+
+
+def _launch(plans: dict, key: tuple, planner, entry: str, ring, new, start,
+            n_new) -> _Launch:
+    """Plan a new signature, bind its entry point on CUDA, and cache it."""
+    args = planner(ring, new, start, n_new)
+    fn = _build.library().fns[entry] if ring.device.type == "cuda" else None
+    plan = plans[key] = _Launch(args, ctypes.addressof(args), fn)
+    return plan
+
+
+def _raise_launch_error(name: str, err: int) -> None:
+    """Raise for a nonzero return of an entry point."""
+    if err == _BAD_PLAN:
+        raise ValueError(f"{name}: the operands' addresses or strides do not "
+                         "fit the kernel")
+    raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
 def ring_append_cols_plain(ring, new, start, n_new):
@@ -38,33 +167,25 @@ def ring_append_cols_plain(ring, new, start, n_new):
     return ring
 
 
+_COLS_PLANS: dict = {}
+
+
 def ring_append_cols(ring: torch.Tensor, new: torch.Tensor,
                      start: torch.Tensor, n_new: torch.Tensor) -> torch.Tensor:
-    """ring (S, V, T) float32/bfloat16, modified in place; new (S, V, TN) of
-    the ring's dtype; start, n_new (S,) int32. Returns ring."""
-    if ring.dim() != 3 or new.dim() != 3 or new.shape[:2] != ring.shape[:2]:
-        raise ValueError(f"ring_append_cols: ring (S, V, T) and new "
-                         f"(S, V, TN) expected, got {tuple(ring.shape)} and "
-                         f"{tuple(new.shape)}")
-    s_dim, v_dim, t_cap = ring.shape
-    if start.shape != (s_dim,) or n_new.shape != (s_dim,):
-        raise ValueError("ring_append_cols: start and n_new must be (S,)")
-    if ring.dtype not in _ENTRY:
-        raise TypeError(f"ring_append_cols: ring dtype {ring.dtype} "
-                        "unsupported")
-    if ring.device.type == "cpu":
+    """ring (S, V, T) float32/bfloat16, contiguous, modified in place; new
+    (S, V, TN) of the ring's dtype or float32, any strides (the transposed
+    view of time-major (S, TN, V) log-probs reads as it lies); start, n_new
+    (S,) int32. Returns ring."""
+    key = _signature(ring, new, start, n_new)
+    plan = _COLS_PLANS.get(key) or _launch(
+        _COLS_PLANS, key, _cols_plan, "sc_ring_append_cols", ring, new,
+        start, n_new)
+    if plan.fn is None:
         return ring_append_cols_plain(ring, new, start, n_new)
-    if new.dtype != ring.dtype:
-        raise TypeError(f"ring_append_cols: new is {new.dtype}, ring is "
-                        f"{ring.dtype}")
-    for name, a in (("start", start), ("n_new", n_new)):
-        if a.dtype != torch.int32:
-            raise TypeError(f"ring_append_cols: {name} must be int32")
-    _build.check_cuda("ring_append_cols", ring, new, start, n_new)
-    lib = _build.library()
-    lib.call(_ENTRY[ring.dtype], ring.data_ptr(), new.data_ptr(),
-             start.data_ptr(), n_new.data_ptr(), s_dim, v_dim, t_cap,
-             new.shape[2], _build.stream_ptr(ring))
+    err = plan.fn(ring.data_ptr(), new.data_ptr(), start.data_ptr(),
+                  n_new.data_ptr(), plan.address, _build.stream_ptr(ring))
+    if err:
+        _raise_launch_error("ring_append_cols", err)
     ring_append_cols.launches += 1
     return ring
 
@@ -86,49 +207,25 @@ def ring_append_rows_plain(cache, new, start, n_new):
     return cache
 
 
-def _unit_bytes(row_bytes: int, *ptrs: int) -> int:
-    """The widest copy unit (16, 4 or 2 bytes) that divides the row pitch
-    and both base addresses."""
-    for unit in (16, 4, 2):
-        if row_bytes % unit == 0 and all(p % unit == 0 for p in ptrs):
-            return unit
-    raise ValueError(f"ring_append_rows: rows of {row_bytes} B are not "
-                     "2-byte aligned")
+_ROWS_PLANS: dict = {}
 
 
 def ring_append_rows(cache: torch.Tensor, new: torch.Tensor,
                      start: torch.Tensor, n_new: torch.Tensor) -> torch.Tensor:
-    """cache (L, S, T, D) float32/bfloat16, modified in place; new
-    (L, S, TN, D) of the cache's dtype; start, n_new (S,) int32. Returns
-    cache."""
-    if (cache.dim() != 4 or new.dim() != 4 or new.shape[:2] != cache.shape[:2]
-            or new.shape[3] != cache.shape[3]):
-        raise ValueError(f"ring_append_rows: cache (L, S, T, D) and new "
-                         f"(L, S, TN, D) expected, got {tuple(cache.shape)} "
-                         f"and {tuple(new.shape)}")
-    l_dim, s_dim, t_cap, d_dim = cache.shape
-    if start.shape != (s_dim,) or n_new.shape != (s_dim,):
-        raise ValueError("ring_append_rows: start and n_new must be (S,)")
-    if t_cap == 0:
-        raise ValueError("ring_append_rows: the ring holds no rows")
-    if cache.dtype not in _ENTRY:
-        raise TypeError(f"ring_append_rows: cache dtype {cache.dtype} "
-                        "unsupported")
-    if cache.device.type == "cpu":
+    """cache (L, S, T, D) float32/bfloat16, contiguous, modified in place;
+    new (L, S, TN, D) of the cache's dtype or float32, any strides on its
+    first three dims, its last dim contiguous; start, n_new (S,) int32.
+    Returns cache."""
+    key = _signature(cache, new, start, n_new)
+    plan = _ROWS_PLANS.get(key) or _launch(
+        _ROWS_PLANS, key, _rows_plan, "sc_ring_append_rows", cache, new,
+        start, n_new)
+    if plan.fn is None:
         return ring_append_rows_plain(cache, new, start, n_new)
-    if new.dtype != cache.dtype:
-        raise TypeError(f"ring_append_rows: new is {new.dtype}, cache is "
-                        f"{cache.dtype}")
-    for name, a in (("start", start), ("n_new", n_new)):
-        if a.dtype != torch.int32:
-            raise TypeError(f"ring_append_rows: {name} must be int32")
-    _build.check_cuda("ring_append_rows", cache, new, start, n_new)
-    row_bytes = d_dim * cache.element_size()
-    unit = _unit_bytes(row_bytes, cache.data_ptr(), new.data_ptr())
-    lib = _build.library()
-    lib.call("sc_ring_append_rows", cache.data_ptr(), new.data_ptr(),
-             start.data_ptr(), n_new.data_ptr(), l_dim, s_dim, t_cap,
-             new.shape[2], row_bytes, unit, _build.stream_ptr(cache))
+    err = plan.fn(cache.data_ptr(), new.data_ptr(), start.data_ptr(),
+                  n_new.data_ptr(), plan.address, _build.stream_ptr(cache))
+    if err:
+        _raise_launch_error("ring_append_rows", err)
     ring_append_rows.launches += 1
     return cache
 

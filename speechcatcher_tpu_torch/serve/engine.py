@@ -114,9 +114,10 @@ def _scatter_append(buf: torch.Tensor, new: torch.Tensor,
                     offset: torch.Tensor, n_valid: torch.Tensor
                     ) -> torch.Tensor:
     """buf[s, offset[s] + i] = new[s, i] for i < n_valid[s], in place
-    (``ring_append_rows`` with L = 1). offset, n_valid: (S,) int32."""
-    ring_append_rows(buf[None], new[None].to(buf.dtype).contiguous(), offset,
-                     n_valid)
+    (``ring_append_rows`` with L = 1). offset, n_valid: (S,) int32. new is
+    passed as its producer left it (a strided view, float32 into a
+    bfloat16 ring): the kernel reads and casts it."""
+    ring_append_rows(buf[None], new[None], offset, n_valid)
     return buf
 
 

@@ -25,6 +25,7 @@ from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
     rel_block_attention,
     rel_block_attention_plain,
 )
+from speechcatcher_tpu_torch.ops.kernels import _build
 from speechcatcher_tpu_torch.ops.kernels.ring_append import (
     ring_append_cols,
     ring_append_cols_plain,
@@ -117,9 +118,96 @@ def test_ring_append_rows_kernel(dev, dtype, l_dim, t_cap, d, tn):
     torch.cuda.synchronize()
     assert ring_append_rows.launches == before + 1
     assert torch.equal(got, ref)
-    with pytest.raises(TypeError):  # no silent dtype conversion
-        ring_append_rows(cache, new.float() if dtype != torch.float32
+    with pytest.raises(TypeError):  # only float32 is cast on the way in
+        ring_append_rows(cache, new.half() if dtype != torch.float32
                          else new.double(), start, n_new)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,v,t_cap,tn", [
+    (1, 1024, 768, 16),   # flagship session: one block's frames
+    (8, 1024, 768, 40),   # flagship engine: EXTCAP = block_size
+    (3, 37, 50, 7),       # ragged tiles, a narrow TI
+])
+def test_ring_append_cols_time_major(dev, dtype, s, v, t_cap, tn):
+    """The main path's form: the transposed view of time-major (S, TN, V)
+    float32 log-probs, into float32 and bfloat16 rings, one launch."""
+    rng = np.random.default_rng(v + tn)
+    ring = torch.from_numpy(rng.standard_normal((s, v, t_cap),
+                                                dtype=np.float32)).to(dev, dtype)
+    new = torch.from_numpy(rng.standard_normal((s, tn, v), dtype=np.float32)
+                           ).to(dev).transpose(1, 2)
+    start = torch.from_numpy(rng.integers(0, t_cap, size=s).astype(np.int32)
+                             ).to(dev)
+    start[0] = t_cap - tn // 2                           # hangs off the end
+    n_new = torch.from_numpy(rng.integers(0, tn + 4, size=s).astype(np.int32)
+                             ).to(dev)
+    before = ring_append_cols.launches
+    got = ring_append_cols(ring.clone(), new, start, n_new)
+    ref = ring_append_cols_plain(ring.clone(), new, start, n_new)
+    torch.cuda.synchronize()
+    assert ring_append_cols.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("form", ["strided", "f32_into_bf16",
+                                  "strided_f32_into_bf16", "permuted"])
+@pytest.mark.parametrize("l_dim,t_cap,d,tn", [
+    (1, 832, 512, 40),   # flagship enc_out: 16-byte units
+    (2, 70, 80, 54),     # raw carry (80 mels), two layers
+    (1, 33, 7, 5),       # odd rows: 4-byte units, or one float per bf16
+])
+def test_ring_append_rows_forms(dev, form, l_dim, t_cap, d, tn):
+    """The producers' forms: a slice along time, float32 into a bfloat16
+    cache, (L, S) stored swapped; one launch, equal to the plain twin."""
+    rng = np.random.default_rng(t_cap + d)
+    s = 6
+    dtype = torch.float32 if form in ("strided", "permuted") else torch.bfloat16
+    cache = torch.from_numpy(rng.standard_normal(
+        (l_dim, s, t_cap, d), dtype=np.float32)).to(dev, dtype)
+    big = torch.from_numpy(rng.standard_normal(
+        (l_dim, s, tn + 3, d), dtype=np.float32)).to(dev)
+    if form == "permuted":
+        new = big[:, :, :tn].transpose(0, 1).contiguous().transpose(0, 1)
+    elif form.startswith("strided"):
+        new = big[:, :, 1:tn + 1]
+    else:
+        new = big[:, :, :tn].contiguous()
+    start = torch.tensor([0, t_cap - tn, 3, t_cap - 2, t_cap + 9, 1],
+                         dtype=torch.int32, device=dev)
+    n_new = torch.tensor([tn, tn, 0, tn, 2, tn + 3], dtype=torch.int32,
+                         device=dev)
+    before = ring_append_rows.launches
+    got = ring_append_rows(cache.clone(), new, start, n_new)
+    ref = ring_append_rows_plain(cache.clone(), new, start, n_new)
+    torch.cuda.synchronize()
+    assert ring_append_rows.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def test_ring_append_stream_and_graph(dev):
+    """The launch goes to PyTorch's current stream (a side stream, a CUDA
+    graph's capture stream), so the appends can be captured and replayed."""
+    ring = torch.zeros((2, 64, 96), device=dev)
+    new = torch.randn((2, 8, 64), device=dev).transpose(1, 2)
+    start = torch.tensor([0, 50], dtype=torch.int32, device=dev)
+    n_new = torch.tensor([8, 5], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(ring) == side.cuda_stream
+        ring_append_cols(ring, new, start, n_new)  # plan and warm up
+    torch.cuda.synchronize()
+    ring.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ring_append_cols(ring, new, start, n_new)
+    torch.cuda.synchronize()
+    assert float(ring.abs().sum()) == 0.0            # captured, not run
+    start.copy_(torch.tensor([10, 90], dtype=torch.int32))
+    graph.replay()
+    ref = ring_append_cols_plain(torch.zeros_like(ring), new, start, n_new)
+    torch.cuda.synchronize()
+    assert torch.equal(ring, ref)
 
 
 @pytest.mark.parametrize("n,h,w,dk", [
