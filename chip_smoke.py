@@ -3,7 +3,8 @@
 
 Builds the port's CUDA kernels from ``speechcatcher_tpu_torch/csrc`` with
 nvcc for sm_90a, holds each kernel against its plain PyTorch version at the
-flagship main-path shapes and times both, then drives the port's paths at
+flagship main-path shapes (the attention kernels also in the strided form
+the main path hands them) and times both, then drives the port's paths at
 flagship width (random weights from a seed), for the transformer encoder and
 for the conformer encoder (``flagship_config(encoder_type="conformer")``):
 three utterances through ``Speech2TextStreaming``, and ten streams through
@@ -19,6 +20,7 @@ slots, and prints JSON lines. The last line is
     python3 chip_smoke.py --profile             # device time of one utterance
     python3 chip_smoke.py --profile engine      # device time of engine ticks
     python3 chip_smoke.py --profile conformer   # one conformer utterance
+    python3 chip_smoke.py --profile tiling      # attention kernels, 1-32 windows
 
 Imports neither JAX nor the JAX package.
 """
@@ -82,47 +84,135 @@ def bound(n_bytes: float, n_ops: float):
 # Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_block_attention(dev, cfg, n_blocks: int):
+def check_attention(dev, cfg, n_blocks: int, rel: bool):
+    """Kernel A (rel=False) or E at (n_blocks, H, W, dk): the session runs
+    one or two windows per step, the engine 8 slots x ENGINE_MAXB. Held
+    against the plain version for contiguous operands and in the main
+    path's form: q, k, v (and E's pos) as the transposed views of
+    (N, W, H*dk) projections, the result merged back to (N, W, H*dk)
+    through transpose(1, 2).reshape, which must be a view. Timed in that
+    form, in turns with one scaled_dot_product_attention call on the same
+    operands."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from speechcatcher_tpu_torch.models.encoder import block_attention_mask
+    from speechcatcher_tpu_torch.ops.kernels import (
+        block_attention as attention_mod,
+        rel_attention as rel_mod,
+    )
     from speechcatcher_tpu_torch.ops.kernels.block_attention import (
+        attention_plan,
         block_attention,
         block_attention_plain,
     )
+    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+        MASK_MIN,
+        rel_block_attention,
+        rel_block_attention_plain,
+        rel_shift,
+    )
 
-    h, w = cfg.encoder_heads, cfg.block_size + 2
+    kernel, plain = ((rel_block_attention, rel_block_attention_plain) if rel
+                     else (block_attention, block_attention_plain))
+    plans = (rel_mod if rel else attention_mod)._PLANS
+    name = kernel.__name__
+    n, h, w = n_blocks, cfg.encoder_heads, cfg.block_size + 2
     dk = cfg.encoder_dim // h
-    rng = np.random.default_rng(1)
-    q, k, v = (torch.from_numpy(rng.standard_normal((n_blocks, h, w, dk),
-                                                    dtype=np.float32)).to(dev)
-               for _ in range(3))
+    rng = np.random.default_rng(5 if rel else 1)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev)
+
+    def projected(lead):
+        return rand(lead, w, h * dk).reshape(lead, w, h, dk).transpose(1, 2)
+
     mask = torch.from_numpy(block_attention_mask(cfg.block_size)).to(dev)
-    got = block_attention(q, k, v, mask)
-    ref = block_attention_plain(q, k, v, mask)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
+    biases = [rand(h, dk), rand(h, dk)] if rel else []
+    forms = {
+        "contiguous": [rand(n, h, w, dk) for _ in range(3)]
+        + ([rand(h, w, dk)] if rel else []) + biases + [mask],
+        "projection": [projected(n) for _ in range(3)]
+        + ([projected(1)[0]] if rel else []) + biases + [mask],
+    }
     tol = 1e-5
-    if not err <= tol or not bool((got[:, :, 0] == 0).all()):
-        fail(f"block_attention disagrees: max_abs_err={err} (tol {tol})")
-    keep = mask != 0
-    n_bytes = 4 * q.numel() * 4 + mask.numel() * 4
-    n_ops = 2 * (2 * n_blocks * h * w * w * dk)
+    errs = {}
+    for form, args in forms.items():
+        got = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        errs[form] = float((got - ref).abs().max())
+        if not errs[form] <= tol or not bool((got[:, :, 0] == 0).all()):
+            fail(f"{name} disagrees at N={n} ({form} operands): "
+                 f"max_abs_err={errs[form]} (tol {tol})")
+        merged = got.transpose(1, 2).reshape(n, w, h * dk)
+        if merged.data_ptr() != got.data_ptr():
+            fail(f"{name}: merging the heads of the result copies")
+    args = forms["projection"]
+    q, k, v = args[:3]
+    if rel:
+        # Library yardstick: SDPA with (q+u) and the shifted, scaled
+        # position scores precomputed as an additive float mask (masked:
+        # the float32 minimum). Not the same function: SDPA does not zero
+        # row 0.
+        pos, bias_u, bias_v = args[3:6]
+        lib_q = q + bias_u[None, :, None, :]
+        bd = rel_shift(torch.matmul(q + bias_v[None, :, None, :],
+                                    pos.transpose(-1, -2)[None]))
+        lib_mask = torch.where(mask != 0, bd / math.sqrt(dk), MASK_MIN)
+        library = ("torch.nn.functional.scaled_dot_product_attention "
+                   "(shifted position scores precomputed as an additive "
+                   "float mask; row 0 not zeroed)")
+        extra = pos.numel() + 2 * bias_u.numel()
+    else:
+        lib_q, lib_mask = q, mask != 0
+        library = "torch.nn.functional.scaled_dot_product_attention"
+        extra = 0
+
+    def main_form():
+        return kernel(*args).transpose(1, 2).reshape(n, w, h * dk)
+
+    ms, lib_ms, k_all, l_all = timed_pairs(
+        main_form,
+        lambda: F.scaled_dot_product_attention(lib_q, k, v,
+                                               attn_mask=lib_mask))
+    n_bytes = (4 * q.numel() + extra + mask.numel()) * 4
+    n_ops = (3 if rel else 2) * (2 * n * h * w * w * dk)
     b_ms, b_by = bound(n_bytes, n_ops)
+    # The tiling follows the number of blocks (one query row a warp, or two
+    # once there are more blocks than SMs): the same launch under either,
+    # with a fresh plan each time.
+    limit = attention_mod.ONE_ROW_MAX_BLOCKS
+    by_tiling = {}
+    for rows_per_warp, forced in ((1, float("inf")), (2, -1)):
+        attention_mod.ONE_ROW_MAX_BLOCKS = forced
+        plans.clear()
+        by_tiling[rows_per_warp] = device_us(main_form, name + "_kernel")
+    attention_mod.ONE_ROW_MAX_BLOCKS = limit
+    plans.clear()
     return {
-        "name": "block_attention", "route": "cuda",
-        "source": "speechcatcher_tpu_torch/csrc/block_attention.cu",
-        "replaces": "speechcatcher_tpu/ops/pallas/block_attention.py:108",
-        "shape": [n_blocks, h, w, dk], "max_abs_err": err, "tol": tol,
-        "ms": cuda_ms(lambda: block_attention(q, k, v, mask), 200),
-        "plain_ms": cuda_ms(lambda: block_attention_plain(q, k, v, mask), 200),
+        "name": name, "route": "cuda",
+        "source": "speechcatcher_tpu_torch/csrc/"
+                  + ("rel_attention.cu" if rel else "block_attention.cu"),
+        "replaces": "speechcatcher_tpu/ops/pallas/"
+                    + ("rel_attention.py:151" if rel
+                       else "block_attention.py:108"),
+        "shape": [n, h, w, dk],
+        "operands": "transposed views of (N, W, H*dk) projections",
+        "max_abs_err": max(errs.values()), "max_abs_err_by_form": errs,
+        "tol": tol, "ms": ms, "ms_runs": k_all,
+        "ms_contiguous": cuda_ms(lambda: kernel(*forms["contiguous"]), 200),
+        "device_us": device_us(main_form, name + "_kernel"),
+        "device_us_contiguous": device_us(
+            lambda: kernel(*forms["contiguous"]), name + "_kernel"),
+        "rows_per_warp": attention_plan(name, q, k, v, mask,
+                                        *args[3:-1]).rpw,
+        "device_us_by_rows_per_warp": by_tiling,
+        "plain_ms": cuda_ms(lambda: plain(*args), 200),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
-            200),
-        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "library_ms": lib_ms, "library_ms_runs": l_all, "library": library,
     }
 
 
@@ -384,72 +474,6 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "library_ms_runs": l_all,
         "library": "Tensor.index_put_ (precomputed indices)",
-    }
-
-
-def check_rel_block_attention(dev, cfg, n_blocks: int):
-    """Kernel E at (n_blocks, H, W, dk): the conformer session runs one or
-    two blocks per step, the engine 8 slots x ENGINE_MAXB."""
-    import numpy as np
-    import torch
-    import torch.nn.functional as F
-
-    from speechcatcher_tpu_torch.models.encoder import block_attention_mask
-    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
-        MASK_MIN,
-        rel_block_attention,
-        rel_block_attention_plain,
-        rel_shift,
-    )
-
-    h, w = cfg.encoder_heads, cfg.block_size + 2
-    dk = cfg.encoder_dim // h
-    rng = np.random.default_rng(5)
-
-    def rand(*shape):
-        return torch.from_numpy(rng.standard_normal(
-            shape, dtype=np.float32)).to(dev)
-
-    q, k, v = (rand(n_blocks, h, w, dk) for _ in range(3))
-    pos, bias_u, bias_v = rand(h, w, dk), rand(h, dk), rand(h, dk)
-    mask = torch.from_numpy(block_attention_mask(cfg.block_size)).to(dev)
-    args = (q, k, v, pos, bias_u, bias_v, mask)
-    got = rel_block_attention(*args)
-    ref = rel_block_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    tol = 1e-5
-    if not err <= tol or not bool((got[:, :, 0] == 0).all()):
-        fail(f"rel_block_attention disagrees at N={n_blocks}: "
-             f"max_abs_err={err} (tol {tol})")
-    # Library yardstick: SDPA with (q+u) and the shifted, scaled position
-    # scores precomputed as an additive float mask (masked: the float32
-    # minimum). Not the same function: SDPA does not zero row 0.
-    q_u = q + bias_u[None, :, None, :]
-    bd = rel_shift(torch.matmul(q + bias_v[None, :, None, :],
-                                pos.transpose(-1, -2)[None]))
-    add_mask = torch.where(mask != 0, bd / math.sqrt(dk), MASK_MIN)
-    n_bytes = (4 * q.numel() + pos.numel() + 2 * bias_u.numel()
-               + mask.numel()) * 4
-    n_ops = 3 * (2 * n_blocks * h * w * w * dk)
-    b_ms, b_by = bound(n_bytes, n_ops)
-    return {
-        "name": "rel_block_attention", "route": "cuda",
-        "source": "speechcatcher_tpu_torch/csrc/rel_attention.cu",
-        "replaces": "speechcatcher_tpu/ops/pallas/rel_attention.py:151",
-        "shape": [n_blocks, h, w, dk], "max_abs_err": err, "tol": tol,
-        "ms": cuda_ms(lambda: rel_block_attention(*args), 200),
-        "device_us": device_us(lambda: rel_block_attention(*args),
-                               "rel_block_attention_kernel"),
-        "plain_ms": cuda_ms(lambda: rel_block_attention_plain(*args), 200),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(
-            lambda: F.scaled_dot_product_attention(q_u, k, v,
-                                                   attn_mask=add_mask),
-            200),
-        "library": "torch.nn.functional.scaled_dot_product_attention "
-                   "(shifted position scores precomputed as an additive "
-                   "float mask; row 0 not zeroed)",
     }
 
 
@@ -750,8 +774,8 @@ def engine_path(dev, counters, model, chunk: int = 8192,
     engine = StreamingEngine(model, n_slots=8, beam_size=5,
                              chunk_samples=chunk, device=dev)
     if engine.MAXB != ENGINE_MAXB:
-        fail(f"engine MAXB is {engine.MAXB}; kernel E was checked at "
-             f"{ENGINE_MAXB} blocks per slot")
+        fail(f"engine MAXB is {engine.MAXB}; kernels A and E were checked "
+             f"at {ENGINE_MAXB} blocks per slot")
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -951,10 +975,11 @@ def profile_utterance(dev, encoder_type: str = "transformer"):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="utterance",
-                    choices=("utterance", "engine", "conformer"),
+                    choices=("utterance", "engine", "conformer", "tiling"),
                     help="profile one main-path utterance (default), "
-                    "engine ticks at S=8 or one conformer utterance, then "
-                    "stop")
+                    "engine ticks at S=8, one conformer utterance, or the "
+                    "attention kernels' device time under either tiling "
+                    "at 1 to 32 windows, then stop")
     args = ap.parse_args()
 
     import torch
@@ -1002,18 +1027,25 @@ def main() -> int:
         profile_utterance(dev, encoder_type="conformer")
         return 0
     cfg = flagship_config()
+    if args.profile == "tiling":
+        for rel in (False, True):
+            for n_blocks in (1, 2, 3, 4, 6, 8, 11, 16, 24, 32):
+                k = check_attention(dev, cfg, n_blocks, rel)
+                emit({"phase": "profile_tiling"} | {key: k[key] for key in (
+                    "name", "shape", "rows_per_warp", "device_us",
+                    "device_us_by_rows_per_warp")})
+        return 0
     # Main-path shapes: 0.5 s chunks give the encoder one block per step
     # mostly, two on some; the beam is 5; each block appends hop_size frames.
     # The engine's ring appends are timed at its enc_out shape with 8 slots;
-    # the engine runs up to 8 x ENGINE_MAXB attention windows per layer.
+    # the engine runs 8 (a window per slot) to 8 x ENGINE_MAXB attention
+    # windows per layer.
     checks = [
-        check_block_attention(dev, cfg, n_blocks=2),
-        check_rel_block_attention(dev, cfg, n_blocks=2),
-        check_rel_block_attention(dev, cfg, n_blocks=8 * ENGINE_MAXB),
-    ]
+        check_attention(dev, cfg, n_blocks, rel)
+        for rel in (False, True) for n_blocks in (2, 8, 8 * ENGINE_MAXB)]
     kernels = [
-        check_block_attention(dev, cfg, n_blocks=1),
-        check_rel_block_attention(dev, cfg, n_blocks=1),
+        check_attention(dev, cfg, n_blocks=1, rel=False),
+        check_attention(dev, cfg, n_blocks=1, rel=True),
         check_ctc_recursion(dev, cfg, beam=5),
         check_ring_append(dev, cfg, n_new=cfg.hop_size, n_slots=8),
         check_ring_append_rows(dev, cfg, n_slots=8),

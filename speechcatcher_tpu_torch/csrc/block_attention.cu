@@ -1,4 +1,4 @@
-// Masked block attention for the streaming encoder, sm_90a.
+// Masked block attention for the streaming encoder (kernel A), sm_90a.
 //
 // Replaces speechcatcher_tpu/ops/pallas/block_attention.py::block_attention
 // (_kernel, pallas_call at :108): out = softmax(mask(Q K^T / sqrt(dk))) V in
@@ -6,116 +6,54 @@
 // float32 minimum before the softmax and the masked probabilities zeroed
 // after it, so a fully masked row gives exactly 0.
 //
-// Bound on the H100: bytes. One (n, h) pair reads q, k, v (W x dk each) and
-// writes W x dk; the W x W score tile is 42 x 42 at the flagship and never
-// leaves shared memory. At one stream the grid is N*H = 8..24 blocks, far
-// fewer than the 132 SMs, so a call is launch- and latency-bound: the design
-// keeps the whole pair in one block, one launch per layer, and makes no
-// attempt at tensor cores (a later PR's work).
+// Bound on the H100: bytes (q, k, v read once, out written once; the W x W
+// scores never leave registers), but at one or two windows a step the
+// kernel waits for its longest chain of dependent instructions, not for
+// bytes or arithmetic. attention.cuh holds the design, which this kernel
+// shares with rel_block_attention: a block per (pair, tile of query rows),
+// a warp per score row with the scores in registers, K and V staged by
+// cp.async, operands read through their producers' strides and the output
+// written in the layout its consumer merges as a view. float32 on the CUDA
+// cores, sums in index order; tensor cores come with the bf16 precision
+// mode.
 //
-// Layout: q, k, v, out are contiguous float32 (N, H, W, dk); mask is
-// float32 (W, W), nonzero = attend. One block per (n, h) pair; q, k, v are
-// staged in shared memory with rows padded to dk + 1 floats so that threads
-// walking key rows hit distinct banks.
+// Layout: q, k, v float32 (N, H, W, dk) with strides from the plan, inner
+// stride 1; mask float32 (W, W) contiguous, nonzero = attend; out float32
+// (N, W, H, dk) contiguous.
 
-#include <cuda_runtime.h>
-#include <cfloat>
+#include "attention.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-
+template <bool VEC, int CPL, int RPW>
 __global__ void block_attention_kernel(const float* __restrict__ q,
                                        const float* __restrict__ k,
                                        const float* __restrict__ v,
+                                       const float* __restrict__ pos,
+                                       const float* __restrict__ bias_u,
+                                       const float* __restrict__ bias_v,
                                        const float* __restrict__ mask,
-                                       float* __restrict__ out,
-                                       int w, int dk, float scale) {
-  extern __shared__ float smem[];
-  const int dkp = dk + 1;
-  float* sq = smem;               // (W, dk+1)
-  float* sk = sq + w * dkp;       // (W, dk+1)
-  float* sv = sk + w * dkp;       // (W, dk+1)
-  float* sp = sv + w * dkp;       // (W, W) scores, then probabilities
-
-  const size_t base = static_cast<size_t>(blockIdx.x) * w * dk;
-  const int tid = threadIdx.x;
-  const int n_elem = w * dk;
-
-  for (int idx = tid; idx < n_elem; idx += blockDim.x) {
-    const int r = idx / dk;
-    const int c = idx - r * dk;
-    sq[r * dkp + c] = q[base + idx];
-    sk[r * dkp + c] = k[base + idx];
-    sv[r * dkp + c] = v[base + idx];
-  }
-  __syncthreads();
-
-  // Scores with the mask fill.
-  for (int idx = tid; idx < w * w; idx += blockDim.x) {
-    const int i = idx / w;
-    const int j = idx - i * w;
-    float acc = 0.f;
-    for (int d = 0; d < dk; ++d) acc += sq[i * dkp + d] * sk[j * dkp + d];
-    acc = acc / scale;
-    sp[idx] = mask[idx] != 0.f ? acc : -FLT_MAX;
-  }
-  __syncthreads();
-
-  // Row softmax, one warp per row, then zero the masked probabilities.
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int i = warp; i < w; i += n_warps) {
-    float* row = sp + i * w;
-    float mx = -FLT_MAX;
-    for (int j = lane; j < w; j += 32) mx = fmaxf(mx, row[j]);
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int j = lane; j < w; j += 32) {
-      const float e = expf(row[j] - mx);
-      row[j] = e;
-      sum += e;
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int j = lane; j < w; j += 32)
-      row[j] = mask[i * w + j] != 0.f ? row[j] / sum : 0.f;
-  }
-  __syncthreads();
-
-  // out = P V.
-  for (int idx = tid; idx < n_elem; idx += blockDim.x) {
-    const int i = idx / dk;
-    const int d = idx - i * dk;
-    float acc = 0.f;
-    for (int j = 0; j < w; ++j) acc += sp[i * w + j] * sv[j * dkp + d];
-    out[base + idx] = acc;
-  }
+                                       float* __restrict__ out, AttnArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  attention_block<false, VEC, CPL, RPW>(q, k, v, pos, bias_u, bias_v, mask,
+                                        out, a, smem);
 }
+
+struct BlockAttention {
+  static constexpr bool kRel = false;
+  template <bool VEC, int CPL, int RPW>
+  static auto kernel() { return block_attention_kernel<VEC, CPL, RPW>; }
+};
 
 }  // namespace
 
-extern "C" int sc_block_attention_smem_bytes(int w, int dk) {
-  return static_cast<int>((3 * w * (dk + 1) + w * w) * sizeof(float));
-}
-
+// Returns 0, a cudaError_t, or kBadPlan when the plan or the pointers do
+// not fit the kernel.
 extern "C" int sc_block_attention(const float* q, const float* k,
                                   const float* v, const float* mask,
-                                  float* out, int n_pairs, int w, int dk,
-                                  float scale, void* stream) {
-  const int smem = sc_block_attention_smem_bytes(w, dk);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        block_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (n_pairs > 0) {
-    block_attention_kernel<<<n_pairs, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        q, k, v, mask, out, w, dk, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                  float* out, const AttnArgs* a,
+                                  void* stream) {
+  return launch_attention<BlockAttention>(
+      q, k, v, nullptr, nullptr, nullptr, mask, out, *a,
+      static_cast<cudaStream_t>(stream));
 }

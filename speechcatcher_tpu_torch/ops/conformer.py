@@ -80,10 +80,11 @@ def rel_position_attention(
 
     if (mask is not None and mask.dim() == 2 and pos.shape[0] == 1
             and pos.shape[2] == key.shape[1] and tq == key.shape[1]):
-        out = rel_block_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            pos[0].contiguous(), p["pos_bias_u"].contiguous(),
-            p["pos_bias_v"].contiguous(), mask)
+        # The kernel reads the projections' transposed views as they lie
+        # and returns the view that the merge below turns back without a
+        # copy.
+        out = rel_block_attention(q, k, v, pos[0], p["pos_bias_u"],
+                                  p["pos_bias_v"], mask)
     else:
         q_u = q + p["pos_bias_u"][None, :, None, :]
         q_v = q + p["pos_bias_v"][None, :, None, :]

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into an
 object (all sources in parallel, one ``nvcc`` each) and linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 lands in ``speechcatcher_tpu_torch/_build/<hash>/``, keyed by a hash of the
-sources and flags, so a second process reuses it. Nothing is built when the
-package is imported: the first kernel launch builds.
+sources, their ``*.cuh`` headers and the flags, so a second process reuses
+it. Nothing is built when the package is imported: the first kernel launch
+builds.
 """
 
 from __future__ import annotations
@@ -31,15 +32,13 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # name -> argtypes; every function returns the launch's cudaError_t as int
-# (the ring appends also -1 when the plan or the pointers do not fit).
+# (those that take a plan also -1 when the plan or the pointers do not fit).
 _SIGNATURES = {
-    "sc_block_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "sc_block_attention_smem_bytes": [_I, _I],
-    "sc_rel_block_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _F, _P],
-    "sc_rel_block_attention_smem_bytes": [_I, _I],
+    # q, k, v, mask, out, plan (a struct, by address), stream
+    "sc_block_attention": [_P, _P, _P, _P, _P, _P, _P],
+    # q, k, v, pos, bias_u, bias_v, mask, out, plan, stream
+    "sc_rel_block_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "sc_ctc_forward_recursion": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # ring, new, start, n_new, plan (a struct, by address), stream
     "sc_ring_append_cols": [_P, _P, _P, _P, _P, _P],
@@ -90,7 +89,7 @@ def _sources():
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,0 +1,65 @@
+"""Cached launch plans: what the kernel wrappers share.
+
+A wrapper plans each input signature (shapes, strides, dtypes, devices of
+all operands) once: a pure-Python function does every check and returns the
+launch's integers as a ``ctypes.Structure``, which is cached under the
+signature and passed to the C entry point by address. A call is then one key
+tuple and dict lookup, the operands' ``data_ptr()``s, the raw current stream
+and one foreign call. The checks run before the CPU/CUDA branch, so the CPU
+route refuses what the card refuses. What depends on the pointers
+(alignment, vector width) is integer arithmetic in the C entry point, which
+returns ``BAD_PLAN`` for what does not fit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from speechcatcher_tpu_torch.ops.kernels import _build
+
+BAD_PLAN = -1  # kBadPlan in csrc/*.cu
+
+
+class Launch(NamedTuple):
+    """A cached plan: its arguments, their address, the bound entry point
+    (None on the CPU, where the plain twin runs) and, for a kernel that
+    allocates its result, the shape to allocate."""
+
+    args: ctypes.Structure
+    address: int
+    fn: object
+    out_shape: tuple = ()
+
+
+def strides(t: torch.Tensor) -> list:
+    """t's strides in elements, 0 on dims of extent 1 (never stepped)."""
+    return [0 if n == 1 else st for n, st in zip(t.shape, t.stride())]
+
+
+def check_devices(name: str, *tensors) -> None:
+    """Every operand on one device, the CPU or a CUDA card."""
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda") or any(a.device != dev
+                                              for a in tensors):
+        raise ValueError(f"{name}: operands must share one CPU or CUDA "
+                         f"device, got "
+                         + ", ".join(str(a.device) for a in tensors))
+
+
+def launch(plans: dict, key: tuple, args: ctypes.Structure, entry: str,
+           device: torch.device, out_shape: tuple = ()) -> Launch:
+    """Bind a planned signature's entry point on CUDA and cache it."""
+    fn = _build.library().fns[entry] if device.type == "cuda" else None
+    plan = plans[key] = Launch(args, ctypes.addressof(args), fn, out_shape)
+    return plan
+
+
+def raise_launch_error(name: str, err: int) -> None:
+    """Raise for a nonzero return of an entry point."""
+    if err == BAD_PLAN:
+        raise ValueError(f"{name}: the operands' addresses or strides do not "
+                         "fit the kernel")
+    raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

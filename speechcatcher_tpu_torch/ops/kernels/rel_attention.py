@@ -18,10 +18,18 @@ reads
 with the float32 minimum before the softmax and masked probabilities are
 zeroed after it, so a fully masked row gives exactly 0.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/rel_attention.cu`` (one block per (n, h) pair, the shift as index
-arithmetic in shared memory). On a CPU tensor it runs
-``rel_block_attention_plain``, the same arithmetic in PyTorch.
+q, k, v, pos and the biases are float32 with any strides on their leading
+dims and inner stride 1, so the transposed views that ``mha_project`` and
+``rel_position_attention`` make of their projections are read as they lie.
+On a CUDA tensor the wrapper launches the hand-written kernel of
+``csrc/rel_attention.cu`` (``csrc/attention.cuh``: a block per (window,
+head, tile of query rows), a warp per score row, the shift as index
+arithmetic over the tile's raw rows) and returns the ``transpose(1, 2)``
+view of a contiguous (N, W, H, dk) result, which the caller merges into
+(N, W, H·dk) without a copy. On a CPU tensor it runs
+``rel_block_attention_plain``, the same arithmetic in PyTorch. Both routes
+check the operands alike, once per input signature, through
+``block_attention.attention_plan``.
 """
 
 from __future__ import annotations
@@ -30,10 +38,10 @@ import math
 
 import torch
 
-from speechcatcher_tpu_torch.ops.kernels import _build
+from speechcatcher_tpu_torch.ops.kernels import _build, _plan
 from speechcatcher_tpu_torch.ops.kernels.block_attention import (
     MASK_MIN,
-    SMEM_LIMIT,
+    attention_plan,
 )
 
 
@@ -65,46 +73,43 @@ def rel_block_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(attn, v)
 
 
+_PLANS: dict = {}
+
+
+def _launch(key: tuple, q, k, v, pos, bias_u, bias_v, mask) -> _plan.Launch:
+    """Plan a new signature and cache it."""
+    args = attention_plan("rel_block_attention", q, k, v, mask, pos, bias_u,
+                          bias_v)
+    return _plan.launch(_PLANS, key, args, "sc_rel_block_attention",
+                        q.device, (args.n, args.w, args.h, args.dk))
+
+
 def rel_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pos: torch.Tensor, bias_u: torch.Tensor,
                         bias_v: torch.Tensor, mask: torch.Tensor
                         ) -> torch.Tensor:
-    """(N, H, W, dk) float32 q, k, v, a shared (H, W, dk) position table,
-    (H, dk) biases and a (W, W) mask -> (N, H, W, dk)."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"rel_block_attention: q, k, v must share one "
-                         f"(N, H, W, dk) shape, got {q.shape}, {k.shape}, "
-                         f"{v.shape}")
-    n, h, w, dk = q.shape
-    if pos.shape != (h, w, dk):
-        raise ValueError(f"rel_block_attention: pos must be ({h}, {w}, {dk}),"
-                         f" got {tuple(pos.shape)}")
-    for name, b in (("bias_u", bias_u), ("bias_v", bias_v)):
-        if b.shape != (h, dk):
-            raise ValueError(f"rel_block_attention: {name} must be ({h}, "
-                             f"{dk}), got {tuple(b.shape)}")
-    if mask.shape != (w, w):
-        raise ValueError(f"rel_block_attention: mask must be ({w}, {w}), "
-                         f"got {tuple(mask.shape)}")
-    if q.device.type == "cpu":
+    """(N, H, W, dk) float32 q, k, v, a shared (H, W, dk) position table and
+    (H, dk) biases (any strides on the leading dims) and a contiguous (W, W)
+    float32 mask -> (N, H, W, dk); on the card, the transposed view of a
+    contiguous (N, W, H, dk) tensor."""
+    key = (q.shape, q.stride(), q.dtype, q.device,
+           k.shape, k.stride(), k.dtype, k.device,
+           v.shape, v.stride(), v.dtype, v.device,
+           pos.shape, pos.stride(), pos.dtype, pos.device,
+           bias_u.shape, bias_u.stride(), bias_u.dtype, bias_u.device,
+           bias_v.shape, bias_v.stride(), bias_v.dtype, bias_v.device,
+           mask.shape, mask.stride(), mask.dtype, mask.device)
+    plan = _PLANS.get(key) or _launch(key, q, k, v, pos, bias_u, bias_v, mask)
+    if plan.fn is None:
         return rel_block_attention_plain(q, k, v, pos, bias_u, bias_v, mask)
-    operands = (q, k, v, pos, bias_u, bias_v, mask)
-    for a in operands:
-        if a.dtype != torch.float32:
-            raise TypeError(f"rel_block_attention: float32 operands only, "
-                            f"got {a.dtype}")
-    _build.check_cuda("rel_block_attention", *operands)
-    lib = _build.library()
-    smem = lib.lib.sc_rel_block_attention_smem_bytes(w, dk)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"rel_block_attention: W={w}, dk={dk} needs {smem} "
-                         f"B of shared memory, more than {SMEM_LIMIT}")
-    out = torch.empty_like(q)
-    lib.call("sc_rel_block_attention", *(a.data_ptr() for a in operands),
-             out.data_ptr(), n * h, h, w, dk, math.sqrt(dk),
-             _build.stream_ptr(q))
+    out = torch.empty(plan.out_shape, dtype=torch.float32, device=q.device)
+    err = plan.fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                  bias_u.data_ptr(), bias_v.data_ptr(), mask.data_ptr(),
+                  out.data_ptr(), plan.address, _build.stream_ptr(q))
+    if err:
+        _plan.raise_launch_error("rel_block_attention", err)
     rel_block_attention.launches += 1
-    return out
+    return out.transpose(1, 2)
 
 
 rel_block_attention.launches = 0

@@ -27,14 +27,12 @@ runs the ``*_plain`` twin.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
-from speechcatcher_tpu_torch.ops.kernels import _build
+from speechcatcher_tpu_torch.ops.kernels import _build, _plan
 
 _RING_DTYPES = (torch.float32, torch.bfloat16)
-_BAD_PLAN = -1  # kBadPlan in csrc/ring_append.cu
 
 
 class _ColsArgs(ctypes.Structure):
@@ -57,25 +55,11 @@ class _RowsArgs(ctypes.Structure):
                 ("in_bytes", ctypes.c_int), ("out_bytes", ctypes.c_int)]
 
 
-class _Launch(NamedTuple):
-    """A cached plan: its arguments, their address, and the bound entry
-    point (None on the CPU, where the plain twin runs)."""
-
-    args: ctypes.Structure
-    address: int
-    fn: object
-
-
 def _signature(ring, new, start, n_new) -> tuple:
     return (ring.shape, ring.stride(), ring.dtype, ring.device,
             new.shape, new.stride(), new.dtype, new.device,
             start.shape, start.stride(), start.dtype, start.device,
             n_new.shape, n_new.stride(), n_new.dtype, n_new.device)
-
-
-def _strides(t: torch.Tensor) -> list:
-    """t's strides in elements, 0 on dims of extent 1 (never stepped)."""
-    return [0 if n == 1 else st for n, st in zip(t.shape, t.stride())]
 
 
 def _check_common(name: str, ring, new, start, n_new) -> None:
@@ -95,12 +79,7 @@ def _check_common(name: str, ring, new, start, n_new) -> None:
             raise TypeError(f"{name}: {what} must be int32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    dev = ring.device
-    if dev.type not in ("cpu", "cuda") or any(
-            a.device != dev for a in (new, start, n_new)):
-        raise ValueError(f"{name}: operands must share one CPU or CUDA "
-                         f"device, got {ring.device}, {new.device}, "
-                         f"{start.device}, {n_new.device}")
+    _plan.check_devices(name, ring, new, start, n_new)
     if not ring.is_contiguous():
         raise ValueError(f"{name}: the ring must be contiguous")
 
@@ -113,7 +92,7 @@ def _cols_plan(ring, new, start, n_new) -> _ColsArgs:
                          f"{tuple(new.shape)}")
     _check_common("ring_append_cols", ring, new, start, n_new)
     s_dim, v_dim, t_cap = ring.shape
-    ss, sv, st = _strides(new)
+    ss, sv, st = _plan.strides(new)
     return _ColsArgs(ss, sv, st, s_dim, v_dim, t_cap, new.shape[2],
                      new.element_size(), ring.element_size(), int(st == 1))
 
@@ -129,7 +108,7 @@ def _rows_plan(cache, new, start, n_new) -> _RowsArgs:
     if t_cap == 0:
         raise ValueError("ring_append_rows: the ring holds no rows")
     _check_common("ring_append_rows", cache, new, start, n_new)
-    sl, ss, st, sd = _strides(new)
+    sl, ss, st, sd = _plan.strides(new)
     if sd not in (0, 1):
         raise ValueError("ring_append_rows: new's last dim must be "
                          "contiguous")
@@ -138,20 +117,10 @@ def _rows_plan(cache, new, start, n_new) -> _RowsArgs:
 
 
 def _launch(plans: dict, key: tuple, planner, entry: str, ring, new, start,
-            n_new) -> _Launch:
-    """Plan a new signature, bind its entry point on CUDA, and cache it."""
-    args = planner(ring, new, start, n_new)
-    fn = _build.library().fns[entry] if ring.device.type == "cuda" else None
-    plan = plans[key] = _Launch(args, ctypes.addressof(args), fn)
-    return plan
-
-
-def _raise_launch_error(name: str, err: int) -> None:
-    """Raise for a nonzero return of an entry point."""
-    if err == _BAD_PLAN:
-        raise ValueError(f"{name}: the operands' addresses or strides do not "
-                         "fit the kernel")
-    raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+            n_new) -> _plan.Launch:
+    """Plan a new signature and cache it."""
+    return _plan.launch(plans, key, planner(ring, new, start, n_new), entry,
+                        ring.device)
 
 
 def ring_append_cols_plain(ring, new, start, n_new):
@@ -185,7 +154,7 @@ def ring_append_cols(ring: torch.Tensor, new: torch.Tensor,
     err = plan.fn(ring.data_ptr(), new.data_ptr(), start.data_ptr(),
                   n_new.data_ptr(), plan.address, _build.stream_ptr(ring))
     if err:
-        _raise_launch_error("ring_append_cols", err)
+        _plan.raise_launch_error("ring_append_cols", err)
     ring_append_cols.launches += 1
     return ring
 
@@ -225,7 +194,7 @@ def ring_append_rows(cache: torch.Tensor, new: torch.Tensor,
     err = plan.fn(cache.data_ptr(), new.data_ptr(), start.data_ptr(),
                   n_new.data_ptr(), plan.address, _build.stream_ptr(cache))
     if err:
-        _raise_launch_error("ring_append_rows", err)
+        _plan.raise_launch_error("ring_append_rows", err)
     ring_append_rows.launches += 1
     return cache
 

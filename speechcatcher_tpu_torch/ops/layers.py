@@ -83,8 +83,10 @@ def multi_head_attention(p: Params, query: torch.Tensor, key: torch.Tensor,
     k = mha_project(p, key, "linear_k", n_head)
     v = mha_project(p, value, "linear_v", n_head)
     if mask is not None and mask.dim() == 2:
-        x = block_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            mask)
+        # The kernel reads the projections' transposed views as they lie
+        # and returns the view that the merge below turns back without a
+        # copy.
+        x = block_attention(q, k, v, mask)
     else:
         if mask is not None and mask.dim() == 3:
             mask = mask[:, None, :, :]

@@ -234,3 +234,112 @@ def test_rel_block_attention_kernel(dev, n, h, w, dk):
     assert bool((got[:, :, 0] == 0).all())
     with pytest.raises(ValueError):  # no silent fallback
         rel_block_attention(q, k, v, pos.cpu(), bias_u, bias_v, mask)
+
+
+# ---------------------------------------------------------------------------
+# Kernels A and E in the forms their callers give them
+# ---------------------------------------------------------------------------
+
+def _attention_operands(dev, rel, form, n, h, w, dk, seed):
+    """q, k, v (and pos, bias_u, bias_v) for A or E. "projection": the
+    transposed views of (N, W, H*dk) projections, as mha_project returns
+    them; "offset": contiguous tensors that start 4 bytes past a 16-byte
+    boundary (the scalar route); "contiguous": plain (N, H, W, dk)."""
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev)
+
+    def operand(lead):
+        if form == "projection":
+            return rand(lead, w, h * dk).reshape(lead, w, h, dk).transpose(1, 2)
+        if form == "offset":
+            return rand(lead * h * w * dk + 1)[1:].reshape(lead, h, w, dk)
+        return rand(lead, h, w, dk)
+
+    args = [operand(n) for _ in range(3)]
+    if rel:
+        args += [operand(1)[0], rand(h, dk), rand(h, dk)]
+    args.append(torch.from_numpy(block_attention_mask(w - 2)).to(dev))
+    return args
+
+
+_ATTENTION = {"block": (block_attention, block_attention_plain, False),
+              "rel": (rel_block_attention, rel_block_attention_plain, True)}
+
+
+@pytest.mark.parametrize("n,h,w,dk", [
+    (2, 8, 42, 64),    # flagship session: 96 blocks, one row a warp
+    (3, 8, 42, 64),    # three windows: two rows a warp from here on
+    (16, 8, 42, 64),   # flagship engine, 8 slots x 2 windows
+    (5, 2, 6, 4),      # one tile, one column per lane
+    (11, 2, 7, 8),
+    (7, 2, 10, 16),    # two tiles of five rows
+    (7, 2, 10, 6),     # dk not a multiple of 4: the scalar route
+    (2, 3, 33, 5),     # two columns per lane, odd dk
+    (2, 2, 70, 8),     # three columns per lane
+    (1, 2, 128, 4),    # the widest window
+    # More blocks than SMs, so two query rows a warp:
+    (40, 8, 7, 8),     # the last warp has one row
+    (70, 4, 10, 6),    # the scalar route
+    (150, 2, 33, 5),   # two columns per lane, an odd row left over
+    (70, 2, 70, 8),    # three columns per lane
+])
+@pytest.mark.parametrize("form", ["contiguous", "projection", "offset"])
+@pytest.mark.parametrize("which", ["block", "rel"])
+def test_attention_forms(dev, which, form, n, h, w, dk):
+    """A and E within 1e-5 of their plain versions (float32 sums in another
+    order), row 0 exactly 0, one launch, and a result that the callers'
+    transpose(1, 2).reshape merges without a copy."""
+    kernel, plain, rel = _ATTENTION[which]
+    args = _attention_operands(dev, rel, form, n, h, w, dk, seed=w * dk + n)
+    before = kernel.launches
+    got = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == (n, h, w, dk)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert bool((got[:, :, 0] == 0).all())
+    merged = got.transpose(1, 2).reshape(n, w, h * dk)
+    assert merged.data_ptr() == got.data_ptr() and merged.is_contiguous()
+
+
+@pytest.mark.parametrize("which", ["block", "rel"])
+def test_attention_refuses_on_the_card(dev, which):
+    """No silent fallback: what the plan refuses raises on CUDA tensors."""
+    kernel, _, rel = _ATTENTION[which]
+    args = _attention_operands(dev, rel, "contiguous", 2, 2, 6, 8, seed=0)
+    with pytest.raises(ValueError):   # inner stride 2
+        kernel(torch.zeros((2, 2, 6, 16), device=dev)[..., ::2], *args[1:])
+    with pytest.raises(TypeError):
+        kernel(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):   # mixed devices
+        kernel(*args[:-1], args[-1].cpu())
+
+
+@pytest.mark.parametrize("which", ["block", "rel"])
+def test_attention_stream_and_graph(dev, which):
+    """The launch goes to PyTorch's current stream (a side stream, a CUDA
+    graph's capture stream), so A and E can be captured and replayed."""
+    kernel, plain, rel = _ATTENTION[which]
+    args = _attention_operands(dev, rel, "projection", 2, 8, 42, 64, seed=9)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(args[0]) == side.cuda_stream
+        warm = kernel(*args)                         # plan and warm up
+    torch.cuda.synchronize()
+    assert float((warm - plain(*args)).abs().max()) <= 1e-5
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(*args)
+    torch.cuda.synchronize()
+    new_q = torch.randn_like(args[0])
+    args[0].copy_(new_q)                             # same storage, new data
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert float((out - warm).abs().max()) > 1e-3    # the replay recomputed
