@@ -11,16 +11,18 @@ three utterances through ``Speech2TextStreaming``, and ten streams through
 the batched ``StreamingEngine`` (8 slots), each final held against the
 single-stream session. Each path reads the launch counts of all five
 kernels, set to 0 just before it. It replays the fixtures blessed by the JAX
-package (one transformer and one conformer utterance, one engine run),
-decodes at small width on the card and the CPU, times ticks with 32 busy
-slots, and prints JSON lines. The last line is
-``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
+package (a transformer utterance that stops early and a token-rich one, a
+conformer utterance, one engine run), decodes at small width on the card
+and the CPU, times ticks with 32 busy slots, and prints JSON lines. The
+last line is ``{"ok": true, "device": {...}}``; any failure exits non-zero
+before it.
 
     python3 chip_smoke.py                       # everything
     python3 chip_smoke.py --profile             # device time of one utterance
     python3 chip_smoke.py --profile engine      # device time of engine ticks
     python3 chip_smoke.py --profile conformer   # one conformer utterance
     python3 chip_smoke.py --profile tiling      # attention kernels, 1-32 windows
+    python3 chip_smoke.py --profile recursion   # CTC recursion, 5-160 hypotheses
 
 Imports neither JAX nor the JAX package.
 """
@@ -42,6 +44,8 @@ ENGINE_FIXTURE = (ROOT / "tests" / "fixtures"
                   / "torch_port_engine_flagship.json")
 CONFORMER_FIXTURE = (ROOT / "tests" / "fixtures"
                      / "torch_port_conformer_flagship.json")
+TOKENS_FIXTURE = (ROOT / "tests" / "fixtures"
+                  / "torch_port_flagship_tokens.json")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS = 67e12          # H100 SXM float32 peak outside the tensor cores
 CHUNK_SECONDS = 0.5
@@ -216,17 +220,34 @@ def check_attention(dev, cfg, n_blocks: int, rel: bool):
     }
 
 
-def check_ctc_recursion(dev, cfg, beam: int):
+RECURSION_KERNEL = "ctc_forward_recursion_kernel"
+RECURSION_STREAMS = (1, 8, 32)   # one stream, the engine at 8 and 32 slots
+# B holds its plain version to this: the kernel scans the recursion in log
+# steps, so its float32 sums associate in another order than the plain
+# version's frame-by-frame loop (about ten ulps at |r| of a few thousand).
+# Frames outside [start, end) are fills and must be equal to the last bit.
+RECURSION_TOL_ABS, RECURSION_TOL_REL = 1e-4, 1e-5
+
+
+def recursion_ranges(t_cap: int) -> dict:
+    """name -> ((start lo, hi), (end lo, hi)), hi exclusive: the range the
+    kernel table has always used, the main path's (a 4-6 s utterance has
+    40 to 150 frames) and a full ring."""
+    return {"table": ((1, 30), (150, 400)),
+            "main_path": ((1, 30), (40, 150)),
+            "full_ring": ((1, 2), (t_cap, t_cap + 1))}
+
+
+def recursion_reference_operands(dev, t_cap: int, n: int, start_range,
+                                 end_range, edges: bool = False):
+    """Operands of kernel B's reference form: xn, xb, phi_shift (T, N),
+    start, end (N,) int32, olen0 (N,) float32. With `edges`, the last
+    hypothesis gets end <= start and the first start = 1 with olen0."""
     import numpy as np
     import torch
 
-    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
-        LOGZERO,
-        ctc_forward_recursion,
-        ctc_forward_recursion_plain,
-    )
+    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import LOGZERO
 
-    t_cap, n = cfg.max_enc_frames, beam
     rng = np.random.default_rng(2)
 
     def logp():
@@ -235,36 +256,186 @@ def check_ctc_recursion(dev, cfg, beam: int):
     xn, xb = logp(), logp()
     phi = logp() * 3
     phi[0] = LOGZERO
-    start = rng.integers(1, 30, size=n).astype(np.int32)
-    end = rng.integers(150, 400, size=n).astype(np.int32)
+    start = rng.integers(*start_range, size=n).astype(np.int32)
+    end = np.minimum(rng.integers(*end_range, size=n), t_cap).astype(np.int32)
+    if edges:
+        start[0] = 1
+        end[-1] = start[-1] - (n % 2)
     olen0 = (start == 1).astype(np.float32)
-    args = [torch.from_numpy(a).to(dev)
+    return [torch.from_numpy(a).to(dev)
             for a in (xn, xb, phi, start, end, olen0)]
-    got = ctc_forward_recursion(*args)
-    ref = ctc_forward_recursion_plain(*args)
+
+
+def recursion_stream_operands(dev, cfg, s_dim: int, beam: int,
+                              start_range, end_range, edge=None):
+    """Operands of kernel B's main-path form as ctc_advance_state makes
+    them: xn (S, B, T) gathered from an (S, V, T) log-prob ring, xb its
+    blank row as an (S, 1, T) view (stride V * T over streams), phi (S, B, T) unshifted, olen (S,) int64, enc_len
+    (S,) int32, r_src (S, B, 2, T). `edge` changes stream 0: "olen0" gives
+    it no token yet, "empty" an end at or before its start."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    vocab, t_cap = cfg.vocab_size, cfg.max_enc_frames
+    ring = torch.from_numpy(np.log(rng.random(
+        (s_dim, vocab, t_cap), dtype=np.float32) + 1e-3)).to(dev)
+    token = torch.from_numpy(rng.integers(1, vocab, size=(s_dim, beam))
+                             ).to(dev)
+    xn = ring[torch.arange(s_dim, device=dev)[:, None], token, :]
+    xb = ring[:, None, 0, :]
+    phi = torch.from_numpy(np.log(rng.random(
+        (s_dim, beam, t_cap), dtype=np.float32) + 1e-3) * 3).to(dev)
+    olen = rng.integers(*start_range, size=s_dim).astype(np.int64)
+    enc_len = np.minimum(rng.integers(*end_range, size=s_dim),
+                         t_cap).astype(np.int32)
+    if edge == "olen0":
+        olen[0] = 0
+    elif edge == "empty":
+        olen[0], enc_len[0] = 3, 2
+    r_src = torch.from_numpy(np.log(rng.random(
+        (s_dim, beam, 2, t_cap), dtype=np.float32) + 1e-3) * 50).to(dev)
+    return [xn, xb, phi, torch.from_numpy(olen).to(dev),
+            torch.from_numpy(enc_len).to(dev), r_src]
+
+
+def recursion_error(what: str, got, ref, filled) -> float:
+    """Max abs error of B against its plain version; fails outside the
+    tolerance, or where a fill (`filled`, broadcast against the result)
+    is not equal to the last bit."""
+    import torch
+
     torch.cuda.synchronize()
     diff = (got - ref).abs()
-    err = float(diff.max())
-    # Same operation sequence on both sides; allow an ulp-scale relative
-    # slack for values that grow to thousands over 768 frames.
-    tol_rel, tol_abs = 1e-6, 1e-5
-    if not bool((diff <= tol_abs + tol_rel * ref.abs()).all()):
-        fail(f"ctc_forward_recursion disagrees: max_abs_err={err}")
-    steps = int(np.clip(end - start, 0, None).sum())
-    n_bytes = 3 * t_cap * n * 4 + 2 * t_cap * n * 4 + 3 * n * 4
-    n_ops = 16 * steps  # two lse2 (7 ops each) and two adds per step
-    b_ms, b_by = bound(n_bytes, n_ops)
+    if not bool((diff <= RECURSION_TOL_ABS
+                 + RECURSION_TOL_REL * ref.abs()).all()):
+        fail(f"{what} disagrees: max_abs_err={float(diff.max())}")
+    if not bool((got == ref)[filled.expand_as(got)].all()):
+        fail(f"{what}: a frame outside [start, end) differs from the fill")
+    return float(diff.max())
+
+
+def check_ctc_recursion(dev, cfg, beam: int):
+    """Kernel B against its plain version in both forms (the reference
+    form with (T, N) operands, and the main path's: time-minor (S, B, T)
+    operands, the blank row at stride 0, per-stream olen and enc_len, the
+    frames from `end` on copied from r_src) at 1, 8 and 32 streams of
+    `beam` hypotheses over the three ranges of recursion_ranges, each with
+    a hypothesis whose end is at or before its start and one with no token
+    yet. Timed in the main path's form; the row's numbers are those of one
+    stream at the table's range."""
+    import torch
+
+    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
+        ctc_forward_recursion,
+        ctc_forward_recursion_plain,
+        ctc_forward_recursion_streams,
+        ctc_forward_recursion_streams_plain,
+    )
+
+    t_cap = cfg.max_enc_frames
+    t_idx = torch.arange(t_cap, device=dev)
+    errs, by_case = [], []
+    for s_dim in RECURSION_STREAMS:
+        n = s_dim * beam
+        for name, (start_range, end_range) in recursion_ranges(t_cap).items():
+            args = recursion_reference_operands(dev, t_cap, n, start_range,
+                                                end_range, edges=True)
+            start, end = args[3], args[4]
+            filled = ((t_idx[:, None] < start[None, :])
+                      | (t_idx[:, None] >= end[None, :]))[None]
+            errs.append(recursion_error(
+                f"ctc_forward_recursion (N={n}, {name})",
+                ctc_forward_recursion(*args),
+                ctc_forward_recursion_plain(*args), filled))
+            for edge in (None, "olen0", "empty"):
+                sargs = recursion_stream_operands(
+                    dev, cfg, s_dim, beam, start_range, end_range, edge)
+                olen, enc_len = sargs[3], sargs[4]
+                begin = olen.clamp(min=1, max=t_cap)
+                filled = ((t_idx[None, :] < begin[:, None])
+                          | (t_idx[None, :] >= enc_len[:, None])
+                          )[:, None, None, :]
+                errs.append(recursion_error(
+                    f"ctc_forward_recursion_streams (N={n}, {name}, "
+                    f"edge {edge})", ctc_forward_recursion_streams(*sargs),
+                    ctc_forward_recursion_streams_plain(*sargs), filled))
+            by_case.append(time_recursion(dev, cfg, s_dim, beam, name,
+                                          start_range, end_range))
+    # The row: one stream at the table's range, in the main path's form
+    # (the first case timed above).
+    row = by_case[0]
+    sargs = recursion_stream_operands(dev, cfg, 1, beam,
+                                      *recursion_ranges(t_cap)["table"])
+    olen = int(sargs[3][0])
+    begin = min(max(olen, 1), t_cap)
+    end = int(sargs[4][0])
+    frames = max(end - begin, 0)
+    # What the function needs, which is less than the kernel moves (it
+    # stages whole rows). Read: xn[begin:end) and phi[begin-1:end-1) per
+    # hypothesis, the blank row's [begin:end) once, xn[0] where the stream
+    # has no token yet, r_src from `end` on, olen (int64) and enc_len
+    # (int32); written: r_new.
+    n_bytes = ((2 * beam + 1) * frames + beam * (olen == 0)
+               + 2 * beam * (t_cap - end) + 2 * beam * t_cap) * 4 + 12
+    # Two lse2 (7 ops each) and two adds per recursed frame.
+    b_ms, b_by = bound(n_bytes, 16 * frames * beam)
     return {
         "name": "ctc_forward_recursion", "route": "cuda",
         "source": "speechcatcher_tpu_torch/csrc/ctc_recursion.cu",
         "replaces": "speechcatcher_tpu/ops/pallas/ctc_recursion.py:88",
-        "shape": [t_cap, n], "max_abs_err": err,
-        "tol": f"{tol_abs} + {tol_rel}*|ref|",
-        "ms": cuda_ms(lambda: ctc_forward_recursion(*args), 200),
-        "plain_ms": cuda_ms(lambda: ctc_forward_recursion_plain(*args), 3, 1),
+        "shape": [1, beam, t_cap],
+        "operands": "time-minor (S, B, T), blank row at stride 0",
+        "max_abs_err": max(errs),
+        "tol": f"{RECURSION_TOL_ABS} + {RECURSION_TOL_REL}*|ref|, "
+               "fills exact",
+        "ms": row["ms"], "device_us": row["device_us"],
+        "ms_reference": row["ms_reference"],
+        "device_us_reference": row["device_us_reference"],
+        "by_case": by_case,
+        "plain_ms": cuda_ms(
+            lambda: ctc_forward_recursion_streams_plain(*sargs), 3, 1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "library": None,
     }
+
+
+def time_recursion(dev, cfg, s_dim: int, beam: int, name: str,
+                   start_range, end_range) -> dict:
+    """Call time (event mean over 200 calls) and device time per launch of
+    kernel B at s_dim * beam hypotheses over one range, in the main path's
+    form and in the reference form."""
+    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
+        ctc_forward_recursion,
+        ctc_forward_recursion_streams,
+    )
+
+    t_cap = cfg.max_enc_frames
+    n = s_dim * beam
+    args = recursion_reference_operands(dev, t_cap, n, start_range, end_range)
+    sargs = recursion_stream_operands(dev, cfg, s_dim, beam, start_range,
+                                      end_range)
+    begin = sargs[3].clamp(min=1, max=t_cap)
+    return {"n": n, "range": name,
+            "recursed_frames_max": int((sargs[4] - begin).max()),
+            "ms": cuda_ms(lambda: ctc_forward_recursion_streams(*sargs), 200),
+            "device_us": device_us(
+                lambda: ctc_forward_recursion_streams(*sargs),
+                RECURSION_KERNEL),
+            "ms_reference": cuda_ms(
+                lambda: ctc_forward_recursion(*args), 200),
+            "device_us_reference": device_us(
+                lambda: ctc_forward_recursion(*args), RECURSION_KERNEL)}
+
+
+def profile_recursion(dev, cfg, beam: int = 5):
+    """Kernel B's call and device time at 1, 8 and 32 streams of `beam`
+    hypotheses over the three ranges."""
+    t_cap = cfg.max_enc_frames
+    for s_dim in RECURSION_STREAMS:
+        for name, (start_range, end_range) in recursion_ranges(t_cap).items():
+            emit({"phase": "profile_recursion"} | time_recursion(
+                dev, cfg, s_dim, beam, name, start_range, end_range))
 
 
 def timed_pairs(kernel, library, reps: int = 200, pairs: int = 3):
@@ -577,9 +748,13 @@ def main_path(dev, counters, model, phase: str = "main_path", zero=()):
 def fixture_replay(dev, path=FIXTURE, encoder_type: str = "transformer",
                    tol: float = 1e-4):
     """A fixture blessed by the JAX session, replayed on the card: tokens
-    and positions exact, score within rel. `tol`."""
+    and positions exact, score within rel. `tol`. Reports the replay's
+    launches of the CTC recursion kernel (one per beam step)."""
     from speechcatcher_tpu_torch.config import ModelConfig, flagship_config
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
+        ctc_forward_recursion,
+    )
     from speechcatcher_tpu_torch.params import params_checksum, random_params
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
     from speechcatcher_tpu_torch.synth import synth_audio
@@ -599,9 +774,11 @@ def fixture_replay(dev, path=FIXTURE, encoder_type: str = "transformer",
                                device=dev)
     audio = synth_audio(fx["audio_seconds"], fx["audio_seed"],
                         rate=cfg.sample_rate)
+    launched = ctc_forward_recursion.launches
     t0 = time.perf_counter()
     _, nbest, _ = decode_chunked(s2t, audio, cfg.sample_rate)
     wall = time.perf_counter() - t0
+    launched = ctc_forward_recursion.launches - launched
     yseq, xpos, score = nbest[0]
     tokens_ok = [int(x) for x in yseq] == fx["yseq"]
     xpos_ok = [int(x) for x in xpos] == fx["xpos"]
@@ -609,9 +786,13 @@ def fixture_replay(dev, path=FIXTURE, encoder_type: str = "transformer",
     emit({"phase": "fixture", "fixture": path.name,
           "tokens_equal": tokens_ok, "xpos_equal": xpos_ok, "score": score,
           "score_ref": fx["score"], "score_rel_err": rel, "tol": tol,
-          "hyp_len": len(yseq), "wall_s": wall})
+          "hyp_len": len(yseq), "wall_s": wall,
+          "ctc_forward_recursion_launches": launched})
     if not (tokens_ok and xpos_ok and rel <= tol):
         fail(f"{path.name}: replay disagrees with the JAX-blessed decode")
+    if launched < len(yseq) - 2:
+        fail(f"{path.name}: {launched} launches of the CTC recursion kernel "
+             f"for {len(yseq)} tokens")
 
 
 def small_reference(dev, encoder_type: str = "transformer"):
@@ -975,11 +1156,13 @@ def profile_utterance(dev, encoder_type: str = "transformer"):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="utterance",
-                    choices=("utterance", "engine", "conformer", "tiling"),
+                    choices=("utterance", "engine", "conformer", "tiling",
+                             "recursion"),
                     help="profile one main-path utterance (default), "
                     "engine ticks at S=8, one conformer utterance, or the "
                     "attention kernels' device time under either tiling "
-                    "at 1 to 32 windows, then stop")
+                    "at 1 to 32 windows, or the CTC recursion kernel's time "
+                    "at 5 to 160 hypotheses, then stop")
     args = ap.parse_args()
 
     import torch
@@ -1027,6 +1210,9 @@ def main() -> int:
         profile_utterance(dev, encoder_type="conformer")
         return 0
     cfg = flagship_config()
+    if args.profile == "recursion":
+        profile_recursion(dev, cfg)
+        return 0
     if args.profile == "tiling":
         for rel in (False, True):
             for n_blocks in (1, 2, 3, 4, 6, 8, 11, 16, 24, 32):
@@ -1064,6 +1250,7 @@ def main() -> int:
     by_path = {"utterance": main_path(
         dev, counters, model, zero=(rel_block_attention, ring_append_rows))}
     fixture_replay(dev)
+    fixture_replay(dev, TOKENS_FIXTURE)
     small_reference(dev)
     by_path["engine"] = engine_path(dev, counters, model,
                                     zero=(rel_block_attention,))

@@ -1,27 +1,74 @@
-// Sequential CTC prefix forward recursion, sm_90a.
+// CTC prefix forward recursion, sm_90a.
 //
 // Replaces speechcatcher_tpu/ops/pallas/ctc_recursion.py::
 // ctc_forward_recursion (_kernel, pallas_call at :88). For each hypothesis
-// n and frame t in [start[n], end[n]):
+// and frame t in [start, end):
 //     r_n[t] = lse(r_n[t-1], phi[t-1]) + x_n[t]
 //     r_b[t] = lse(r_n[t-1], r_b[t-1]) + x_b[t]
 // with lse(a, b) = max + log1p(exp(max(min - max, -30))). Outside the range
-// r = LOGZERO, except r_n[0] = x_n[0] where olen0 is set.
+// r = LOGZERO, except r_n[0] = x_n[0] where the hypothesis has no token yet.
 //
-// Bound on the H100: the T dependent lse steps of one hypothesis, not bytes
-// (at the flagship the inputs are 3 x 768 x 5 floats). The design gives one
-// thread to each hypothesis and walks t in registers; consecutive threads
-// read consecutive hypotheses of the (T, N) planes, so each frame's loads
-// coalesce. N is not padded. At one stream N = beam = 5, so a call is one
-// partly filled warp and its time is the latency of the t loop.
+// Bound on the H100: the latency of the chain of dependent lse steps, not
+// bytes (a hypothesis reads 3 x 768 floats and writes 2 x 768) and not
+// arithmetic. The TPU kernel walks a (T, 128) plane frame by frame with the
+// hypotheses on the lanes; here the card has 132 SMs and one stream has five
+// hypotheses, so:
+//   - a block takes one hypothesis. Its threads stage the three rows in
+//     shared memory with coalesced loads along T (16 bytes a thread where
+//     pointers and strides allow), so no step of the chain waits for device
+//     memory, and write every frame outside [start, end) side by side;
+//   - only [start, end) is recursed, and as a scan: both lines are affine
+//     maps x -> lse(x + a, c) of the (lse, +) semiring (r_n: a = x_n[t],
+//     c = x_n[t] + phi[t-1]; r_b, once r_n is known: a = x_b[t],
+//     c = x_b[t] + r_n[t-1]), and two maps compose with one lse:
+//     (a1, c1) then (a2, c2) = (a1 + a2, lse(c1 + a2, c2)). A thread
+//     composes its few consecutive frames, a warp scans its 32 maps with
+//     shuffles, one warp scans the warps' totals, and each thread runs the
+//     recursion over its own frames from the carry the scan hands it: about
+//     16 dependent lse for a line of 768 frames in place of 767. Frames
+//     outside the range are left out by predicate (the -30 clamp makes the
+//     identity map inexact).
+// The sums associate in another order than a frame-by-frame loop, so the
+// result equals the plain version within about ten ulps, not to the bit; a
+// range that fits one thread's frames, and every fill, is bit-equal.
+//
+// Two entry points over this body. The reference form has the TPU kernel's
+// signature, (T, N) operands of any strides. The main path's form reads the
+// scorer's tensors as they lie: time-minor (S, B, T) rows, the blank row
+// shared by a stream's hypotheses, phi unshifted, start and end derived from
+// the per-stream olen and enc_len, and the frames from end on copied from
+// r_src into the (S, B, 2, T) result.
 //
 // No fast-math: expf / log1pf must round as the reference's do.
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
+// The launch's integers, planned in ops/kernels/ctc_recursion.py (_CtcArgs).
+// Strides in elements over stream, beam and time; the reference form is
+// s_dim = N streams of beam 1.
+struct CtcArgs {
+  long long xn_ss, xn_sb, xn_st;
+  long long xb_ss, xb_sb, xb_st;
+  long long phi_ss, phi_sb, phi_st;
+  long long src_ss, src_sb, src_sk;  // r_src over stream, beam, plane
+  int s_dim, beam, t_cap;
+  int olen_bytes, enc_bytes;         // 4 or 8: int32 or int64 lengths
+  int vec;                           // strides allow 16-byte loads
+};
+
 namespace {
 
+constexpr int kBadPlan = -1;
 constexpr float kLogZero = -1.0e10f;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// 5 rows of T floats and the scan's totals within the 48 KB of shared
+// memory a block gets without opting in to more.
+constexpr int kMaxT = 2448;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float lse2(float a, float b) {
   const float mx = fmaxf(a, b);
@@ -29,48 +76,241 @@ __device__ __forceinline__ float lse2(float a, float b) {
   return mx + log1pf(expf(fmaxf(mn - mx, -30.f)));
 }
 
-__global__ void ctc_forward_recursion_kernel(
-    const float* __restrict__ xn, const float* __restrict__ xb,
-    const float* __restrict__ phi, const int* __restrict__ start,
-    const int* __restrict__ end, const float* __restrict__ olen0,
-    float* __restrict__ r, int t_cap, int n) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= n) return;
-  const int st = start[h];
-  const int en = end[h];
-  const bool init0 = olen0[h] > 0.5f;
-  float* rn_out = r;
-  float* rb_out = r + static_cast<size_t>(t_cap) * n;
-  float rn = kLogZero;
-  float rb = kLogZero;
-  for (int t = 0; t < t_cap; ++t) {
-    const size_t at = static_cast<size_t>(t) * n + h;
-    if (t >= st && t < en) {
-      const float rn_prev = rn;
-      rn = lse2(rn_prev, phi[at]) + xn[at];
-      rb = lse2(rn_prev, rb) + xb[at];
-    } else {
-      rn = (t == 0 && init0) ? xn[h] : kLogZero;
-      rb = kLogZero;
-    }
-    rn_out[at] = rn;
-    rb_out[at] = rb;
+// The map x -> lse(x + a, c), or (has = 0) no map at all.
+struct Map {
+  float a, c;
+  int has;
+};
+
+// first, then second.
+__device__ __forceinline__ Map then(Map first, Map second) {
+  if (!first.has) return second;
+  if (!second.has) return first;
+  return {first.a + second.a, lse2(first.c + second.a, second.c), 1};
+}
+
+__device__ __forceinline__ float apply(Map m, float x) {
+  return m.has ? lse2(x + m.a, m.c) : x;
+}
+
+__device__ __forceinline__ Map shfl_up(Map m, int delta) {
+  return {__shfl_up_sync(kFull, m.a, delta), __shfl_up_sync(kFull, m.c, delta),
+          __shfl_up_sync(kFull, m.has, delta)};
+}
+
+// The composition of the maps of all threads before this one, in thread
+// order. `totals` holds kWarps maps of shared memory. Every thread calls.
+__device__ Map exclusive_scan(Map m, Map* totals) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int delta = 1; delta < 32; delta <<= 1) {
+    const Map up = shfl_up(m, delta);
+    if (lane >= delta) m = then(up, m);
   }
+  if (lane == 31) totals[warp] = m;
+  Map before = shfl_up(m, 1);
+  if (lane == 0) before.has = 0;
+  __syncthreads();
+  if (warp == 0) {
+    Map w = lane < kWarps ? totals[lane] : Map{0.f, 0.f, 0};
+#pragma unroll
+    for (int delta = 1; delta < kWarps; delta <<= 1) {
+      const Map up = shfl_up(w, delta);
+      if (lane >= delta) w = then(up, w);
+    }
+    Map w_before = shfl_up(w, 1);
+    if (lane == 0) w_before.has = 0;
+    if (lane < kWarps) totals[lane] = w_before;
+  }
+  __syncthreads();
+  const Map out = then(totals[warp], before);
+  __syncthreads();  // the next scan writes totals again
+  return out;
+}
+
+template <bool kStreams>
+__global__ void __launch_bounds__(kThreads) ctc_forward_recursion_kernel(
+    const float* __restrict__ xn, const float* __restrict__ xb,
+    const float* __restrict__ phi,
+    const void* __restrict__ len_a,    // streams: olen; reference: start
+    const void* __restrict__ len_b,    // streams: enc_len; reference: end
+    const float* __restrict__ extra,   // streams: r_src; reference: olen0
+    float* __restrict__ r, const CtcArgs p, const int vec) {
+  extern __shared__ __align__(16) float rows[];
+  __shared__ Map totals[kWarps];
+  const int T = p.t_cap;
+  float* sxn = rows;
+  float* sxb = sxn + T;
+  float* sph = sxb + T;
+  float* srn = sph + T;
+  float* srb = srn + T;
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x;
+  const int s = h / p.beam;
+  const int b = h - s * p.beam;
+
+  int st, en;
+  bool init0;
+  if (kStreams) {
+    const long long olen = p.olen_bytes == 8
+                               ? static_cast<const long long*>(len_a)[s]
+                               : static_cast<const int*>(len_a)[s];
+    const long long enc_len = p.enc_bytes == 8
+                                  ? static_cast<const long long*>(len_b)[s]
+                                  : static_cast<const int*>(len_b)[s];
+    init0 = olen == 0;
+    st = static_cast<int>(min(max(olen, 1LL), static_cast<long long>(T)));
+    en = static_cast<int>(min(max(enc_len, 0LL), static_cast<long long>(T)));
+  } else {
+    st = max(static_cast<const int*>(len_a)[h], 0);
+    en = min(static_cast<const int*>(len_b)[h], T);
+    init0 = extra[h] > 0.5f;
+  }
+
+  // Stage the three rows.
+  const float* xn_row = xn + s * p.xn_ss + b * p.xn_sb;
+  const float* xb_row = xb + s * p.xb_ss + b * p.xb_sb;
+  const float* phi_row = phi + s * p.phi_ss + b * p.phi_sb;
+  if (vec) {
+    for (int i = tid; i < T / 4; i += kThreads) {
+      reinterpret_cast<float4*>(sxn)[i] =
+          reinterpret_cast<const float4*>(xn_row)[i];
+      reinterpret_cast<float4*>(sxb)[i] =
+          reinterpret_cast<const float4*>(xb_row)[i];
+      reinterpret_cast<float4*>(sph)[i] =
+          reinterpret_cast<const float4*>(phi_row)[i];
+    }
+  } else {
+    for (int t = tid; t < T; t += kThreads) {
+      sxn[t] = xn_row[t * p.xn_st];
+      sxb[t] = xb_row[t * p.xb_st];
+      sph[t] = phi_row[t * p.phi_st];
+    }
+  }
+  __syncthreads();
+
+  // phi[t-1]: the streams form shifts here, the reference form's operand
+  // is shifted already.
+  auto phi_before = [&](int t) {
+    return kStreams ? (t == 0 ? kLogZero : sph[t - 1]) : sph[t];
+  };
+  // What a frame outside [start, end) holds, and so the carry a range
+  // that starts after it enters with.
+  auto fill_rn = [&](int t) { return (t == 0 && init0) ? sxn[0] : kLogZero; };
+
+  // This thread's frames [c0, c1) and those of them in the range, [lo, hi).
+  const int per_thread = (T + kThreads - 1) / kThreads;
+  const int c0 = min(tid * per_thread, T);
+  const int c1 = min(c0 + per_thread, T);
+  const int lo = max(c0, st);
+  const int hi = min(c1, en);
+
+  // r_n.
+  Map m = {0.f, 0.f, 0};
+  for (int t = lo; t < hi; ++t) {
+    const float a = sxn[t];
+    m = then(m, Map{a, phi_before(t) + a, 1});
+  }
+  Map before = exclusive_scan(m, totals);
+  float rn = apply(before, st == 0 ? kLogZero : fill_rn(st - 1));
+  for (int t = c0; t < c1; ++t) {
+    if (t >= lo && t < hi) {
+      rn = lse2(rn, phi_before(t)) + sxn[t];
+      srn[t] = rn;
+    } else {
+      srn[t] = fill_rn(t);
+    }
+  }
+  __syncthreads();
+
+  // r_b, from r_n[t-1].
+  auto rn_before = [&](int t) { return t == 0 ? kLogZero : srn[t - 1]; };
+  m = {0.f, 0.f, 0};
+  for (int t = lo; t < hi; ++t) {
+    const float a = sxb[t];
+    m = then(m, Map{a, rn_before(t) + a, 1});
+  }
+  before = exclusive_scan(m, totals);
+  float rb = apply(before, kLogZero);
+  for (int t = c0; t < c1; ++t) {
+    if (t >= lo && t < hi) {
+      rb = lse2(rn_before(t), rb) + sxb[t];
+      srb[t] = rb;
+    } else {
+      srb[t] = kLogZero;
+    }
+  }
+  __syncthreads();
+
+  if (kStreams) {
+    // (S, B, 2, T); from end on, the source hypothesis' frames.
+    float* out = r + static_cast<size_t>(h) * 2 * T;
+    const float* src = extra + s * p.src_ss + b * p.src_sb;
+    for (int t = tid; t < T; t += kThreads) {
+      const bool tail = t >= en;
+      out[t] = tail ? src[t] : srn[t];
+      out[T + t] = tail ? src[p.src_sk + t] : srb[t];
+    }
+  } else {
+    // (2, T, N).
+    const size_t n = static_cast<size_t>(p.s_dim);
+    for (int t = tid; t < T; t += kThreads) {
+      r[t * n + h] = srn[t];
+      r[(T + t) * n + h] = srb[t];
+    }
+  }
+}
+
+inline bool aligned_to(const void* ptr, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+// Returns 0, a cudaError_t, or kBadPlan when the plan or the pointers do
+// not fit the kernel.
+template <bool kStreams>
+int launch(const float* xn, const float* xb, const float* phi,
+           const void* len_a, const void* len_b, const float* extra, float* r,
+           const CtcArgs& p, void* stream) {
+  const long long n = static_cast<long long>(p.s_dim) * p.beam;
+  if (p.s_dim < 0 || p.beam < 1 || p.t_cap < 1 || p.t_cap > kMaxT
+      || n > 0x7fffffffLL)
+    return kBadPlan;
+  if (kStreams && ((p.olen_bytes != 4 && p.olen_bytes != 8)
+                   || (p.enc_bytes != 4 && p.enc_bytes != 8)
+                   || p.xn_st != 1 || p.xb_st != 1 || p.phi_st != 1))
+    return kBadPlan;
+  if (n == 0) return 0;
+  const void* ptrs[] = {xn, xb, phi, len_a, len_b, extra, r};
+  for (const void* ptr : ptrs)
+    if (ptr == nullptr || !aligned_to(ptr, 4)) return kBadPlan;
+  if (kStreams && (!aligned_to(len_a, p.olen_bytes)
+                   || !aligned_to(len_b, p.enc_bytes)))
+    return kBadPlan;
+  const int vec = kStreams && p.vec && p.t_cap % 4 == 0 && aligned_to(xn, 16)
+                  && aligned_to(xb, 16) && aligned_to(phi, 16);
+  const auto kernel = ctc_forward_recursion_kernel<kStreams>;
+  const int smem = 5 * p.t_cap * static_cast<int>(sizeof(float));
+  kernel<<<static_cast<unsigned>(n), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(xn, xb, phi, len_a, len_b,
+                                                extra, r, p, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int sc_ctc_forward_recursion(const float* xn, const float* xb,
-                                        const float* phi, const int* start,
-                                        const int* end, const float* olen0,
-                                        float* r, int t_cap, int n,
-                                        void* stream) {
-  if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    ctc_forward_recursion_kernel<<<blocks, threads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-        xn, xb, phi, start, end, olen0, r, t_cap, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                        const float* phi_shift,
+                                        const int* start, const int* end,
+                                        const float* olen0, float* r,
+                                        const CtcArgs* plan, void* stream) {
+  return launch<false>(xn, xb, phi_shift, start, end, olen0, r, *plan,
+                       stream);
+}
+
+extern "C" int sc_ctc_forward_recursion_streams(
+    const float* xn, const float* xb, const float* phi, const void* olen,
+    const void* enc_len, const float* r_src, float* r, const CtcArgs* plan,
+    void* stream) {
+  return launch<true>(xn, xb, phi, olen, enc_len, r_src, r, *plan, stream);
 }

@@ -4,7 +4,7 @@
 Candidate scores need no recursion: log_psi(h·c) = lse_t(phi[t-1] +
 x_n[t, c]) plus the init term, all from the previous step's forward
 variables. The O(T) forward recursion runs only for the B survivors, through
-the ``ctc_forward_recursion`` kernel.
+the ``ctc_forward_recursion_streams`` kernel.
 
 Layout is time-minor: log-probs live as (S, V, Tcap), forward variables as
 (S, B, 2, Tcap). LOGZERO = -1e10.
@@ -23,7 +23,7 @@ import torch
 
 from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
     LOGZERO,
-    ctc_forward_recursion,
+    ctc_forward_recursion_streams,
 )
 from speechcatcher_tpu_torch.ops.kernels.ring_append import ring_append_cols
 
@@ -155,12 +155,12 @@ def ctc_advance_state(state: CTCScorerState, log_psi: torch.Tensor,
     """Forward recursion for the B survivors (select_state semantics).
 
     A chosen token outside the candidate set (possible for EOS) takes
-    candidate slot 0's forward variables, as the reference does."""
-    s_dim, beam, _, t_cap = state.r.shape
+    candidate slot 0's forward variables, as the reference does. The
+    returned ``r`` is a new tensor: ``state.r`` is never written in place."""
+    s_dim, _, _, t_cap = state.r.shape
     dev = state.r.device
     src = src_idx.long()
     chosen = chosen.long()
-    olen = olen.long()
     k = cand_ids.shape[2]
 
     r_src = state.r.gather(1, src[:, :, None, None].expand(-1, -1, 2, t_cap))
@@ -178,29 +178,11 @@ def ctc_advance_state(state: CTCScorerState, log_psi: torch.Tensor,
                       r_sum)                                    # (S, B, T)
     s_idx = torch.arange(s_dim, device=dev)[:, None]
     xn = state.logp[s_idx, token_r, :].float()                  # (S, B, T)
-    xb = state.logp[:, None, 0, :].float().expand_as(xn)
+    xb = state.logp[:, None, 0, :].float()                      # (S, 1, T)
 
-    start = olen.clamp(min=1).clamp(max=t_cap)
-    end = state.enc_len.long()
-    phi_shift = torch.cat(
-        [torch.full_like(phi[:, :, :1], LOGZERO), phi[:, :, :-1]], dim=2)
-
-    n = s_dim * beam
-
-    def to_tn(a):  # (S, B, T) -> (T, N)
-        return a.reshape(n, t_cap).t().contiguous()
-
-    def per_hyp(a, dtype):  # (S,) -> (N,)
-        return a.repeat_interleave(beam).to(dtype).contiguous()
-
-    r_tn = ctc_forward_recursion(
-        to_tn(xn), to_tn(xb), to_tn(phi_shift),
-        per_hyp(start, torch.int32), per_hyp(end, torch.int32),
-        per_hyp(olen == 0, torch.float32),
-    )                                                           # (2, T, N)
-    r_new = r_tn.permute(2, 0, 1).reshape(s_dim, beam, 2, t_cap)
-    # Frames at or after end keep the source hypothesis' values.
-    valid = (torch.arange(t_cap, device=dev)[None, :] < end[:, None])
-    r_new = torch.where(valid[:, None, None, :], r_new, r_src)
+    # One launch: the kernel shifts phi, derives start and end from olen
+    # and enc_len, and copies the frames from end on from r_src.
+    r_new = ctc_forward_recursion_streams(xn, xb, phi, olen, state.enc_len,
+                                          r_src)
     return CTCScorerState(logp=state.logp, enc_len=state.enc_len, r=r_new,
                           s=s_new)

@@ -31,7 +31,6 @@ NVCC_FLAGS = [
 ]
 
 _P = ctypes.c_void_p
-_I = ctypes.c_int
 # name -> argtypes; every function returns the launch's cudaError_t as int
 # (those that take a plan also -1 when the plan or the pointers do not fit).
 _SIGNATURES = {
@@ -39,7 +38,10 @@ _SIGNATURES = {
     "sc_block_attention": [_P, _P, _P, _P, _P, _P, _P],
     # q, k, v, pos, bias_u, bias_v, mask, out, plan, stream
     "sc_rel_block_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "sc_ctc_forward_recursion": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # xn, xb, phi_shift, start, end, olen0, r, plan, stream
+    "sc_ctc_forward_recursion": [_P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # xn, xb, phi, olen, enc_len, r_src, r, plan, stream
+    "sc_ctc_forward_recursion_streams": [_P, _P, _P, _P, _P, _P, _P, _P, _P],
     # ring, new, start, n_new, plan (a struct, by address), stream
     "sc_ring_append_cols": [_P, _P, _P, _P, _P, _P],
     "sc_ring_append_rows": [_P, _P, _P, _P, _P, _P],
@@ -61,12 +63,6 @@ class KernelLibrary:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             self.fns[name] = fn
-
-    def call(self, name: str, *args) -> None:
-        """Launch through the C entry point; raise on a launch error."""
-        err = self.fns[name](*args)
-        if err != 0:
-            raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
 _lock = threading.Lock()
@@ -161,13 +157,3 @@ def stream_ptr(t) -> int:
 
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
-
-def check_cuda(name: str, *tensors) -> None:
-    """Every operand on one CUDA device and contiguous."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name}: operands must share one CUDA device, "
-                             f"got {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")

@@ -10,6 +10,12 @@ that float noise on another device cannot flip a token; the gaps come from
 the port's own CPU replay, which must first reproduce the JAX decode.
 ``chip_smoke.py`` replays the fixture on the card.
 
+``python tests/test_torch_flagship_fixture.py tokens`` blesses a second,
+token-rich fixture, ``fixtures/torch_port_flagship_tokens.json``, the same
+way with smaller biases (EOS +2, blank +8) and keeps the first seed whose
+decode also emits at least 15 tokens: a beam step per token, so it is the
+decode that runs the CTC recursion kernel most.
+
 The tier-1 tests here check only what is cheap: the fixture's config and
 the checksum of the weights it was blessed with.
 """
@@ -30,6 +36,9 @@ from speechcatcher_tpu_torch.config import ModelConfig, flagship_config
 from speechcatcher_tpu_torch.params import params_checksum, random_params
 
 FIXTURE = Path(__file__).parent / "fixtures" / "torch_port_flagship.json"
+TOKENS_FIXTURE = FIXTURE.with_name("torch_port_flagship_tokens.json")
+TOKENS_EOS_BIAS, TOKENS_BLANK_BIAS = 2.0, 8.0
+MIN_TOKENS = 15
 BEAM = 5
 AUDIO_SECONDS = 6.0
 CHUNK_SECONDS = 0.5
@@ -37,8 +46,8 @@ EOS_BIAS, BLANK_BIAS = 4.0, 10.0
 MIN_GAP = 1e-3
 
 
-def _load():
-    return json.loads(FIXTURE.read_text())
+def _load(path=FIXTURE):
+    return json.loads(path.read_text())
 
 
 def test_fixture_config_is_flagship():
@@ -50,6 +59,22 @@ def test_fixture_config_is_flagship():
 
 def test_fixture_weights_checksum_still_matches():
     fx = _load()
+    tree = random_params(flagship_config(), fx["seed"])
+    assert params_checksum(tree) == fx["weights_sha256"]
+
+
+def test_tokens_fixture_config_is_flagship_and_token_rich():
+    fx = _load(TOKENS_FIXTURE)
+    assert ModelConfig(**fx["cfg"]) == flagship_config()
+    assert fx["beam_size"] == BEAM and fx["min_gap"] >= MIN_GAP
+    assert (fx["eos_bias"], fx["blank_bias"]) == (TOKENS_EOS_BIAS,
+                                                  TOKENS_BLANK_BIAS)
+    assert len(fx["yseq"]) == len(fx["xpos"]) >= MIN_TOKENS
+    assert fx["n_steps"] >= MIN_TOKENS   # a beam step per token at least
+
+
+def test_tokens_fixture_weights_checksum_still_matches():
+    fx = _load(TOKENS_FIXTURE)
     tree = random_params(flagship_config(), fx["seed"])
     assert params_checksum(tree) == fx["weights_sha256"]
 
@@ -103,8 +128,11 @@ def _port_decode_with_gaps(cfg, tree, chunks):
     return best, gaps
 
 
-def bless(cfg=None, fixture=FIXTURE, seeds=range(8)):
-    """Bless `fixture` for `cfg` (default: the flagship transformer)."""
+def bless(cfg=None, fixture=FIXTURE, seeds=range(8), eos_bias=EOS_BIAS,
+          blank_bias=BLANK_BIAS, min_tokens=2):
+    """Bless `fixture` for `cfg` (default: the flagship transformer) with
+    the given output biases, from the first seed whose decode has at least
+    `min_tokens` tokens and meets the gap rule."""
     import copy
 
     from test_torch_common import bias_outputs, jax_model, synth_audio
@@ -115,7 +143,7 @@ def bless(cfg=None, fixture=FIXTURE, seeds=range(8)):
     for seed in seeds:
         tree = random_params(cfg, seed)
         checksum = params_checksum(tree)
-        biased = bias_outputs(copy.deepcopy(tree), cfg, EOS_BIAS, BLANK_BIAS)
+        biased = bias_outputs(copy.deepcopy(tree), cfg, eos_bias, blank_bias)
         audio = synth_audio(AUDIO_SECONDS, seed, rate=cfg.sample_rate)
         chunks = _chunks(audio, cfg.sample_rate)
         yseq, xpos, score = _decode(
@@ -129,15 +157,15 @@ def bless(cfg=None, fixture=FIXTURE, seeds=range(8)):
         print(f"seed {seed}: {len(yseq)} tokens, score {score:.6f}, "
               f"port equal {same}, min gap {min_gap:.3g} over "
               f"{len(gaps)} steps")
-        if same and min_gap >= MIN_GAP:
+        if same and min_gap >= MIN_GAP and len(yseq) >= min_tokens:
             import dataclasses
 
             fixture.write_text(json.dumps({
                 "cfg": dataclasses.asdict(cfg),
                 "seed": seed,
                 "weights_sha256": checksum,
-                "eos_bias": EOS_BIAS,
-                "blank_bias": BLANK_BIAS,
+                "eos_bias": eos_bias,
+                "blank_bias": blank_bias,
                 "beam_size": BEAM,
                 "audio_seed": seed,
                 "audio_seconds": AUDIO_SECONDS,
@@ -157,4 +185,8 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    bless()
+    if sys.argv[1:] == ["tokens"]:
+        bless(fixture=TOKENS_FIXTURE, eos_bias=TOKENS_EOS_BIAS,
+              blank_bias=TOKENS_BLANK_BIAS, min_tokens=MIN_TOKENS)
+    else:
+        bless()

@@ -356,6 +356,16 @@ def test_wrappers_check_shapes():
     # The CPU route refuses what the card refuses: dtypes and indices.
     i32 = dict(dtype=torch.int32)
     with pytest.raises(TypeError):
+        ctc_forward_recursion(torch.zeros(4, 3), torch.zeros(4, 3),
+                              torch.zeros(4, 3),
+                              torch.zeros(3, dtype=torch.int64),
+                              torch.zeros(3, **i32), torch.zeros(3))
+    with pytest.raises(TypeError):
+        ctc_forward_recursion(torch.zeros(4, 3, dtype=torch.float64),
+                              torch.zeros(4, 3), torch.zeros(4, 3),
+                              torch.zeros(3, **i32), torch.zeros(3, **i32),
+                              torch.zeros(3))
+    with pytest.raises(TypeError):
         ring_append_cols(torch.zeros(2, 3, 8), torch.zeros(2, 3, 2),
                          torch.zeros(2, dtype=torch.int64),
                          torch.zeros(2, **i32))
