@@ -17,9 +17,22 @@ and the CPU, times ticks with 32 busy slots, and prints JSON lines. The
 last line is ``{"ok": true, "device": {...}}``; any failure exits non-zero
 before it.
 
+The precision modes: kernel B on bfloat16 log-prob rows against its plain
+version and, to the last bit, against itself on the widened rows; the
+bfloat16 GEMM route of ``linear`` against the widened float32 product, timed
+beside the float32 GEMM; the transformer session in ``dtype="bfloat16"``,
+``"int8"`` and ``"int8-all"`` and the conformer session in ``"bfloat16"``;
+the engine in the serving default (bfloat16 weights and bfloat16 decoder
+cache, CTC ring and frame ring, mu-law wire) against the session on the same
+model; the precision fixture (sessions in ``"bfloat16"`` and ``"int8-all"``,
+the engine in the serving default); a model directory written from seed 0
+and loaded through ``Speech2TextStreaming(model_dir=...)``; and warm RTF and
+tick p50 of float32 and the serving default taken in turns.
+
     python3 chip_smoke.py                       # everything
     python3 chip_smoke.py --profile             # device time of one utterance
     python3 chip_smoke.py --profile engine      # device time of engine ticks
+    python3 chip_smoke.py --profile engine --precision serving_default
     python3 chip_smoke.py --profile conformer   # one conformer utterance
     python3 chip_smoke.py --profile tiling      # attention kernels, 1-32 windows
     python3 chip_smoke.py --profile recursion   # CTC recursion, 5-160 hypotheses
@@ -46,6 +59,17 @@ CONFORMER_FIXTURE = (ROOT / "tests" / "fixtures"
                      / "torch_port_conformer_flagship.json")
 TOKENS_FIXTURE = (ROOT / "tests" / "fixtures"
                   / "torch_port_flagship_tokens.json")
+PRECISION_FIXTURE = (ROOT / "tests" / "fixtures"
+                     / "torch_port_precision_flagship.json")
+PRECISIONS = ("float32", "ctc_ring_bf16", "serving_default", "int8",
+              "int8_all")
+# Scores where values are stored in bfloat16 (CTC log-prob ring, decoder
+# cache, projected K/V): two runs that sum in another order (the engine's
+# batched GEMMs and the session's, the card and the CPU) can put a stored
+# value on either side of a rounding boundary, one bfloat16 ulp apart (0.03
+# at a log-prob of -8), so final scores of -20 to -60 agree to 1e-3, not the
+# 1e-4 of float32 storage. Tokens and positions are held exactly.
+BF16_STORAGE_SCORE_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS = 67e12          # H100 SXM float32 peak outside the tensor cores
 CHUNK_SECONDS = 0.5
@@ -267,19 +291,22 @@ def recursion_reference_operands(dev, t_cap: int, n: int, start_range,
 
 
 def recursion_stream_operands(dev, cfg, s_dim: int, beam: int,
-                              start_range, end_range, edge=None):
+                              start_range, end_range, edge=None,
+                              ring_dtype=None):
     """Operands of kernel B's main-path form as ctc_advance_state makes
     them: xn (S, B, T) gathered from an (S, V, T) log-prob ring, xb its
     blank row as an (S, 1, T) view (stride V * T over streams), phi (S, B, T) unshifted, olen (S,) int64, enc_len
     (S,) int32, r_src (S, B, 2, T). `edge` changes stream 0: "olen0" gives
-    it no token yet, "empty" an end at or before its start."""
+    it no token yet, "empty" an end at or before its start. `ring_dtype`
+    (default float32) is the ring's, and so xn's and xb's."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(7)
     vocab, t_cap = cfg.vocab_size, cfg.max_enc_frames
     ring = torch.from_numpy(np.log(rng.random(
-        (s_dim, vocab, t_cap), dtype=np.float32) + 1e-3)).to(dev)
+        (s_dim, vocab, t_cap), dtype=np.float32) + 1e-3)).to(
+            dev, ring_dtype or torch.float32)
     token = torch.from_numpy(rng.integers(1, vocab, size=(s_dim, beam))
                              ).to(dev)
     xn = ring[torch.arange(s_dim, device=dev)[:, None], token, :]
@@ -315,6 +342,17 @@ def recursion_error(what: str, got, ref, filled) -> float:
     return float(diff.max())
 
 
+def recursion_widened_equal(what: str, got, widened) -> None:
+    """Fail unless B on bfloat16 rows equals B on the same rows widened to
+    float32, to the last bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got, widened):
+        fail(f"{what}: differs from the kernel on the widened rows by "
+             f"{float((got - widened).abs().max())}")
+
+
 def check_ctc_recursion(dev, cfg, beam: int):
     """Kernel B against its plain version in both forms (the reference
     form with (T, N) operands, and the main path's: time-minor (S, B, T)
@@ -322,8 +360,11 @@ def check_ctc_recursion(dev, cfg, beam: int):
     frames from `end` on copied from r_src) at 1, 8 and 32 streams of
     `beam` hypotheses over the three ranges of recursion_ranges, each with
     a hypothesis whose end is at or before its start and one with no token
-    yet. Timed in the main path's form; the row's numbers are those of one
-    stream at the table's range."""
+    yet. The same cases again with bfloat16 log-prob rows (gathered from a
+    bfloat16 ring): within the tolerance of the plain version, and equal to
+    the last bit to the kernel on the same rows widened to float32. Timed in
+    the main path's form on float32 and on bfloat16 rows; the row's numbers
+    are those of one stream at the table's range."""
     import torch
 
     from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
@@ -335,7 +376,7 @@ def check_ctc_recursion(dev, cfg, beam: int):
 
     t_cap = cfg.max_enc_frames
     t_idx = torch.arange(t_cap, device=dev)
-    errs, by_case = [], []
+    errs, errs_bf16, by_case = [], [], []
     for s_dim in RECURSION_STREAMS:
         n = s_dim * beam
         for name, (start_range, end_range) in recursion_ranges(t_cap).items():
@@ -348,18 +389,38 @@ def check_ctc_recursion(dev, cfg, beam: int):
                 f"ctc_forward_recursion (N={n}, {name})",
                 ctc_forward_recursion(*args),
                 ctc_forward_recursion_plain(*args), filled))
+            bargs = [a.bfloat16() for a in args[:2]] + args[2:]
+            got = ctc_forward_recursion(*bargs)
+            errs_bf16.append(recursion_error(
+                f"ctc_forward_recursion, bfloat16 rows (N={n}, {name})",
+                got, ctc_forward_recursion_plain(*bargs), filled))
+            recursion_widened_equal(
+                f"ctc_forward_recursion (N={n}, {name})", got,
+                ctc_forward_recursion(bargs[0].float(), bargs[1].float(),
+                                      *bargs[2:]))
             for edge in (None, "olen0", "empty"):
-                sargs = recursion_stream_operands(
-                    dev, cfg, s_dim, beam, start_range, end_range, edge)
-                olen, enc_len = sargs[3], sargs[4]
-                begin = olen.clamp(min=1, max=t_cap)
-                filled = ((t_idx[None, :] < begin[:, None])
-                          | (t_idx[None, :] >= enc_len[:, None])
-                          )[:, None, None, :]
-                errs.append(recursion_error(
-                    f"ctc_forward_recursion_streams (N={n}, {name}, "
-                    f"edge {edge})", ctc_forward_recursion_streams(*sargs),
-                    ctc_forward_recursion_streams_plain(*sargs), filled))
+                for ring_dtype in (torch.float32, torch.bfloat16):
+                    sargs = recursion_stream_operands(
+                        dev, cfg, s_dim, beam, start_range, end_range, edge,
+                        ring_dtype)
+                    olen, enc_len = sargs[3], sargs[4]
+                    begin = olen.clamp(min=1, max=t_cap)
+                    filled = ((t_idx[None, :] < begin[:, None])
+                              | (t_idx[None, :] >= enc_len[:, None])
+                              )[:, None, None, :]
+                    what = (f"ctc_forward_recursion_streams, {ring_dtype} "
+                            f"rows (N={n}, {name}, edge {edge})")
+                    got = ctc_forward_recursion_streams(*sargs)
+                    err = recursion_error(
+                        what, got,
+                        ctc_forward_recursion_streams_plain(*sargs), filled)
+                    if ring_dtype == torch.float32:
+                        errs.append(err)
+                        continue
+                    errs_bf16.append(err)
+                    recursion_widened_equal(
+                        what, got, ctc_forward_recursion_streams(
+                            sargs[0].float(), sargs[1].float(), *sargs[2:]))
             by_case.append(time_recursion(dev, cfg, s_dim, beam, name,
                                           start_range, end_range))
     # The row: one stream at the table's range, in the main path's form
@@ -376,20 +437,30 @@ def check_ctc_recursion(dev, cfg, beam: int):
     # hypothesis, the blank row's [begin:end) once, xn[0] where the stream
     # has no token yet, r_src from `end` on, olen (int64) and enc_len
     # (int32); written: r_new.
-    n_bytes = ((2 * beam + 1) * frames + beam * (olen == 0)
-               + 2 * beam * (t_cap - end) + 2 * beam * t_cap) * 4 + 12
+    # The log-prob rows (xn, xb) take `row` bytes a value, the rest four.
+    def n_bytes(row: int) -> int:
+        return (((beam + 1) * frames + beam * (olen == 0)) * row
+                + (beam * frames + 2 * beam * (t_cap - end)
+                   + 2 * beam * t_cap) * 4 + 12)
+
     # Two lse2 (7 ops each) and two adds per recursed frame.
-    b_ms, b_by = bound(n_bytes, 16 * frames * beam)
+    b_ms, b_by = bound(n_bytes(4), 16 * frames * beam)
+    b_ms_bf16, _ = bound(n_bytes(2), 16 * frames * beam)
     return {
         "name": "ctc_forward_recursion", "route": "cuda",
         "source": "speechcatcher_tpu_torch/csrc/ctc_recursion.cu",
         "replaces": "speechcatcher_tpu/ops/pallas/ctc_recursion.py:88",
         "shape": [1, beam, t_cap],
         "operands": "time-minor (S, B, T), blank row at stride 0",
-        "max_abs_err": max(errs),
+        "max_abs_err": max(errs + errs_bf16),
+        "max_abs_err_bf16_rows": max(errs_bf16),
+        "bf16_rows_equal_widened": True,
         "tol": f"{RECURSION_TOL_ABS} + {RECURSION_TOL_REL}*|ref|, "
-               "fills exact",
+               "fills exact; bfloat16 rows equal to the widened rows' "
+               "result to the last bit",
         "ms": row["ms"], "device_us": row["device_us"],
+        "ms_bf16": row["ms_bf16"], "device_us_bf16": row["device_us_bf16"],
+        "bound_ms_bf16": b_ms_bf16,
         "ms_reference": row["ms_reference"],
         "device_us_reference": row["device_us_reference"],
         "by_case": by_case,
@@ -404,7 +475,9 @@ def time_recursion(dev, cfg, s_dim: int, beam: int, name: str,
                    start_range, end_range) -> dict:
     """Call time (event mean over 200 calls) and device time per launch of
     kernel B at s_dim * beam hypotheses over one range, in the main path's
-    form and in the reference form."""
+    form on float32 and on bfloat16 rows, and in the reference form."""
+    import torch
+
     from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
         ctc_forward_recursion,
         ctc_forward_recursion_streams,
@@ -415,12 +488,21 @@ def time_recursion(dev, cfg, s_dim: int, beam: int, name: str,
     args = recursion_reference_operands(dev, t_cap, n, start_range, end_range)
     sargs = recursion_stream_operands(dev, cfg, s_dim, beam, start_range,
                                       end_range)
+    bargs = recursion_stream_operands(dev, cfg, s_dim, beam, start_range,
+                                      end_range, ring_dtype=torch.bfloat16)
     begin = sargs[3].clamp(min=1, max=t_cap)
+    # float32 and bfloat16 rows in turns.
+    ms, ms_bf16, _, _ = timed_pairs(
+        lambda: ctc_forward_recursion_streams(*sargs),
+        lambda: ctc_forward_recursion_streams(*bargs))
     return {"n": n, "range": name,
             "recursed_frames_max": int((sargs[4] - begin).max()),
-            "ms": cuda_ms(lambda: ctc_forward_recursion_streams(*sargs), 200),
+            "ms": ms, "ms_bf16": ms_bf16,
             "device_us": device_us(
                 lambda: ctc_forward_recursion_streams(*sargs),
+                RECURSION_KERNEL),
+            "device_us_bf16": device_us(
+                lambda: ctc_forward_recursion_streams(*bargs),
                 RECURSION_KERNEL),
             "ms_reference": cuda_ms(
                 lambda: ctc_forward_recursion(*args), 200),
@@ -652,19 +734,45 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
 # Main path
 # ---------------------------------------------------------------------------
 
-def flagship_model(dev, seed: int, encoder_type: str = "transformer"):
+def flagship_model(dev, seed: int, encoder_type: str = "transformer",
+                   precision: str = "float32"):
+    """The flagship with random weights from `seed`. "serving_default"
+    builds the serving model of the JAX package's bench.py (_build_model):
+    decoder cache, CTC log-prob ring and emitted-frame ring stored in
+    bfloat16 and the matmul weights cast to bfloat16; "int8" then quantises
+    the encoder's linears and "int8_all" every eligible linear to int8.
+    "ctc_ring_bf16" is the float32 model with only the CTC log-prob ring in
+    bfloat16 (what kernel B reads)."""
     import torch
 
     from speechcatcher_tpu_torch.config import flagship_config
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
 
+    if precision not in PRECISIONS:
+        fail(f"unknown precision {precision!r}")
     cfg = flagship_config(encoder_type=encoder_type)
+    if precision == "ctc_ring_bf16":
+        cfg = cfg.replace(ctc_ring_dtype="bfloat16")
+    elif precision != "float32":
+        cfg = cfg.replace(cache_dtype="bfloat16", ctc_ring_dtype="bfloat16",
+                          enc_ring_dtype="bfloat16")
     model = ASRModel.random_init(cfg, seed=seed, device=dev)
     # Emission profile of a trained model: EOS +4 on the decoder output,
     # blank +10 on the CTC head, so finals stop after a few steps.
     with torch.no_grad():
         model.params["decoder"]["output_layer"]["bias"][cfg.eos_id] += 4.0
         model.params["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += 10.0
+    if precision in ("serving_default", "int8", "int8_all"):
+        from speechcatcher_tpu_torch.ops.layers import (
+            cast_params,
+            quantize_params_int8,
+        )
+
+        model.params = cast_params(model.params)
+        if precision != "serving_default":
+            model.params = quantize_params_int8(
+                model.params,
+                scope=None if precision == "int8_all" else ("encoder",))
     return model
 
 
@@ -709,19 +817,32 @@ def check_launches(phase: str, counters, launches: dict, zero=()) -> None:
             fail(f"kernel {c.__name__} was not launched on the {phase}")
 
 
-def main_path(dev, counters, model, phase: str = "main_path", zero=()):
-    """Three flagship utterances of 4, 5 and 6 s in 0.5 s chunks."""
+def main_path(dev, counters, model, phase: str = "main_path", zero=(),
+              dtype: str = "float32", lengths=(4.0, 5.0, 6.0)):
+    """Flagship utterances of 4, 5 and 6 s in 0.5 s chunks through a
+    session in the precision mode `dtype` (which changes `model`)."""
     import numpy as np
+    import torch
 
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
     from speechcatcher_tpu_torch.synth import synth_audio
 
-    s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+    s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev,
+                               dtype=dtype)
+    if dtype != "float32":
+        ctc_lo = model.params["ctc"]["ctc_lo"]["weight"].dtype
+        w_1 = model.params["encoder"]["layers"][0]["feed_forward"]["w_1"][
+            "weight"].dtype
+        want = {"bfloat16": (torch.bfloat16, torch.bfloat16),
+                "int8": (torch.bfloat16, torch.int8),
+                "int8-all": (torch.int8, torch.int8)}[dtype]
+        if (ctc_lo, w_1) != want or model.cfg.cache_dtype != "bfloat16":
+            fail(f"{phase}: dtype={dtype!r} left weights {ctc_lo}, {w_1}")
     rate = model.cfg.sample_rate
     for c in counters:
         c.launches = 0
     rows = []
-    for i, seconds in enumerate((4.0, 5.0, 6.0)):
+    for i, seconds in enumerate(lengths):
         audio = synth_audio(seconds, seed=100 + i, rate=rate)
         t0 = time.perf_counter()
         results, nbest, lat = decode_chunked(s2t, audio, rate)
@@ -730,7 +851,7 @@ def main_path(dev, counters, model, phase: str = "main_path", zero=()):
         if not math.isfinite(best_score) or len(nbest[0][0]) < 2:
             fail(f"utterance {i}: bad best hypothesis {nbest[0]}")
         rows.append({
-            "phase": phase, "utterance": i,
+            "phase": phase, "dtype": dtype, "utterance": i,
             "tokens": len(results[0][2]) if results else 0,
             "hyp_len": int(len(nbest[0][0])),
             "score": best_score, "audio_s": seconds, "wall_s": wall,
@@ -836,19 +957,28 @@ def small_reference(dev, encoder_type: str = "transformer"):
 # ---------------------------------------------------------------------------
 
 def engine_streams(n: int, seconds, starts, int16_every: int, seed0: int,
-                   single=(), rate: int = 16000):
-    """Synthetic streams for drive_engine: audio (float32; the int16
-    quantised values for int16 streams), first tick, wire format and
-    whether the final goes through finalize() instead of finalize_batch."""
+                   single=(), rate: int = 16000, mulaw: bool = False):
+    """Synthetic streams for drive_engine: audio (float32; the quantised
+    values for int16 and mu-law streams, so that a session fed the float32
+    audio hears what the engine decodes from the wire), first tick, wire
+    format and whether the final goes through finalize() instead of
+    finalize_batch. With `mulaw` every stream comes as mu-law bytes."""
     import numpy as np
 
+    from speechcatcher_tpu_torch.serve.wire import (
+        mulaw_decode,
+        mulaw_encode_f32,
+    )
     from speechcatcher_tpu_torch.synth import synth_audio
 
     streams = []
     for k in range(n):
         audio = synth_audio(seconds[k], seed0 + k, rate=rate)
         wire = "int16" if int16_every and k % int16_every == 0 else "float32"
-        if wire == "int16":
+        if mulaw:
+            wire = "mulaw"
+            audio = mulaw_decode(mulaw_encode_f32(audio))
+        elif wire == "int16":
             audio = (np.round(np.clip(audio, -1.0, 1.0) * 32767.0)
                      .astype(np.int16).astype(np.float32) / 32767.0)
         streams.append({"audio": audio, "start": int(starts[k]),
@@ -937,11 +1067,14 @@ def _sync(dev):
 
 
 def engine_path(dev, counters, model, chunk: int = 8192,
-                phase: str = "engine_path", zero=()):
+                phase: str = "engine_path", zero=(), mulaw: bool = False,
+                score_tol: float = 1e-4):
     """Ten streams of 3-6 s through the port's StreamingEngine at
-    n_slots=8, staggered, every other one int16; the last two wait for
-    freed slots; two finals go through finalize(). Each final must equal
-    the port's single-stream session on the same audio and chunking."""
+    n_slots=8, staggered, every other one int16 (or all of them mu-law);
+    the last two wait for freed slots; two finals go through finalize().
+    Each final must equal the port's single-stream session on the same
+    model, audio and chunking: tokens and positions exactly, the score
+    within rel. `score_tol`."""
     import numpy as np
 
     from speechcatcher_tpu_torch.serve.engine import StreamingEngine
@@ -951,7 +1084,7 @@ def engine_path(dev, counters, model, chunk: int = 8192,
     seconds = [3.0 + 3.0 * k / (n - 1) for k in range(n)]
     streams = engine_streams(n, seconds, starts=[k // 2 for k in range(n)],
                              int16_every=2, seed0=300, single=(3, 8),
-                             rate=model.cfg.sample_rate)
+                             rate=model.cfg.sample_rate, mulaw=mulaw)
     engine = StreamingEngine(model, n_slots=8, beam_size=5,
                              chunk_samples=chunk, device=dev)
     if engine.MAXB != ENGINE_MAXB:
@@ -984,16 +1117,406 @@ def engine_path(dev, counters, model, chunk: int = 8192,
         rel = abs(es - rs) / max(1.0, abs(rs))
         worst = max(worst, rel)
         if not (np.array_equal(ey, ry) and np.array_equal(ex, rx)
-                and rel <= 1e-4):
+                and rel <= score_tol):
             fail(f"{phase} stream {k} ({st['wire']}, "
                  f"{'finalize' if st['single'] else 'finalize_batch'}) "
                  f"differs from the single-stream session: "
                  f"{ey.tolist()} / {ry.tolist()}, score {es} / {rs}")
     emit({"phase": phase + "_vs_single_stream", "streams": n,
           "tokens_equal": True, "xpos_equal": True,
-          "max_score_rel_err": worst,
+          "max_score_rel_err": worst, "score_tol": score_tol,
           "hyp_lens": [len(finals[k][0]) for k in range(n)]})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Precision modes
+# ---------------------------------------------------------------------------
+
+def check_gemm(dev, cfg):
+    """The bfloat16 GEMM of ``linear`` at the FFN's (rows, 512) x (512,
+    2048): which route the card takes (one library GEMM with a float32
+    result, or the widened float32 product), its result against the widened
+    product of the same rounded operands (products of two bfloat16 are exact
+    in float32, so only the order of the sum differs: 1e-5 of the largest
+    output), and its time beside the float32 GEMM's, in turns. Rows: one and
+    two windows of a session step, the engine's 8 slots x ENGINE_MAXB."""
+    import numpy as np
+    import torch
+
+    from speechcatcher_tpu_torch.ops import layers
+
+    route = layers.gemm_route(dev)
+    d, hidden = cfg.encoder_dim, cfg.encoder_linear_units
+    w = cfg.block_size + 2
+    rng = np.random.default_rng(11)
+    weight = torch.from_numpy(
+        rng.standard_normal((hidden, d), dtype=np.float32)
+        / np.float32(math.sqrt(d))).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(hidden, dtype=np.float32)
+                            ).to(dev)
+    p32 = {"weight": weight, "bias": bias}
+    p16 = layers.cast_params({"lin": p32})["lin"]
+    p8 = layers.quantize_params_int8({"lin": p16}, scope=None)["lin"]
+    if (p16["weight"].dtype, p8["weight"].dtype) != (torch.bfloat16,
+                                                     torch.int8):
+        fail("cast_params / quantize_params_int8 left the weight dtype")
+    rows_out = []
+    for rows in (w, 2 * w, 8 * ENGINE_MAXB * w):
+        x = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)
+                             ).to(dev)
+        xr = x.bfloat16().float()
+        errs = {}
+        for name, p, wide in (
+                ("bfloat16", p16, p16["weight"].float()),
+                ("int8", p8, p8["weight"].float())):
+            got = layers.linear(p, x)
+            ref = torch.matmul(xr, wide.t())
+            if name == "int8":
+                ref = ref * p8["weight_scale"]
+            ref = ref + bias
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32:
+                fail(f"linear on a {name} weight returned {got.dtype}")
+            errs[name] = float((got - ref).abs().max())
+            tol = 1e-5 * float(ref.abs().max())
+            if not errs[name] <= tol:
+                fail(f"linear on a {name} weight ({route}) differs from the "
+                     f"widened product at {rows} rows: {errs[name]} > {tol}")
+        ms16, ms32, _, _ = timed_pairs(lambda: layers.linear(p16, x),
+                                       lambda: layers.linear(p32, x))
+        rows_out.append({
+            "rows": rows, "max_abs_err": errs,
+            "linear_bf16_ms": ms16, "linear_f32_ms": ms32,
+            "linear_int8_ms": cuda_ms(lambda: layers.linear(p8, x), 200),
+            "linear_bf16_device_us": profiled_device_us(
+                lambda: layers.linear(p16, x)),
+            "linear_f32_device_us": profiled_device_us(
+                lambda: layers.linear(p32, x)),
+            "linear_int8_device_us": profiled_device_us(
+                lambda: layers.linear(p8, x)),
+        })
+    emit({"phase": "gemm", "route": route,
+          "mm_out_dtype_capability": layers.MM_OUT_DTYPE,
+          "shape": [d, hidden], "tol": "1e-5 of the largest output",
+          "by_rows": rows_out})
+    return route
+
+
+def profiled_device_us(fn, reps: int = 50):
+    """Device time of all kernels of one call of fn under torch.profiler
+    (None when three traces came back without device rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.self_device_time_total > 0)
+        if total:
+            return total / reps
+    return None
+
+
+def precision_fixture_replay(dev):
+    """The precision fixture blessed by the JAX package, replayed on the
+    card: the session in each blessed ``dtype=`` mode and the engine in the
+    serving default, tokens and positions exact, scores within rel.
+    BF16_STORAGE_SCORE_TOL.
+    A session that disagrees prints the first beam step whose best
+    candidate differs from the blessed trace, with the gap between the two
+    best candidates there on either side."""
+    import speechcatcher_tpu_torch.decode.beam_search as bs
+    from speechcatcher_tpu_torch.config import ModelConfig, flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.ops.layers import cast_params
+    from speechcatcher_tpu_torch.params import params_checksum, random_params
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    fx = json.loads(PRECISION_FIXTURE.read_text())
+    cfg = ModelConfig(**fx["cfg"])
+    if cfg != flagship_config():
+        fail("precision fixture config is not flagship_config()")
+    tree = random_params(cfg, fx["seed"])
+    if params_checksum(tree) != fx["weights_sha256"]:
+        fail("precision fixture weights checksum mismatch")
+    tree["decoder"]["output_layer"]["bias"][cfg.eos_id] += fx["eos_bias"]
+    tree["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += fx["blank_bias"]
+    audio = synth_audio(fx["audio_seconds"], fx["audio_seed"],
+                        rate=cfg.sample_rate)
+    beam = fx["beam_size"]
+    for dtype, ref in fx["sessions"].items():
+        model = ASRModel.from_numpy(cfg, tree, device=dev)
+        s2t = Speech2TextStreaming(model=model, beam_size=beam, device=dev,
+                                   dtype=dtype)
+        steps = []
+        with beam_step_trace(bs, beam, steps):
+            _, nbest, _ = decode_chunked(s2t, audio, cfg.sample_rate)
+        yseq, xpos, score = nbest[0]
+        same = ([int(x) for x in yseq] == ref["yseq"]
+                and [int(x) for x in xpos] == ref["xpos"])
+        rel = abs(score - ref["score"]) / max(1.0, abs(ref["score"]))
+        row = {"phase": "precision_fixture", "dtype": dtype,
+               "tokens_equal": same, "score": score,
+               "score_ref": ref["score"], "score_rel_err": rel,
+               "score_tol": BF16_STORAGE_SCORE_TOL,
+               "hyp_len": len(yseq), "beam_steps": len(steps),
+               "min_gap": min(g for _, g in steps)}
+        if not same:
+            for i, ((best, gap), (rbest, rgap)) in enumerate(
+                    zip(steps, ref["steps"])):
+                if best != rbest:
+                    row["first_differing_step"] = {
+                        "step": i, "best": best, "best_ref": rbest,
+                        "gap": gap, "gap_ref": rgap}
+                    break
+        emit(row)
+        if not (same and rel <= BF16_STORAGE_SCORE_TOL):
+            fail(f"precision fixture, dtype={dtype!r}: the replay disagrees "
+                 "with the JAX-blessed decode")
+    ex = fx["engine"]
+    ecfg = cfg.replace(cache_dtype="bfloat16", ctc_ring_dtype="bfloat16",
+                       enc_ring_dtype="bfloat16")
+    model = ASRModel.from_numpy(ecfg, tree, device=dev)
+    model.params = cast_params(model.params)
+    streams = engine_streams(len(ex["streams"]),
+                             [st["seconds"] for st in ex["streams"]],
+                             [st["start"] for st in ex["streams"]], 0,
+                             ex["audio_seed0"], rate=cfg.sample_rate,
+                             mulaw=True)
+    engine = StreamingEngine(model, n_slots=ex["n_slots"], beam_size=beam,
+                             chunk_samples=ex["chunk_samples"], device=dev)
+    finals, _, _ = drive_engine(engine, streams, ex["chunk_samples"],
+                                sync=_sync(dev))
+    worst = 0.0
+    for k, ref in enumerate(ex["finals"]):
+        yseq, xpos, score = finals[k]
+        rel = abs(score - ref["score"]) / max(1.0, abs(ref["score"]))
+        worst = max(worst, rel)
+        if not (yseq.tolist() == ref["yseq"] and xpos.tolist() == ref["xpos"]
+                and rel <= BF16_STORAGE_SCORE_TOL):
+            fail(f"precision fixture, engine stream {k} disagrees with the "
+                 f"JAX engine: {yseq.tolist()} / {ref['yseq']}, score "
+                 f"{score} / {ref['score']}")
+    emit({"phase": "precision_fixture", "engine": "serving_default",
+          "streams": len(ex["finals"]), "tokens_equal": True,
+          "max_score_rel_err": worst, "score_tol": BF16_STORAGE_SCORE_TOL,
+          "hyp_lens": [len(f["yseq"]) for f in ex["finals"]]})
+
+
+class beam_step_trace:
+    """While active, appends (index of the best candidate, its lead over
+    the second) of every beam step's global top-B selection to `steps`."""
+
+    def __init__(self, beam_search_module, beam: int, steps: list):
+        self.bs, self.beam, self.steps = beam_search_module, beam, steps
+
+    def __enter__(self):
+        self.topk = self.bs._topk_stable
+
+        def spy(x, k):
+            vals, idx = self.topk(x, k)
+            if x.shape[-1] == self.beam * self.beam:
+                v = vals[0]
+                if int((v > self.bs.NEG_INF / 10).sum()) >= 2:
+                    self.steps.append((int(idx[0, 0]), float(v[0] - v[1])))
+            return vals, idx
+
+        self.bs._topk_stable = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.bs._topk_stable = self.topk
+        return False
+
+
+def espnet_state_dict(tree, cfg, conv_spelling: str = "conv",
+                      out_spelling: str = "out", bn_spelling: str = "norm"):
+    """A numpy parameter tree's leaves under ESPnet's checkpoint key names
+    (the inverse of ``checkpoint.convert_state_dict``), in either spelling
+    of the conv stack (``embed.conv.N`` / ``embed.N``), of the embed output
+    (``out`` / ``out.0``) and of the conformer's BatchNorm (``norm`` /
+    ``batch_norm``), plus entries the converter drops."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.params import tree_leaves
+
+    def flat(prefix, sub, out, rename=lambda k: k):
+        for path, leaf in tree_leaves(sub):
+            keys = [rename(k) for k in path.strip("/").split("/")]
+            out[prefix + ".".join(keys)] = leaf
+
+    sd = {}
+    embed = tree["encoder"]["embed"]
+    if cfg.input_layer == "linear":
+        flat("encoder.embed.0.", embed["out"], sd)
+        flat("encoder.embed.1.", embed["norm"], sd)
+    else:
+        stack = ("encoder.embed.conv." if conv_spelling == "conv"
+                 else "encoder.embed.")
+        for i, conv in enumerate(embed["convs"]):
+            flat(f"{stack}{2 * i}.", conv, sd)
+        flat(f"encoder.embed.{out_spelling}.", embed["out"], sd)
+    for part, name in (("encoder", "encoders"), ("decoder", "decoders")):
+        stacked = {}
+        flat("", tree[part]["layers"], stacked,
+             rename=lambda k: bn_spelling if k == "batch_norm" else k)
+        for key, leaf in stacked.items():
+            for i in range(leaf.shape[0]):
+                sd[f"{part}.{name}.{i}.{key}"] = leaf[i]
+        flat(f"{part}.after_norm.", tree[part]["after_norm"], sd)
+    sd["decoder.embed.0.weight"] = tree["decoder"]["embed"]["weight"]
+    flat("decoder.output_layer.", tree["decoder"]["output_layer"], sd)
+    flat("ctc.ctc_lo.", tree["ctc"]["ctc_lo"], sd)
+    sd["frontend.logmel.melmat"] = np.zeros((4, 3), np.float32)
+    sd["normalize.mean"] = np.zeros(cfg.n_mels, np.float32)
+    if cfg.encoder_type == "conformer":
+        sd[f"encoder.encoders.0.conv_module.{bn_spelling}"
+           ".num_batches_tracked"] = np.asarray(7, np.int64)
+    return sd
+
+
+def write_model_dir(root: Path, cfg, tree, config=None,
+                    wrap: str = "model") -> Path:
+    """An ESPnet-layout package under `root` from a numpy parameter tree:
+    ``exp/<run>/valid.acc.ave_6best.pth`` (``{"model": state_dict}``, or
+    under "state_dict", or bare), ``exp/asr_stats_raw/train/
+    feats_stats.npz`` in the sum / sum_square / count form and, when
+    `config` (an ESPnet config dict) is given, ``exp/<run>/config.yaml``.
+    Returns the run directory, which is the model directory."""
+    import numpy as np
+    import torch
+
+    run = root / "exp" / "asr_train_asr_streaming"
+    run.mkdir(parents=True)
+    sd = {k: torch.from_numpy(np.array(v))
+          for k, v in espnet_state_dict(tree, cfg).items()}
+    torch.save({"model": sd} if wrap == "model" else
+               {"state_dict": sd} if wrap == "state_dict" else sd,
+               run / "valid.acc.ave_6best.pth")
+    if config is not None:
+        import yaml
+
+        with open(run / "config.yaml", "w") as f:
+            yaml.safe_dump(config, f)
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((1000, cfg.n_mels)) * 2.0 + 1.0
+    stats = root / "exp" / "asr_stats_raw" / "train"
+    stats.mkdir(parents=True)
+    np.savez(stats / "feats_stats.npz", sum=feats.sum(0),
+             sum_square=(feats ** 2).sum(0),
+             count=np.asarray(feats.shape[0]))
+    return run
+
+
+def model_dir_path(dev, cfg=None):
+    """A model directory of `cfg`'s widths (default: the flagship's)
+    written from seed 0 without a config.yaml (the architecture is then
+    inferred from the checkpoint's shapes over the default config: at the
+    flagship's width 4 heads of 128), loaded through
+    ``Speech2TextStreaming(model_dir=...)`` and ``create_streaming_
+    interface`` on the card: the same decode as the same weights and
+    statistics passed as ``model=``."""
+    import tempfile
+
+    import numpy as np
+
+    from speechcatcher_tpu_torch.checkpoint import (
+        find_stats,
+        load_normalization_stats,
+    )
+    from speechcatcher_tpu_torch.config import ModelConfig, flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.params import random_params
+    from speechcatcher_tpu_torch.streaming import (
+        Speech2TextStreaming,
+        create_streaming_interface,
+    )
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    cfg = cfg or flagship_config()
+    tree = random_params(cfg, 0)
+    tree["decoder"]["output_layer"]["bias"][cfg.eos_id] += 4.0
+    tree["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += 10.0
+    audio = synth_audio(5.0, seed=101, rate=cfg.sample_rate)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run = write_model_dir(Path(tmp), cfg, tree)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = Speech2TextStreaming(model_dir=run, beam_size=5, device=dev)
+        t_load = time.perf_counter() - t0
+        made = create_streaming_interface(run, beam_size=5, device=dev)
+        mean, std = load_normalization_stats(find_stats(run))
+    lcfg = loaded.cfg
+    inferred = ("encoder_dim", "decoder_dim", "encoder_layers",
+                "decoder_layers", "vocab_size", "encoder_linear_units",
+                "decoder_linear_units")
+    if lcfg != ModelConfig(**{k: getattr(cfg, k) for k in inferred}) \
+            or loaded.model.device != dev:
+        fail(f"model directory: inferred config {lcfg} on "
+             f"{loaded.model.device}")
+    given = Speech2TextStreaming(
+        model=ASRModel.from_numpy(lcfg, tree, device=dev, mean=mean, std=std),
+        beam_size=5, device=dev)
+    ref = decode_chunked(given, audio, lcfg.sample_rate)[1][0]
+    for name, s2t in (("model_dir=", loaded),
+                      ("create_streaming_interface", made)):
+        yseq, xpos, score = decode_chunked(s2t, audio, lcfg.sample_rate)[1][0]
+        if not (np.array_equal(yseq, ref[0]) and np.array_equal(xpos, ref[1])
+                and score == ref[2] and len(yseq) >= 2
+                and math.isfinite(score)):
+            fail(f"model directory: {name} decodes {yseq.tolist()} ({score}), "
+                 f"model= decodes {ref[0].tolist()} ({ref[2]})")
+    emit({"phase": "model_dir", "tokens_equal": True, "hyp_len": len(ref[0]),
+          "score": ref[2], "heads": lcfg.encoder_heads,
+          "write_s": t_write, "load_s": t_load})
+
+
+def precision_turns(dev, models: dict, chunk: int = 8192):
+    """Warm RTF of one 6 s utterance and engine tick p50 (8 busy slots, 10
+    ticks) of the float32 model and the serving default, taken in turns
+    (float32, serving default, serving default, float32) in one run."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    rate = models["float32"].cfg.sample_rate
+    audio = synth_audio(6.0, seed=102, rate=rate)
+    seconds = [(10 * chunk + 3000) / rate] * 8
+    streams = engine_streams(8, seconds, [0] * 8, 2, 700, rate=rate)
+    sessions = {k: Speech2TextStreaming(model=m, beam_size=5, device=dev)
+                for k, m in models.items()}
+    for k, m in models.items():            # warm-up
+        decode_chunked(sessions[k], audio, rate)
+        drive_engine(StreamingEngine(m, n_slots=8, beam_size=5,
+                                     chunk_samples=chunk, device=dev),
+                     streams, chunk, sync=_sync(dev))
+    order = ("float32", "serving_default", "serving_default", "float32")
+    rtf = {k: [] for k in models}
+    p50 = {k: [] for k in models}
+    for k in order:
+        t0 = time.perf_counter()
+        decode_chunked(sessions[k], audio, rate)
+        rtf[k].append((time.perf_counter() - t0) / 6.0)
+    for k in order:
+        engine = StreamingEngine(models[k], n_slots=8, beam_size=5,
+                                 chunk_samples=chunk, device=dev)
+        _, tick_s, _ = drive_engine(engine, streams, chunk, sync=_sync(dev))
+        p50[k].append(float(np.median(tick_s)) * 1e3)
+    emit({"phase": "precision_turns", "order": list(order),
+          "warm_rtf": rtf, "engine_p50_tick_ms": p50, "n_slots": 8,
+          "audio_s": 6.0})
+
 
 
 def engine_load_point(dev, model, n_slots: int = 32, n_ticks: int = 12,
@@ -1068,7 +1591,7 @@ def engine_fixture_replay(dev):
           "hyp_lens": [len(f["yseq"]) for f in fx["finals"]]})
 
 
-def profile_engine(dev):
+def profile_engine(dev, precision: str = "float32"):
     """torch.profiler over warm engine ticks at S=8: device time by kernel
     and the device's idle share of the ticks' wall time."""
     import torch
@@ -1076,7 +1599,7 @@ def profile_engine(dev):
 
     from speechcatcher_tpu_torch.serve.engine import StreamingEngine
 
-    model = flagship_model(dev, seed=0)
+    model = flagship_model(dev, seed=0, precision=precision)
     chunk = 8192
     seconds = [(10 * chunk + 3000) / model.cfg.sample_rate] * 8
     streams = engine_streams(8, seconds, [0] * 8, 2, 700,
@@ -1091,8 +1614,8 @@ def profile_engine(dev):
         t0 = time.perf_counter()
         _, tick_s, _ = drive_engine(engine, streams, chunk, sync=_sync(dev))
         wall = time.perf_counter() - t0
-    report_profile(prof, {"phase": "profile_engine", "n_slots": 8,
-                          "ticks": len(tick_s),
+    report_profile(prof, {"phase": "profile_engine", "precision": precision,
+                          "n_slots": 8, "ticks": len(tick_s),
                           "tick_wall_ms": sum(tick_s) * 1e3}, wall)
 
 
@@ -1107,9 +1630,15 @@ def report_profile(prof, head: dict, wall: float):
             and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
     rows.sort(key=lambda e: -e.self_device_time_total)
+    # GEMM and convolution kernels by name (cuBLAS, CUTLASS, cuDNN's
+    # implicit GEMM; "nvjet" are cuBLAS's Hopper kernels).
+    gemm_names = ("gemm", "gemv", "cutlass", "cublas", "nvjet")
+    gemm_us = sum(e.self_device_time_total for e in rows
+                  if any(k in e.key.lower() for k in gemm_names))
     emit(head | {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
                  "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
-                 "device_kernels": sum(e.count for e in rows)})
+                 "device_kernels": sum(e.count for e in rows),
+                 "gemm_ms": gemm_us / 1e3, "gemm_share": gemm_us / busy_us})
     ours = ("block_attention_kernel", "rel_block_attention_kernel",
             "ctc_forward_recursion_kernel", "ring_append_cols_kernel",
             "ring_append_rows_kernel")
@@ -1130,7 +1659,8 @@ def report_profile(prof, head: dict, wall: float):
               "share_of_wall": e.self_cpu_time_total / 1e3 / (wall * 1e3)})
 
 
-def profile_utterance(dev, encoder_type: str = "transformer"):
+def profile_utterance(dev, encoder_type: str = "transformer",
+                      precision: str = "float32"):
     """torch.profiler over one warm 6 s utterance of the main path: device
     busy time by kernel and the device's idle share of the wall time."""
     import torch
@@ -1139,7 +1669,8 @@ def profile_utterance(dev, encoder_type: str = "transformer"):
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
     from speechcatcher_tpu_torch.synth import synth_audio
 
-    model = flagship_model(dev, seed=0, encoder_type=encoder_type)
+    model = flagship_model(dev, seed=0, encoder_type=encoder_type,
+                           precision=precision)
     s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
     audio = synth_audio(6.0, seed=102, rate=model.cfg.sample_rate)
     decode_chunked(s2t, audio, model.cfg.sample_rate)  # warm-up
@@ -1150,7 +1681,7 @@ def profile_utterance(dev, encoder_type: str = "transformer"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report_profile(prof, {"phase": "profile", "encoder_type": encoder_type,
-                          "audio_s": 6.0}, wall)
+                          "precision": precision, "audio_s": 6.0}, wall)
 
 
 def main() -> int:
@@ -1163,6 +1694,13 @@ def main() -> int:
                     "attention kernels' device time under either tiling "
                     "at 1 to 32 windows, or the CTC recursion kernel's time "
                     "at 5 to 160 hypotheses, then stop")
+    ap.add_argument("--precision", choices=PRECISIONS, default="float32",
+                    help="the model of --profile, --profile engine and "
+                    "--profile conformer: float32, that with only the CTC "
+                    "log-prob ring in bfloat16 (ctc_ring_bf16), the serving "
+                    "default (bfloat16 weights, decoder cache, CTC ring and "
+                    "frame ring), or that with int8 encoder linears (int8) "
+                    "or every eligible linear in int8 (int8_all)")
     args = ap.parse_args()
 
     import torch
@@ -1201,13 +1739,14 @@ def main() -> int:
           "library": str(lib.path.relative_to(ROOT))})
 
     if args.profile == "utterance":
-        profile_utterance(dev)
+        profile_utterance(dev, precision=args.precision)
         return 0
     if args.profile == "engine":
-        profile_engine(dev)
+        profile_engine(dev, precision=args.precision)
         return 0
     if args.profile == "conformer":
-        profile_utterance(dev, encoder_type="conformer")
+        profile_utterance(dev, encoder_type="conformer",
+                          precision=args.precision)
         return 0
     cfg = flagship_config()
     if args.profile == "recursion":
@@ -1229,6 +1768,10 @@ def main() -> int:
     checks = [
         check_attention(dev, cfg, n_blocks, rel)
         for rel in (False, True) for n_blocks in (2, 8, 8 * ENGINE_MAXB)]
+    # A model directory without a config.yaml loads with the default 4
+    # heads: one window of 4 heads of 128.
+    checks.append(check_attention(dev, cfg.replace(encoder_heads=4), 1,
+                                  rel=False))
     kernels = [
         check_attention(dev, cfg, n_blocks=1, rel=False),
         check_attention(dev, cfg, n_blocks=1, rel=True),
@@ -1238,6 +1781,7 @@ def main() -> int:
     ]
     for k in checks + kernels:
         emit({"phase": "kernel", **k})
+    check_gemm(dev, cfg)
     worst = {}
     for k in checks + kernels:
         worst[k["name"]] = max(worst.get(k["name"], 0.0), k["max_abs_err"])
@@ -1256,11 +1800,31 @@ def main() -> int:
                                     zero=(rel_block_attention,))
     engine_fixture_replay(dev)
     engine_load_point(dev, model)
-    del model
+    # The precision modes. Each session mode casts a float32 model of its
+    # own; the engine serves the serving default over the mu-law wire.
+    for dtype in ("bfloat16", "int8", "int8-all"):
+        key = dtype.replace("-", "_")
+        by_path["utterance_" + key] = main_path(
+            dev, counters, flagship_model(dev, seed=0),
+            phase="precision_path_" + key, dtype=dtype, lengths=(5.0, 6.0),
+            zero=(rel_block_attention, ring_append_rows))
+    serving = flagship_model(dev, seed=0, precision="serving_default")
+    by_path["engine_serving_default"] = engine_path(
+        dev, counters, serving, phase="precision_engine_path",
+        zero=(rel_block_attention,), mulaw=True,
+        score_tol=BF16_STORAGE_SCORE_TOL)
+    precision_fixture_replay(dev)
+    model_dir_path(dev)
+    precision_turns(dev, {"float32": model, "serving_default": serving})
+    del model, serving
     conformer = flagship_model(dev, seed=0, encoder_type="conformer")
     by_path["conformer_utterance"] = main_path(
         dev, counters, conformer, phase="conformer_path",
         zero=(block_attention, ring_append_rows))
+    by_path["conformer_utterance_bfloat16"] = main_path(
+        dev, counters, flagship_model(dev, seed=0, encoder_type="conformer"),
+        phase="precision_conformer_path_bfloat16", dtype="bfloat16",
+        lengths=(5.0, 6.0), zero=(block_attention, ring_append_rows))
     fixture_replay(dev, CONFORMER_FIXTURE, encoder_type="conformer",
                    tol=1e-5)
     small_reference(dev, encoder_type="conformer")
@@ -1277,7 +1841,10 @@ def main() -> int:
             "max_abs_err": worst[name],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"]})
+            "library_ms": k["library_ms"]} | {
+            # B on bfloat16 rows beside the float32 form.
+            key: k[key] for key in ("device_us", "ms_bf16", "device_us_bf16",
+                                    "bound_ms_bf16") if "ms_bf16" in k})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

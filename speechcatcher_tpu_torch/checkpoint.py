@@ -1,0 +1,352 @@
+"""ESPnet .pth checkpoint → numpy parameter tree (port of
+``speechcatcher_tpu/checkpoint.py``).
+
+A one-time conversion on the CPU: the state dict is deserialized with
+``torch.load``, its arrays are renamed into the nested tree that
+``params.params_from_numpy`` takes (layer-stacked ``layers`` leaves, torch
+layouts kept), and the model then moves it to its device. Kept from the
+reference loader:
+- shape-based architecture inference,
+- a name mapping that keeps encoder./decoder./ctc. keys and drops
+  frontend./normalize_ keys,
+- MVN stats from feats_stats.npz stored as mean/std or
+  sum/sum_square/count.
+"""
+
+from __future__ import annotations
+
+import logging
+import re
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from speechcatcher_tpu_torch.config import ModelConfig
+
+logger = logging.getLogger(__name__)
+
+
+def _load_state_dict(checkpoint_path: Path) -> Dict[str, np.ndarray]:
+    ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "model" in ckpt:
+        sd = ckpt["model"]
+    elif isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = ckpt["state_dict"]
+    else:
+        sd = ckpt
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()
+            if hasattr(v, "detach")}
+
+
+def infer_architecture(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Shape-based architecture inference from a state dict's keys and
+    shapes."""
+    arch: Dict[str, Any] = {}
+
+    def count_layers(prefix: str) -> int:
+        idx = set()
+        pat = re.compile(rf"{prefix}\.(\d+)\.")
+        for k in sd:
+            m = pat.search(k)
+            if m:
+                idx.add(int(m.group(1)))
+        return max(idx) + 1 if idx else 0
+
+    arch["encoder_layers"] = count_layers("encoder.encoders")
+    arch["decoder_layers"] = count_layers("decoder.decoders")
+
+    for k, v in sd.items():
+        if k.startswith("encoder.") and "self_attn.linear_q.weight" in k:
+            arch["encoder_dim"] = int(v.shape[1])
+            break
+    for k, v in sd.items():
+        if k.startswith("encoder.") and "feed_forward.w_1.weight" in k:
+            arch["encoder_linear_units"] = int(v.shape[0])
+            break
+    for k, v in sd.items():
+        if k.startswith("decoder.") and "feed_forward.w_1.weight" in k:
+            arch["decoder_linear_units"] = int(v.shape[0])
+            break
+    if "decoder.output_layer.weight" in sd:
+        arch["vocab_size"] = int(sd["decoder.output_layer.weight"].shape[0])
+    elif "decoder.embed.0.weight" in sd:
+        arch["vocab_size"] = int(sd["decoder.embed.0.weight"].shape[0])
+    if "ctc.ctc_lo.weight" in sd:
+        arch["ctc_vocab_size"] = int(sd["ctc.ctc_lo.weight"].shape[0])
+    # Mel dim from first conv input feature width is not recoverable from
+    # shapes alone (kernel only); frontend dims come from config.yaml.
+    return arch
+
+
+def _get(sd: Dict[str, np.ndarray], *names: str) -> Optional[np.ndarray]:
+    for n in names:
+        if n in sd:
+            return sd[n]
+    return None
+
+
+def _linear(sd, prefix: str) -> Dict[str, np.ndarray]:
+    w = _get(sd, f"{prefix}.weight")
+    out = {"weight": np.asarray(w, dtype=np.float32)}
+    b = _get(sd, f"{prefix}.bias")
+    if b is not None:
+        out["bias"] = np.asarray(b, dtype=np.float32)
+    return out
+
+
+def _norm(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {
+        "weight": np.asarray(_get(sd, f"{prefix}.weight"), dtype=np.float32),
+        "bias": np.asarray(_get(sd, f"{prefix}.bias"), dtype=np.float32),
+    }
+
+
+def _mha(sd, prefix: str) -> Dict[str, Any]:
+    return {
+        "linear_q": _linear(sd, f"{prefix}.linear_q"),
+        "linear_k": _linear(sd, f"{prefix}.linear_k"),
+        "linear_v": _linear(sd, f"{prefix}.linear_v"),
+        "linear_out": _linear(sd, f"{prefix}.linear_out"),
+    }
+
+
+def _ffn(sd, prefix: str) -> Dict[str, Any]:
+    return {
+        "w_1": _linear(sd, f"{prefix}.w_1"),
+        "w_2": _linear(sd, f"{prefix}.w_2"),
+    }
+
+
+def _stack(layers) -> Any:
+    """Per-layer trees → one tree whose leaves carry a leading layer axis."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return np.stack([np.asarray(x) for x in layers])
+
+
+def convert_state_dict(
+    sd: Dict[str, np.ndarray], cfg: ModelConfig
+) -> Dict[str, Any]:
+    """Numpy state_dict → {encoder, decoder, ctc} numpy parameter tree."""
+    if cfg.input_layer == "linear":
+        # Sequential: Linear at 0, LayerNorm at 1 (Dropout/ReLU hold no
+        # params).
+        embed_tree: Dict[str, Any] = {
+            "out": {
+                "weight": np.asarray(_get(sd, "encoder.embed.0.weight")),
+                "bias": np.asarray(_get(sd, "encoder.embed.0.bias")),
+            },
+            "norm": {
+                "weight": np.asarray(_get(sd, "encoder.embed.1.weight")),
+                "bias": np.asarray(_get(sd, "encoder.embed.1.bias")),
+            },
+        }
+    else:
+        n_convs = {"conv2d": 2, "conv2d6": 2, "conv2d8": 3}[cfg.input_layer]
+        convs = []
+        for i in range(n_convs):
+            # Sequential indices: Conv2d at 0, 2, 4 (ReLU between).
+            # Checkpoints may name the stack embed.conv.N (ESPnet) or
+            # embed.N.
+            w = _get(sd, f"encoder.embed.conv.{2*i}.weight",
+                     f"encoder.embed.{2*i}.weight")
+            b = _get(sd, f"encoder.embed.conv.{2*i}.bias",
+                     f"encoder.embed.{2*i}.bias")
+            convs.append({"weight": np.asarray(w), "bias": np.asarray(b)})
+        embed_out = _get(sd, "encoder.embed.out.weight",
+                         "encoder.embed.out.0.weight")
+        embed_out_b = _get(sd, "encoder.embed.out.bias",
+                           "encoder.embed.out.0.bias")
+        embed_tree = {
+            "convs": convs,
+            "out": {"weight": np.asarray(embed_out),
+                    "bias": np.asarray(embed_out_b)},
+        }
+
+    is_conformer = any(
+        k.startswith("encoder.encoders.0.norm_mha") for k in sd
+    ) or cfg.encoder_type == "conformer"
+
+    enc_layers = []
+    for i in range(cfg.encoder_layers):
+        p = f"encoder.encoders.{i}"
+        if is_conformer:
+            attn = _mha(sd, f"{p}.self_attn")
+            attn["linear_pos"] = _linear(sd, f"{p}.self_attn.linear_pos")
+            attn["pos_bias_u"] = np.asarray(
+                _get(sd, f"{p}.self_attn.pos_bias_u"), dtype=np.float32
+            )
+            attn["pos_bias_v"] = np.asarray(
+                _get(sd, f"{p}.self_attn.pos_bias_v"), dtype=np.float32
+            )
+            cm = f"{p}.conv_module"
+            bn_prefix = (
+                f"{cm}.norm" if f"{cm}.norm.weight" in sd
+                else f"{cm}.batch_norm"
+            )
+            enc_layers.append(
+                {
+                    "self_attn": attn,
+                    "feed_forward": _ffn(sd, f"{p}.feed_forward"),
+                    "feed_forward_macaron": _ffn(
+                        sd, f"{p}.feed_forward_macaron"
+                    ),
+                    "conv_module": {
+                        "pointwise_conv1": _linear(sd, f"{cm}.pointwise_conv1"),
+                        "depthwise_conv": _linear(sd, f"{cm}.depthwise_conv"),
+                        "pointwise_conv2": _linear(sd, f"{cm}.pointwise_conv2"),
+                        "batch_norm": {
+                            "weight": np.asarray(
+                                _get(sd, f"{bn_prefix}.weight"),
+                                dtype=np.float32,
+                            ),
+                            "bias": np.asarray(
+                                _get(sd, f"{bn_prefix}.bias"),
+                                dtype=np.float32,
+                            ),
+                            "running_mean": np.asarray(
+                                _get(sd, f"{bn_prefix}.running_mean"),
+                                dtype=np.float32,
+                            ),
+                            "running_var": np.asarray(
+                                _get(sd, f"{bn_prefix}.running_var"),
+                                dtype=np.float32,
+                            ),
+                        },
+                    },
+                    "norm_ff": _norm(sd, f"{p}.norm_ff"),
+                    "norm_ff_macaron": _norm(sd, f"{p}.norm_ff_macaron"),
+                    "norm_mha": _norm(sd, f"{p}.norm_mha"),
+                    "norm_conv": _norm(sd, f"{p}.norm_conv"),
+                    "norm_final": _norm(sd, f"{p}.norm_final"),
+                }
+            )
+        else:
+            enc_layers.append(
+                {
+                    "self_attn": _mha(sd, f"{p}.self_attn"),
+                    "feed_forward": _ffn(sd, f"{p}.feed_forward"),
+                    "norm1": _norm(sd, f"{p}.norm1"),
+                    "norm2": _norm(sd, f"{p}.norm2"),
+                }
+            )
+
+    encoder = {
+        "embed": embed_tree,
+        "layers": _stack(enc_layers),
+        "after_norm": {
+            "weight": np.asarray(_get(sd, "encoder.after_norm.weight")),
+            "bias": np.asarray(_get(sd, "encoder.after_norm.bias")),
+        },
+    }
+
+    dec_layers = []
+    for i in range(cfg.decoder_layers):
+        p = f"decoder.decoders.{i}"
+        dec_layers.append(
+            {
+                "self_attn": _mha(sd, f"{p}.self_attn"),
+                "src_attn": _mha(sd, f"{p}.src_attn"),
+                "feed_forward": _ffn(sd, f"{p}.feed_forward"),
+                "norm1": _norm(sd, f"{p}.norm1"),
+                "norm2": _norm(sd, f"{p}.norm2"),
+                "norm3": _norm(sd, f"{p}.norm3"),
+            }
+        )
+    decoder = {
+        "embed": {"weight": np.asarray(_get(sd, "decoder.embed.0.weight"))},
+        "layers": _stack(dec_layers),
+        "after_norm": {
+            "weight": np.asarray(_get(sd, "decoder.after_norm.weight")),
+            "bias": np.asarray(_get(sd, "decoder.after_norm.bias")),
+        },
+        "output_layer": {
+            "weight": np.asarray(_get(sd, "decoder.output_layer.weight")),
+            "bias": np.asarray(_get(sd, "decoder.output_layer.bias")),
+        },
+    }
+
+    ctc = {
+        "ctc_lo": {
+            "weight": np.asarray(_get(sd, "ctc.ctc_lo.weight")),
+            "bias": np.asarray(_get(sd, "ctc.ctc_lo.bias")),
+        }
+    }
+
+    return {"encoder": encoder, "decoder": decoder, "ctc": ctc}
+
+
+def load_espnet_checkpoint(
+    checkpoint_path: Path, cfg: Optional[ModelConfig] = None
+) -> Tuple[Dict[str, Any], ModelConfig, Dict[str, Any]]:
+    """Load + convert. Returns (params, possibly-updated cfg, arch info)."""
+    sd = _load_state_dict(Path(checkpoint_path))
+    arch = infer_architecture(sd)
+    if cfg is None:
+        cfg = ModelConfig()
+    updates = {}
+    for field in ("vocab_size", "encoder_layers", "decoder_layers",
+                  "encoder_dim", "encoder_linear_units",
+                  "decoder_linear_units"):
+        if arch.get(field) and getattr(cfg, field) != arch[field]:
+            updates[field] = arch[field]
+    if "encoder_dim" in updates:
+        updates.setdefault("decoder_dim", updates["encoder_dim"])
+    if any(k.startswith("encoder.encoders.0.norm_mha") for k in sd):
+        if cfg.encoder_type != "conformer":
+            updates["encoder_type"] = "conformer"
+    if updates:
+        logger.info("Checkpoint shape inference overrides config: %s", updates)
+        cfg = cfg.replace(**updates)
+    params = convert_state_dict(sd, cfg)
+    return params, cfg, arch
+
+
+def load_normalization_stats(stats_path: Path) -> Tuple[np.ndarray, np.ndarray]:
+    """feats_stats.npz → (mean, std), from either stats format."""
+    stats = np.load(stats_path)
+    if "mean" in stats:
+        return stats["mean"], stats["std"]
+    if "sum" in stats and "sum_square" in stats and "count" in stats:
+        count = stats["count"]
+        mean = stats["sum"] / count
+        mean_square = stats["sum_square"] / count
+        std = np.sqrt(np.maximum(mean_square - mean**2, 1e-10))
+        return mean, std
+    raise ValueError(f"Unknown stats format. Keys: {list(stats.keys())}")
+
+
+def find_checkpoint(model_dir: Path) -> Optional[Path]:
+    """The checkpoint of a model directory: a priority list of names,
+    looked for in the directory and then in each exp/* run."""
+    names = [
+        "valid.acc.best.pth",
+        "valid.acc.ave_6best.pth",
+        "valid.acc.ave.pth",
+        "model.pth",
+        "checkpoint.pth",
+    ]
+    dirs = [model_dir] + sorted(model_dir.glob("exp/*/"))
+    for d in dirs:
+        for n in names:
+            p = Path(d) / n
+            if p.exists():
+                return p
+    return None
+
+
+def find_stats(model_dir: Path) -> Optional[Path]:
+    """The MVN stats file of a model directory: beside the checkpoint, in a
+    sibling asr_stats_*/train, or anywhere below."""
+    candidates = [
+        model_dir / "feats_stats.npz",
+        *sorted(model_dir.parent.glob("asr_stats_*/train/feats_stats.npz")),
+        *sorted(model_dir.glob("**/feats_stats.npz")),
+    ]
+    for p in candidates:
+        if p.exists():
+            return p
+    return None

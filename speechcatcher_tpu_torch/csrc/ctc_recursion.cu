@@ -39,6 +39,13 @@
 // the per-stream olen and enc_len, and the frames from end on copied from
 // r_src into the (S, B, 2, T) result.
 //
+// The log-prob rows x_n and x_b come in the ring's dtype, float32 or
+// bfloat16 (both alike); phi, r_src and the result are float32. bfloat16 is
+// widened where the rows are staged (eight values a 16-byte load), which is
+// exact, so everything after staging is one float32 body and the result on
+// bfloat16 rows equals, to the last bit, the result on the same rows widened
+// to float32 beforehand.
+//
 // No fast-math: expf / log1pf must round as the reference's do.
 
 #include <cuda_runtime.h>
@@ -57,6 +64,7 @@ struct CtcArgs {
   int s_dim, beam, t_cap;
   int olen_bytes, enc_bytes;         // 4 or 8: int32 or int64 lengths
   int vec;                           // strides allow 16-byte loads
+  int row_bytes;                     // 4 or 2: float32 or bfloat16 xn, xb
 };
 
 namespace {
@@ -74,6 +82,35 @@ __device__ __forceinline__ float lse2(float a, float b) {
   const float mx = fmaxf(a, b);
   const float mn = fminf(a, b);
   return mx + log1pf(expf(fmaxf(mn - mx, -30.f)));
+}
+
+// A bfloat16 row element as its 16 bits; widening is a shift, and exact.
+using bf16_bits = uint16_t;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16_bits v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// Row i of 16 bytes -> shared floats: four float32 or eight bfloat16.
+__device__ __forceinline__ void stage16(float* dst, const float* src, int i) {
+  reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+}
+__device__ __forceinline__ void stage16(float* dst, const bf16_bits* src,
+                                        int i) {
+  const uint4 v = reinterpret_cast<const uint4*>(src)[i];
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float4 lo, hi;
+  lo.x = __uint_as_float(w[0] << 16);
+  lo.y = __uint_as_float(w[0] & 0xffff0000u);
+  lo.z = __uint_as_float(w[1] << 16);
+  lo.w = __uint_as_float(w[1] & 0xffff0000u);
+  hi.x = __uint_as_float(w[2] << 16);
+  hi.y = __uint_as_float(w[2] & 0xffff0000u);
+  hi.z = __uint_as_float(w[3] << 16);
+  hi.w = __uint_as_float(w[3] & 0xffff0000u);
+  reinterpret_cast<float4*>(dst)[2 * i] = lo;
+  reinterpret_cast<float4*>(dst)[2 * i + 1] = hi;
 }
 
 // The map x -> lse(x + a, c), or (has = 0) no map at all.
@@ -129,9 +166,9 @@ __device__ Map exclusive_scan(Map m, Map* totals) {
   return out;
 }
 
-template <bool kStreams>
+template <bool kStreams, typename Row>
 __global__ void __launch_bounds__(kThreads) ctc_forward_recursion_kernel(
-    const float* __restrict__ xn, const float* __restrict__ xb,
+    const Row* __restrict__ xn, const Row* __restrict__ xb,
     const float* __restrict__ phi,
     const void* __restrict__ len_a,    // streams: olen; reference: start
     const void* __restrict__ len_b,    // streams: enc_len; reference: end
@@ -168,23 +205,21 @@ __global__ void __launch_bounds__(kThreads) ctc_forward_recursion_kernel(
     init0 = extra[h] > 0.5f;
   }
 
-  // Stage the three rows.
-  const float* xn_row = xn + s * p.xn_ss + b * p.xn_sb;
-  const float* xb_row = xb + s * p.xb_ss + b * p.xb_sb;
+  // Stage the three rows, widening xn and xb to float32.
+  const Row* xn_row = xn + s * p.xn_ss + b * p.xn_sb;
+  const Row* xb_row = xb + s * p.xb_ss + b * p.xb_sb;
   const float* phi_row = phi + s * p.phi_ss + b * p.phi_sb;
   if (vec) {
-    for (int i = tid; i < T / 4; i += kThreads) {
-      reinterpret_cast<float4*>(sxn)[i] =
-          reinterpret_cast<const float4*>(xn_row)[i];
-      reinterpret_cast<float4*>(sxb)[i] =
-          reinterpret_cast<const float4*>(xb_row)[i];
-      reinterpret_cast<float4*>(sph)[i] =
-          reinterpret_cast<const float4*>(phi_row)[i];
+    constexpr int kPerLoad = 16 / static_cast<int>(sizeof(Row));
+    for (int i = tid; i < T / kPerLoad; i += kThreads) {
+      stage16(sxn, xn_row, i);
+      stage16(sxb, xb_row, i);
     }
+    for (int i = tid; i < T / 4; i += kThreads) stage16(sph, phi_row, i);
   } else {
     for (int t = tid; t < T; t += kThreads) {
-      sxn[t] = xn_row[t * p.xn_st];
-      sxb[t] = xb_row[t * p.xb_st];
+      sxn[t] = widen(xn_row[t * p.xn_st]);
+      sxb[t] = widen(xb_row[t * p.xb_st]);
       sph[t] = phi_row[t * p.phi_st];
     }
   }
@@ -268,10 +303,10 @@ inline bool aligned_to(const void* ptr, uintptr_t bytes) {
 
 // Returns 0, a cudaError_t, or kBadPlan when the plan or the pointers do
 // not fit the kernel.
-template <bool kStreams>
-int launch(const float* xn, const float* xb, const float* phi,
-           const void* len_a, const void* len_b, const float* extra, float* r,
-           const CtcArgs& p, void* stream) {
+template <bool kStreams, typename Row>
+int launch_rows(const void* xn, const void* xb, const float* phi,
+                const void* len_a, const void* len_b, const float* extra,
+                float* r, const CtcArgs& p, void* stream) {
   const long long n = static_cast<long long>(p.s_dim) * p.beam;
   if (p.s_dim < 0 || p.beam < 1 || p.t_cap < 1 || p.t_cap > kMaxT
       || n > 0x7fffffffLL)
@@ -281,25 +316,45 @@ int launch(const float* xn, const float* xb, const float* phi,
                    || p.xn_st != 1 || p.xb_st != 1 || p.phi_st != 1))
     return kBadPlan;
   if (n == 0) return 0;
-  const void* ptrs[] = {xn, xb, phi, len_a, len_b, extra, r};
+  const void* ptrs[] = {phi, len_a, len_b, extra, r};
   for (const void* ptr : ptrs)
     if (ptr == nullptr || !aligned_to(ptr, 4)) return kBadPlan;
+  if (xn == nullptr || xb == nullptr || !aligned_to(xn, sizeof(Row))
+      || !aligned_to(xb, sizeof(Row)))
+    return kBadPlan;
   if (kStreams && (!aligned_to(len_a, p.olen_bytes)
                    || !aligned_to(len_b, p.enc_bytes)))
     return kBadPlan;
-  const int vec = kStreams && p.vec && p.t_cap % 4 == 0 && aligned_to(xn, 16)
-                  && aligned_to(xb, 16) && aligned_to(phi, 16);
-  const auto kernel = ctc_forward_recursion_kernel<kStreams>;
+  const int per_load = 16 / static_cast<int>(sizeof(Row));
+  const int vec = kStreams && p.vec && p.t_cap % per_load == 0
+                  && aligned_to(xn, 16) && aligned_to(xb, 16)
+                  && aligned_to(phi, 16);
+  const auto kernel = ctc_forward_recursion_kernel<kStreams, Row>;
   const int smem = 5 * p.t_cap * static_cast<int>(sizeof(float));
   kernel<<<static_cast<unsigned>(n), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(xn, xb, phi, len_a, len_b,
-                                                extra, r, p, vec);
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Row*>(xn), static_cast<const Row*>(xb), phi, len_a,
+      len_b, extra, r, p, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// xn and xb in the dtype the plan names.
+template <bool kStreams>
+int launch(const void* xn, const void* xb, const float* phi,
+           const void* len_a, const void* len_b, const float* extra, float* r,
+           const CtcArgs& p, void* stream) {
+  if (p.row_bytes == 4)
+    return launch_rows<kStreams, float>(xn, xb, phi, len_a, len_b, extra, r,
+                                        p, stream);
+  if (p.row_bytes == 2)
+    return launch_rows<kStreams, bf16_bits>(xn, xb, phi, len_a, len_b, extra,
+                                            r, p, stream);
+  return kBadPlan;
 }
 
 }  // namespace
 
-extern "C" int sc_ctc_forward_recursion(const float* xn, const float* xb,
+extern "C" int sc_ctc_forward_recursion(const void* xn, const void* xb,
                                         const float* phi_shift,
                                         const int* start, const int* end,
                                         const float* olen0, float* r,
@@ -309,7 +364,7 @@ extern "C" int sc_ctc_forward_recursion(const float* xn, const float* xb,
 }
 
 extern "C" int sc_ctc_forward_recursion_streams(
-    const float* xn, const float* xb, const float* phi, const void* olen,
+    const void* xn, const void* xb, const float* phi, const void* olen,
     const void* enc_len, const float* r_src, float* r, const CtcArgs* plan,
     void* stream) {
   return launch<true>(xn, xb, phi, olen, enc_len, r_src, r, *plan, stream);

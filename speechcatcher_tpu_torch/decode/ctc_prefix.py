@@ -177,11 +177,12 @@ def ctc_advance_state(state: CTCScorerState, log_psi: torch.Tensor,
     phi = torch.where((token_r == last_src)[:, :, None], r_src[:, :, 1, :],
                       r_sum)                                    # (S, B, T)
     s_idx = torch.arange(s_dim, device=dev)[:, None]
-    xn = state.logp[s_idx, token_r, :].float()                  # (S, B, T)
-    xb = state.logp[:, None, 0, :].float()                      # (S, 1, T)
+    xn = state.logp[s_idx, token_r, :]                          # (S, B, T)
+    xb = state.logp[:, None, 0, :]                              # (S, 1, T)
 
-    # One launch: the kernel shifts phi, derives start and end from olen
-    # and enc_len, and copies the frames from end on from r_src.
+    # One launch: the kernel reads the rows in the ring's dtype (it widens
+    # bfloat16 itself), shifts phi, derives start and end from olen and
+    # enc_len, and copies the frames from end on from r_src.
     r_new = ctc_forward_recursion_streams(xn, xb, phi, olen, state.enc_len,
                                           r_src)
     return CTCScorerState(logp=state.logp, enc_len=state.enc_len, r=r_new,

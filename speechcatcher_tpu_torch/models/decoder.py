@@ -16,6 +16,13 @@ Cross-attention K/V are linear in the encoder frames, which do not change
 within a decoded block, so ``project_cross_kv`` computes them once per block
 and every beam step of the block reuses them; the numbers are those of
 projecting at every step.
+
+Precision: the cache and the projected K/V are stored in ``cfg.cache_dtype``.
+The self-attention contracts in float32 over widened operands (the JAX
+package's non-TPU branch); the cross-attention rounds the query to the K/V
+dtype and the attention weights to the V dtype and accumulates both
+contractions in float32. int8 K/V weights are dequantised by
+``dense_weight``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from speechcatcher_tpu_torch.config import ModelConfig
 from speechcatcher_tpu_torch.ops.kernels.block_attention import MASK_MIN
 from speechcatcher_tpu_torch.ops.layers import (
     Params,
+    dense_weight,
     feed_forward,
     layer_norm,
     linear,
@@ -73,8 +81,8 @@ def _attend_cached_lane(
     n, t, d = hh.shape
     s = n // beam
     dk = d // n_head
-    wk = p_attn["linear_k"]["weight"].reshape(n_head, dk, d)
-    wv = p_attn["linear_v"]["weight"].reshape(n_head, dk, d)
+    wk = dense_weight(p_attn["linear_k"]).reshape(n_head, dk, d)
+    wv = dense_weight(p_attn["linear_v"]).reshape(n_head, dk, d)
     qk = torch.einsum("nhk,hkd->nhd", q.reshape(n, n_head, dk), wk)
     hhl = hh.float().reshape(s, beam, t, d)
     idx = lane.long()[..., None].expand(s, beam, t, d)
@@ -101,12 +109,15 @@ def _attend_cross_blocked(
     valid: torch.Tensor,  # (S, T) bool
     n_head: int,
 ) -> torch.Tensor:
-    """Cross-attention over projected K/V shared by a stream's B hyps."""
+    """Cross-attention over projected K/V shared by a stream's B hyps. The
+    query is rounded to the K dtype and the attention weights to the V
+    dtype; both contractions run on the widened operands, so the products
+    are exact and accumulate in float32."""
     s, t, d = mk.shape
     n = q.shape[0]
     b = n // s
     dk = d // n_head
-    qh = q.reshape(s, b, n_head, dk)
+    qh = q.reshape(s, b, n_head, dk).to(mk.dtype).float()
     kh = mk.float().reshape(s, t, n_head, dk)
     vh = mv.float().reshape(s, t, n_head, dk)
     scores = torch.einsum("sbhd,sthd->sbht", qh, kh) / math.sqrt(dk)
@@ -114,7 +125,7 @@ def _attend_cross_blocked(
     scores = torch.where(keep, scores, MASK_MIN)
     attn = torch.softmax(scores, dim=-1)
     attn = torch.where(keep, attn, 0.0)
-    out = torch.einsum("sbht,sthd->sbhd", attn, vh)
+    out = torch.einsum("sbht,sthd->sbhd", attn.to(mv.dtype).float(), vh)
     return out.reshape(n, d)
 
 
@@ -126,8 +137,8 @@ def project_cross_kv(params: Params, memory: torch.Tensor,
     the masked value contraction as 0·NaN."""
     mem_s = torch.where(torch.isfinite(memory), memory, 0.0).to(cache_dtype)
     return [
-        (linear(p["src_attn"]["linear_k"], mem_s.float()).to(cache_dtype),
-         linear(p["src_attn"]["linear_v"], mem_s.float()).to(cache_dtype))
+        (linear(p["src_attn"]["linear_k"], mem_s).to(cache_dtype),
+         linear(p["src_attn"]["linear_v"], mem_s).to(cache_dtype))
         for p in params["layers"]
     ]
 

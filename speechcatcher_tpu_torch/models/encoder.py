@@ -52,14 +52,19 @@ def subsampled_len(n_in: int, input_layer: str) -> int:
 
 def conv2d_subsample(p: Params, x: torch.Tensor, input_layer: str
                      ) -> torch.Tensor:
-    """(B, T, feat) → (B, T', d). 'linear' is Linear → LayerNorm(eps 1e-5)
-    → ReLU per frame, without time reduction."""
+    """(B, T, feat) → (B, T', d), float32. 'linear' is Linear →
+    LayerNorm(eps 1e-5) → ReLU per frame, without time reduction. A bfloat16
+    conv kernel rounds its input to bfloat16; the convolution runs on both
+    widened to float32, so it accumulates in and returns float32."""
     if input_layer == "linear":
         return torch.relu(layer_norm(p["norm"], linear(p["out"], x), eps=1e-5))
     _, strides = CONV_SPECS[input_layer]
     h = x[:, None, :, :]  # NCHW: (B, 1, T, feat)
     for conv, s in zip(p["convs"], strides):
-        h = F.conv2d(h, conv["weight"], stride=s)
+        w = conv["weight"]
+        if w.dtype == torch.bfloat16:
+            h, w = h.bfloat16().float(), w.float()
+        h = F.conv2d(h, w, stride=s)
         h = torch.relu(h + conv["bias"][None, :, None, None])
     b, c, t, f = h.shape
     h = h.transpose(1, 2).reshape(b, t, c * f)

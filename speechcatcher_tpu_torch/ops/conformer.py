@@ -37,16 +37,18 @@ def conv_module(p: Params, x: torch.Tensor, eps: float = 1e-5
                 ) -> torch.Tensor:
     """(B, T, C) → (B, T, C). Conv weights keep torch's Conv1d layout
     (out, in/groups, k); the inner LayerNorm is applied only when the
-    parameters have one."""
+    parameters have one. bfloat16 conv weights are widened to float32 and
+    the activations are not rounded (the promotion of a float32 × bfloat16
+    product), unlike ``linear``."""
     if "layernorm" in p:
         x = layer_norm(p["layernorm"], x, eps=1e-5)
-    h = linear({"weight": p["pointwise_conv1"]["weight"][:, :, 0],
-                "bias": p["pointwise_conv1"]["bias"]}, x)
+    w1 = p["pointwise_conv1"]["weight"][:, :, 0].float()
+    h = torch.matmul(x, w1.t()) + p["pointwise_conv1"]["bias"]
     a, b = h.chunk(2, dim=-1)
     h = a * torch.sigmoid(b)
 
     # Depthwise conv with 'same' zero padding over the whole window.
-    dw = p["depthwise_conv"]["weight"]                     # (C, 1, k)
+    dw = p["depthwise_conv"]["weight"].float()             # (C, 1, k)
     h = F.conv1d(h.transpose(1, 2), dw, p["depthwise_conv"]["bias"],
                  padding=(dw.shape[-1] - 1) // 2, groups=dw.shape[0])
     h = h.transpose(1, 2)
@@ -55,8 +57,8 @@ def conv_module(p: Params, x: torch.Tensor, eps: float = 1e-5
     h = (h - bn["running_mean"]) * torch.rsqrt(bn["running_var"] + eps)
     h = h * bn["weight"] + bn["bias"]
     h = h * torch.sigmoid(h)
-    return linear({"weight": p["pointwise_conv2"]["weight"][:, :, 0],
-                   "bias": p["pointwise_conv2"]["bias"]}, h)
+    w2 = p["pointwise_conv2"]["weight"][:, :, 0].float()
+    return torch.matmul(h, w2.t()) + p["pointwise_conv2"]["bias"]
 
 
 def rel_position_attention(

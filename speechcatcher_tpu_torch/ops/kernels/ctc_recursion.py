@@ -28,7 +28,14 @@ Both routes check the operands alike, once per input signature: the plan
 does every check and holds the launch's integers in a ``ctypes.Structure``,
 cached under the signature. On a CUDA tensor a call is then one dict lookup,
 the ``data_ptr()``s, one ``torch.empty``, the raw current stream and one
-foreign call; on a CPU tensor it runs the ``*_plain`` twin. float32 only.
+foreign call; on a CPU tensor it runs the ``*_plain`` twin.
+
+The log-prob rows ``xn`` and ``xb`` come in the ring's dtype, float32 or
+bfloat16 (both alike; any other dtype, or a mix, is refused); ``phi``,
+``r_src`` and the result are float32. The kernel widens bfloat16 rows where
+it stages them, which is exact: the result on bfloat16 rows equals, to the
+last bit, the result on the same rows widened beforehand. The plain twins
+widen with ``.float()``.
 
 The kernel's scan adds the same float32 terms in another order than the
 frame-by-frame plain version: they agree within ``1e-4 + 1e-5 * |ref|``
@@ -64,7 +71,7 @@ class _CtcArgs(ctypes.Structure):
         + [(f"src_s{d}", ctypes.c_longlong) for d in "sbk"]
         + [(name, ctypes.c_int)
            for name in ("s_dim", "beam", "t_cap", "olen_bytes", "enc_bytes",
-                        "vec")])
+                        "vec", "row_bytes")])
 
 
 def _lse2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,14 +80,25 @@ def _lse2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mx + torch.log1p(torch.exp(torch.clamp(mn - mx, min=-30.0)))
 
 
+_ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_common(name: str, rows: dict, lengths: dict, s_dim: int,
-                  t_cap: int, length_dtypes: dict) -> None:
-    """The checks both forms share: float32 rows, per-stream vectors of the
-    expected shape and dtype, contiguous; one device; 1 <= T <= MAX_T."""
+                  t_cap: int, length_dtypes: dict) -> int:
+    """The checks both forms share: xn and xb of one dtype, float32 or
+    bfloat16, every other row float32; per-stream vectors of the expected
+    shape and dtype, contiguous; one device; 1 <= T <= MAX_T. Returns the
+    log-prob rows' element size."""
+    xn, xb = rows["xn"], rows["xb"]
+    if xn.dtype not in _ROW_DTYPES:
+        raise TypeError(f"{name}: xn and xb must be float32 or bfloat16, "
+                        f"xn is {xn.dtype}")
+    if xb.dtype != xn.dtype:
+        raise TypeError(f"{name}: xn and xb must share one dtype, got "
+                        f"{xn.dtype} and {xb.dtype}")
     for what, a in rows.items():
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 operands only, {what} is "
-                            f"{a.dtype}")
+        if what not in ("xn", "xb") and a.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} must be float32, got {a.dtype}")
     for what, a in lengths.items():
         if a.shape != (s_dim,):
             raise ValueError(f"{name}: {what} must be ({s_dim},), got "
@@ -94,6 +112,7 @@ def _check_common(name: str, rows: dict, lengths: dict, s_dim: int,
     _plan.check_devices(name, *rows.values(), *lengths.values())
     if not 1 <= t_cap <= MAX_T:
         raise ValueError(f"{name}: 1 to {MAX_T} frames, got T={t_cap}")
+    return xn.element_size()
 
 
 def _reference_plan(xn, xb, phi_shift, start, end, olen0) -> _CtcArgs:
@@ -105,7 +124,7 @@ def _reference_plan(xn, xb, phi_shift, start, end, olen0) -> _CtcArgs:
                          f"{tuple(phi_shift.shape)}")
     t_cap, n = xn.shape
     rows = {"xn": xn, "xb": xb, "phi_shift": phi_shift}
-    _check_common(
+    row_bytes = _check_common(
         name, rows, {"start": start, "end": end, "olen0": olen0}, n, t_cap,
         {"start": (torch.int32,), "end": (torch.int32,),
          "olen0": (torch.float32,)})
@@ -113,7 +132,7 @@ def _reference_plan(xn, xb, phi_shift, start, end, olen0) -> _CtcArgs:
     for a in rows.values():
         s_t, s_n = _plan.strides(a)
         st += [s_n, 0, s_t]
-    return _CtcArgs(*st, 0, 0, 0, n, 1, t_cap, 0, 0, 0)
+    return _CtcArgs(*st, 0, 0, 0, n, 1, t_cap, 0, 0, 0, row_bytes)
 
 
 def _streams_plan(xn, xb, phi, olen, enc_len, r_src) -> _CtcArgs:
@@ -132,7 +151,7 @@ def _streams_plan(xn, xb, phi, olen, enc_len, r_src) -> _CtcArgs:
         raise ValueError(f"{name}: r_src must be ({s_dim}, {beam}, 2, "
                          f"{t_cap}), got {tuple(r_src.shape)}")
     rows = {"xn": xn, "xb": xb, "phi": phi, "r_src": r_src}
-    _check_common(
+    row_bytes = _check_common(
         name, rows, {"olen": olen, "enc_len": enc_len}, s_dim, t_cap,
         {"olen": _LENGTH_DTYPES, "enc_len": _LENGTH_DTYPES})
     # The kernel steps every row along time at stride 1 (a row expanded
@@ -142,13 +161,17 @@ def _streams_plan(xn, xb, phi, olen, enc_len, r_src) -> _CtcArgs:
             raise ValueError(f"{name}: {what}'s last dim must be contiguous "
                              f"(strides {a.stride()})")
     st = {what: _plan.strides(a) for what, a in rows.items()}
-    # 16-byte loads need every row to start on a multiple of four floats
-    # (the C entry point checks the base pointers and else goes scalar).
-    vec = t_cap % 4 == 0 and all(
-        x % 4 == 0 for what in ("xn", "xb", "phi") for x in st[what][:2])
+    # 16-byte loads need every row to start on a multiple of 16 bytes: four
+    # float32, eight bfloat16 (the C entry point checks the base pointers
+    # and else goes scalar).
+    per_load = 16 // row_bytes
+    vec = t_cap % per_load == 0 and all(
+        x % per == 0 for what, per in (("xn", per_load), ("xb", per_load),
+                                       ("phi", 4)) for x in st[what][:2])
     return _CtcArgs(*st["xn"][:2], 1, *st["xb"][:2], 1, *st["phi"][:2], 1,
                     *st["r_src"][:3], s_dim, beam, t_cap,
-                    olen.element_size(), enc_len.element_size(), int(vec))
+                    olen.element_size(), enc_len.element_size(), int(vec),
+                    row_bytes)
 
 
 def ctc_forward_recursion_plain(xn, xb, phi_shift, start, end, olen0):
@@ -186,6 +209,7 @@ def ctc_forward_recursion_streams_plain(xn, xb, phi, olen, enc_len, r_src):
     ``ctc_forward_recursion_plain``."""
     s_dim, beam, t_cap = xn.shape
     n = s_dim * beam
+    xn, xb = xn.float(), xb.float()
     olen = olen.long()
     end = enc_len.long()
     phi_shift = torch.cat(
@@ -218,8 +242,9 @@ def ctc_forward_recursion(xn: torch.Tensor, xb: torch.Tensor,
                           phi_shift: torch.Tensor, start: torch.Tensor,
                           end: torch.Tensor, olen0: torch.Tensor
                           ) -> torch.Tensor:
-    """The reference form. xn, xb, phi_shift (T, N) float32, any strides
-    (phi_shift[t] is phi[t-1], LOGZERO at t = 0); start, end (N,) int32;
+    """The reference form. xn, xb (T, N) float32 or bfloat16 (both alike)
+    and phi_shift (T, N) float32, any strides (phi_shift[t] is phi[t-1],
+    LOGZERO at t = 0); start, end (N,) int32;
     olen0 (N,) float32, 1.0 where the hypothesis has no token yet -> r
     (2, T, N) float32 [r_n, r_b], LOGZERO outside [start, end)."""
     key = _signature(xn, xb, phi_shift, start, end, olen0)
@@ -248,9 +273,10 @@ def ctc_forward_recursion_streams(xn: torch.Tensor, xb: torch.Tensor,
                                   phi: torch.Tensor, olen: torch.Tensor,
                                   enc_len: torch.Tensor, r_src: torch.Tensor
                                   ) -> torch.Tensor:
-    """The main path's form, for S streams of B hypotheses. xn, phi
-    (S, B, T) and xb (S, 1, T) or (S, B, T) float32 with inner stride 1
-    (phi unshifted); olen, enc_len (S,) int32 or int64: the recursion runs
+    """The main path's form, for S streams of B hypotheses. xn (S, B, T)
+    and xb (S, 1, T) or (S, B, T) in the ring's dtype, float32 or bfloat16
+    (both alike), phi (S, B, T) float32, all with inner stride 1 (phi
+    unshifted); olen, enc_len (S,) int32 or int64: the recursion runs
     over [min(max(olen, 1), T), enc_len), with r_n[0] = x_n[0] where olen is
     0; r_src (S, B, 2, T) float32 -> a new contiguous (S, B, 2, T) float32
     r, equal to r_src from enc_len on."""

@@ -6,12 +6,19 @@ kept from the reference: LayerNorm eps 1e-12; FFN Linear→ReLU→Linear;
 attention fills masked scores with the float32 minimum before the softmax
 and zeroes masked probabilities after it, so a fully masked row outputs 0;
 sinusoidal PE scaled by sqrt(d).
+
+Precision modes: ``cast_params`` stores the matmul weights in bfloat16 and
+``quantize_params_int8`` stores linear weights as int8 beside a float32
+per-output-channel ``weight_scale``. ``linear`` then rounds its input to
+bfloat16, accumulates the products in float32 and returns float32 in every
+mode, so normalisation and softmax stay float32. Where the JAX package
+splits on its backend, the port follows the non-TPU branch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,10 +32,124 @@ Params = Dict[str, torch.Tensor]
 
 LAYERNORM_EPS = 1e-12
 
+# Capability, tested once at import: this PyTorch has the ``aten::mm``
+# overload that takes bfloat16 operands and returns a float32 product
+# (``torch.mm(a, b, out_dtype=torch.float32)``; CUDA tensors only).
+MM_OUT_DTYPE = "dtype" in torch.ops.aten.mm.overloads()
+
+
+def gemm_route(device: torch.device) -> str:
+    """How ``linear`` multiplies bfloat16 operands into float32 on `device`:
+    "mm_out_dtype" (one library GEMM on the tensor cores, float32
+    accumulator and result) or "widened" (both rounded operands widened to
+    float32 and multiplied there; products of two bfloat16 are exact in
+    float32, so the two differ only in the order of the sum)."""
+    dev = torch.device(device)
+    return "mm_out_dtype" if dev.type == "cuda" and MM_OUT_DTYPE else "widened"
+
+
+def _walk(fn, tree, path: str = ""):
+    """Apply fn(path, leaf) to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, f"{path}/{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(fn, v, f"{path}/{i}")
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def cast_params(params, dtype: torch.dtype = torch.bfloat16):
+    """Cast matmul weights to bfloat16 for mixed-precision inference; norms,
+    biases, position biases and the token embedding stay float32. Caught:
+    every float32 leaf of two or more dims named ``weight`` outside a norm,
+    so the linears, the conv2d subsampling kernels and the conformer's
+    pointwise and depthwise conv weights. Works on a layer-stacked tree and
+    on the port's per-layer lists alike; returns a new tree."""
+    def cast(path, x):
+        if (x.dtype == torch.float32 and x.dim() >= 2 and "weight" in path
+                and "norm" not in path
+                and not path.endswith("embed/weight")):
+            return x.to(dtype)
+        return x
+
+    return _walk(cast, params)
+
+
+def quantize_params_int8(params,
+                         scope: Optional[Sequence[str]] = ("encoder",)):
+    """Weight-only int8 quantisation of linear weights, symmetric and per
+    output channel: weight (..., out, in) → int8 beside a float32
+    ``weight_scale`` (..., out), ``s = max(max|w| / 127, 1e-12)``,
+    ``q = clip(round(w / s), -127, 127)``.
+
+    Eligible: dicts holding a 2-D or 3-D (layer-stacked) float ``weight``
+    whose path avoids norm, embed and conv. `scope` keeps the quantisation to
+    paths that contain one of its entries (default: the encoder; None for
+    every eligible linear). The tree keeps the int8 leaves; ``linear``
+    multiplies them as exact bfloat16 casts and scales the float32 sum."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            w = node.get("weight")
+            eligible = (
+                isinstance(w, torch.Tensor) and w.dim() in (2, 3)
+                and w.dtype in (torch.float32, torch.bfloat16)
+                and not any(t in path for t in ("norm", "embed", "conv"))
+                and (scope is None or any(s in path for s in scope))
+            )
+            out = {}
+            for k, v in node.items():
+                if k == "weight" and eligible:
+                    wf = v.float()
+                    s = (wf.abs().amax(dim=-1) / 127.0).clamp(min=1e-12)
+                    out["weight"] = torch.clamp(
+                        torch.round(wf / s[..., None]), -127, 127
+                    ).to(torch.int8)
+                    out["weight_scale"] = s
+                else:
+                    out[k] = walk(v, f"{path}/{k}")
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, f"{path}/{i}")
+                              for i, v in enumerate(node))
+        return node
+
+    return walk(params, "")
+
+
+def dense_weight(p: Params) -> torch.Tensor:
+    """A torch-layout (out, in) weight as a dense float32 tensor: bfloat16
+    widened, int8 dequantised by its per-channel scale."""
+    w = p["weight"]
+    if w.dtype == torch.int8:
+        return w.float() * p["weight_scale"][:, None]
+    return w.float()
+
+
+def _matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., in) · (out, in)ᵀ for bfloat16 operands, accumulated in and
+    returned as float32 (torch.matmul of two bfloat16 tensors would round
+    the result to bfloat16)."""
+    if gemm_route(x.device) == "mm_out_dtype":
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                     out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return torch.matmul(x.float(), w.float().t())
+
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ W^T + b with a torch-layout (out, in) float32 weight."""
-    y = torch.matmul(x, p["weight"].t())
+    """x @ W^T + b with a torch-layout (out, in) weight; float32 result.
+
+    A bfloat16 weight (cast_params) rounds the input to bfloat16; an int8
+    weight (quantize_params_int8) multiplies as its exact bfloat16 cast and
+    the float32 sum takes the per-output-channel scale. Products accumulate
+    in float32 on every path."""
+    w = p["weight"]
+    if w.dtype == torch.int8:
+        y = _matmul_bf16(x.bfloat16(), w.bfloat16()) * p["weight_scale"]
+    elif w.dtype == torch.bfloat16:
+        y = _matmul_bf16(x.bfloat16(), w)
+    else:
+        y = torch.matmul(x.float(), w.t())
     if "bias" in p:
         y = y + p["bias"]
     return y

@@ -21,6 +21,10 @@ from speechcatcher_tpu_torch.decode.beam_search import (
 )
 from speechcatcher_tpu_torch.device import resolve_device
 from speechcatcher_tpu_torch.models.asr_model import ASRModel
+from speechcatcher_tpu_torch.ops.layers import (
+    cast_params,
+    quantize_params_int8,
+)
 
 Result = Tuple[str, List[str], List[int], List[int]]
 
@@ -53,9 +57,20 @@ class Speech2TextStreaming:
     """Streaming recognition session over one model.
 
     The session runs on ``device`` (the card by default; asking for CUDA
-    where there is none raises). A given ``model`` must lie on that device.
-    Only ``dtype="float32"`` runs in the port so far.
+    where there is none raises). The model comes from ``model_dir``, an
+    unpacked ESPnet model directory loaded onto that device, or is given as
+    ``model``, which must lie on it.
+
+    ``dtype`` is the precision mode. "float32" leaves the model as it is.
+    "bfloat16" (and "float16", which maps to it) stores the matmul weights
+    and the decoder's activation cache in bfloat16; "int8" further stores
+    the encoder's linear weights as int8 with a per-channel scale, and
+    "int8-all" every eligible linear's. These modes change the ``model``
+    they are given: its ``params`` are replaced by the cast (and quantised)
+    tree and its ``cfg`` gets ``cache_dtype="bfloat16"``.
     """
+
+    DTYPES = ("float32", "float16", "bfloat16", "int8", "int8-all")
 
     def __init__(
         self,
@@ -69,22 +84,24 @@ class Speech2TextStreaming:
         penalty: float = 0.0,
         coverage_weight: float = 0.0,
     ):
-        if dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={dtype!r}: the port runs float32 only so far; the "
-                "precision modes are a later slice (see ROADMAP.md)"
-            )
+        if dtype not in self.DTYPES:
+            raise ValueError(f"dtype must be one of {self.DTYPES}, got "
+                             f"{dtype!r}")
         dev = resolve_device(device)
         if model is None:
             if model_dir is None:
                 raise ValueError("need model_dir or model")
-            raise NotImplementedError(
-                "loading a model directory is a later slice of the port "
-                "(see ROADMAP.md); pass model=ASRModel.random_init(...)"
-            )
+            model = ASRModel.from_directory(Path(model_dir), device=dev)
         if model.device.type != dev.type:
             raise ValueError(f"model lies on {model.device}, session asked "
                              f"for {dev}")
+        if dtype != "float32":
+            model.params = cast_params(model.params)
+            model.cfg = model.cfg.replace(cache_dtype="bfloat16")
+            if dtype == "int8":
+                model.params = quantize_params_int8(model.params)
+            elif dtype == "int8-all":
+                model.params = quantize_params_int8(model.params, scope=None)
         self.model = model
         self.cfg = model.cfg
         self.beam_size = beam_size
@@ -221,3 +238,18 @@ class Speech2TextStreaming:
     @property
     def n_best_hypotheses(self) -> int:
         return self.beam_size
+
+
+def create_streaming_interface(
+    model_dir: Union[str, Path],
+    beam_size: int = 5,
+    ctc_weight: float = 0.3,
+    device: Union[str, torch.device] = "cuda",
+) -> Speech2TextStreaming:
+    """A float32 session over the model directory, on the card by default."""
+    return Speech2TextStreaming(
+        model_dir=model_dir,
+        beam_size=beam_size,
+        ctc_weight=ctc_weight,
+        device=device,
+    )

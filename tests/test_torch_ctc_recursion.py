@@ -1,8 +1,9 @@
 """Kernel B of the PyTorch port on the CPU: the reference form against the
 JAX package's Pallas kernel in interpret mode, the main path's form against
 the reference form, ``ctc_advance_state`` against the JAX function, the
-plans of both forms with their refusals, and the algebra of the CUDA
-kernel's scan (a plain float32 model of it, kept here for the tests alone)
+plans of both forms with their refusals, bfloat16 log-prob rows in both
+forms (against Pallas on the same rows, and exactly against the float32 form
+on the widened rows), and the algebra of the CUDA kernel's scan (a plain float32 model of it, kept here for the tests alone)
 against the frame-by-frame plain version."""
 
 import jax.numpy as jnp
@@ -89,10 +90,11 @@ def test_reference_form_matches_pallas(case):
 
 
 def _stream_operands(seed: int, s_dim: int = 3, beam: int = 4,
-                     t_cap: int = 40, vocab: int = 6):
+                     t_cap: int = 40, vocab: int = 6,
+                     ring_dtype: torch.dtype = torch.float32):
     """The main path's operands as ctc_advance_state makes them."""
     rng = np.random.default_rng(seed)
-    ring = t(_logp(rng, s_dim, vocab, t_cap))
+    ring = t(_logp(rng, s_dim, vocab, t_cap)).to(ring_dtype)
     token = t(rng.integers(1, vocab, size=(s_dim, beam)))
     xn = ring[torch.arange(s_dim)[:, None], token, :]
     xb = ring[:, None, 0, :]
@@ -153,26 +155,129 @@ def test_streams_twin_is_the_cpu_route():
                        ctc_forward_recursion_streams_plain(*args))
 
 
-def test_ctc_advance_state_matches_jax_over_steps():
+# ---------------------------------------------------------------------------
+# bfloat16 log-prob rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", _CASES)
+def test_reference_form_bfloat16_rows(case):
+    """bfloat16 xn and xb, float32 phi_shift: against the Pallas kernel on
+    the same bfloat16 rows in interpret mode (1e-5 absolute, as in float32:
+    both widen first), and equal to the last bit to the float32 form on the
+    rows widened beforehand."""
+    args = _reference_case(case)
+    targs = [t(a) for a in args]
+    targs[:2] = [a.bfloat16() for a in targs[:2]]
+    if case == "strided":
+        targs[:3] = [a.t().contiguous().t() for a in targs[:3]]
+    jargs = [jnp.asarray(a) for a in args]
+    jargs[:2] = [a.astype(jnp.bfloat16) for a in jargs[:2]]
+    ref = jax_ctc_forward_recursion(*jargs, interpret=True)
+    got = ctc_forward_recursion(*targs)
+    assert got.dtype == torch.float32 and got.shape == (2, T_CAP, LANES)
+    np.testing.assert_allclose(n(got), n(ref), rtol=0, atol=1e-5)
+    widened = ctc_forward_recursion(targs[0].float(), targs[1].float(),
+                                    *targs[2:])
+    assert torch.equal(got, widened)
+    # The rows really were rounded: the float32 rows give another result.
+    assert not torch.equal(got, ctc_forward_recursion(*(t(a) for a in args)))
+
+
+@pytest.mark.parametrize("xb_form", ["row", "expanded", "contiguous"])
+def test_streams_form_bfloat16_rows(xb_form):
+    """Rows gathered from a bfloat16 ring, the blank row a view of it: equal
+    to the last bit to the float32 form on the widened rows, and to the
+    reference form on bfloat16 rows."""
+    xn, xb, phi, olen, enc_len, r_src = _stream_operands(
+        1, ring_dtype=torch.bfloat16)
+    s_dim, beam, t_cap = xn.shape
+    assert xn.dtype == xb.dtype == torch.bfloat16
+    if xb_form == "expanded":
+        xb = xb.expand(s_dim, beam, t_cap)
+    elif xb_form == "contiguous":
+        xb = xb.expand(s_dim, beam, t_cap).contiguous()
+    got = ctc_forward_recursion_streams(xn, xb, phi, olen, enc_len, r_src)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, ctc_forward_recursion_streams(
+        xn.float(), xb.float(), phi, olen, enc_len, r_src))
+    assert torch.equal(got, ctc_forward_recursion_streams_plain(
+        xn, xb, phi, olen, enc_len, r_src))
+
+    n_hyp = s_dim * beam
+    phi_shift = torch.cat([torch.full((s_dim, beam, 1), LOGZERO),
+                           phi[:, :, :-1]], dim=2)
+
+    def to_tn(a):
+        return a.expand(s_dim, beam, t_cap).reshape(n_hyp, t_cap).t()
+
+    r_tn = ctc_forward_recursion(
+        to_tn(xn), to_tn(xb), to_tn(phi_shift),
+        olen.clamp(min=1, max=t_cap).repeat_interleave(beam).to(torch.int32),
+        enc_len.repeat_interleave(beam).to(torch.int32),
+        (olen == 0).repeat_interleave(beam).float())
+    ref = r_tn.permute(2, 0, 1).reshape(s_dim, beam, 2, t_cap).clone()
+    for s in range(s_dim):
+        ref[s, :, :, int(enc_len[s]):] = r_src[s, :, :, int(enc_len[s]):]
+    assert torch.equal(got, ref)
+
+
+def test_bfloat16_plans():
+    """The row dtype is part of the plan: two bytes a value, and 16-byte
+    loads only when every log-prob row starts on eight values."""
+    s_dim, beam, vocab = 3, 5, 7
+    olen = torch.zeros(s_dim, dtype=torch.int64)
+
+    def plan(t_cap, dtype):
+        ring = torch.zeros(s_dim, vocab, t_cap, dtype=dtype)
+        xn = torch.zeros(s_dim, beam, t_cap, dtype=dtype)
+        return _streams_plan(xn, ring[:, None, 0, :],
+                             torch.zeros(s_dim, beam, t_cap), olen,
+                             _i32(s_dim), torch.zeros(s_dim, beam, 2, t_cap))
+
+    assert (plan(16, torch.float32).row_bytes,
+            plan(16, torch.bfloat16).row_bytes) == (4, 2)
+    assert plan(16, torch.bfloat16).vec == 1
+    # T = 12: rows start on four values, not on eight.
+    assert (plan(12, torch.float32).vec, plan(12, torch.bfloat16).vec) == (1, 0)
+    x = torch.zeros(12, 5, dtype=torch.bfloat16)
+    p = _reference_plan(x, x, torch.zeros(12, 5), _i32(5), _i32(5),
+                        torch.zeros(5))
+    assert (p.row_bytes, p.vec, p.xn_ss, p.xn_st) == (2, 0, 1, 5)
+    # Its own plan-cache entry beside the float32 one.
+    mod._STREAMS_PLANS.clear()
+    for dtype in (torch.float32, torch.bfloat16, torch.bfloat16):
+        ctc_forward_recursion_streams(
+            *_stream_operands(3, ring_dtype=dtype))
+    assert sorted(p.args.row_bytes for p in mod._STREAMS_PLANS.values()) \
+        == [2, 4]
+
+
+@pytest.mark.parametrize("ring_dtype", ["float32", "bfloat16"])
+def test_ctc_advance_state_matches_jax_over_steps(ring_dtype):
     """Three streams with uneven enc_len and olen through extend, score and
     advance of both packages (JAX on the CPU scans the recursion, the port
-    runs it frame by frame: equal up to float reassociation)."""
+    runs it frame by frame: equal up to float reassociation), with the
+    log-prob ring in float32 and in bfloat16 (both round alike on append)."""
     import speechcatcher_tpu.decode.ctc_prefix as J
     import speechcatcher_tpu_torch.decode.ctc_prefix as P
 
     s_dim, beam, t_cap, vocab, k = 3, 3, 64, 16, 5
     blank, eos = 0, vocab - 1
     rng = np.random.default_rng(14)
-    js = J.init_ctc_state(s_dim, beam, t_cap, vocab)
-    ps = P.init_ctc_state(s_dim, beam, t_cap, vocab, torch.device("cpu"))
+    js = J.init_ctc_state(s_dim, beam, t_cap, vocab,
+                          ring_dtype=getattr(jnp, ring_dtype))
+    ps = P.init_ctc_state(s_dim, beam, t_cap, vocab, torch.device("cpu"),
+                          ring_dtype=getattr(torch, ring_dtype))
     last = np.full((s_dim, beam), eos, np.int32)
     olen = np.array([0, 2, 1], np.int32)
 
     def compare(a, b, **tol):
+        assert str(a.logp.dtype) == "torch." + str(b.logp.dtype)
         for name in ("logp", "enc_len", "r", "s"):
-            np.testing.assert_allclose(n(getattr(a, name)),
-                                       n(getattr(b, name)), err_msg=name,
-                                       **tol)
+            np.testing.assert_allclose(
+                n(getattr(a, name).float()),
+                np.asarray(jnp.asarray(getattr(b, name), jnp.float32)),
+                err_msg=name, **tol)
 
     appends = {0: [7, 4, 5], 2: [3, 6, 0], 3: [5, 0, 9]}
     for step in range(5):
@@ -212,15 +317,20 @@ def test_ctc_advance_state_matches_jax_over_steps():
         last, olen = chosen, olen + 1
 
 
-def test_ctc_advance_state_hands_the_kernel_the_scorer_layout(monkeypatch):
-    """One call, operands as the scorer holds them: xn gathered time-minor,
-    the blank row a view of the ring (never expanded), phi unshifted, olen
-    and enc_len per stream in the caller's integer types."""
+@pytest.mark.parametrize("ring_dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ctc_advance_state_hands_the_kernel_the_scorer_layout(monkeypatch,
+                                                              ring_dtype):
+    """One call, operands as the scorer holds them: xn gathered time-minor
+    in the ring's dtype (no widened copy), the blank row a view of the ring
+    (never expanded), phi unshifted, olen and enc_len per stream in the
+    caller's integer types."""
     import speechcatcher_tpu_torch.decode.ctc_prefix as P
 
     s_dim, beam, t_cap, vocab, k = 2, 3, 24, 8, 4
     rng = np.random.default_rng(5)
-    state = P.init_ctc_state(s_dim, beam, t_cap, vocab, torch.device("cpu"))
+    state = P.init_ctc_state(s_dim, beam, t_cap, vocab, torch.device("cpu"),
+                             ring_dtype=ring_dtype)
     new = t(_logp(rng, s_dim, 10, vocab))
     state = P.ctc_extend(state, new, t(np.array([10, 6], np.int32)))
     cand = t(np.stack([np.stack([rng.permutation(np.arange(1, vocab))[:k]
@@ -242,6 +352,8 @@ def test_ctc_advance_state_hands_the_kernel_the_scorer_layout(monkeypatch):
     (args,) = calls
     xn, xb, phi, got_olen, enc_len, r_src = args
     assert xn.shape == phi.shape == (s_dim, beam, t_cap)
+    assert xn.dtype == xb.dtype == ring_dtype
+    assert phi.dtype == r_src.dtype == out.r.dtype == torch.float32
     assert xn.stride(-1) == phi.stride(-1) == 1
     assert xb.shape == (s_dim, 1, t_cap)
     assert xb.data_ptr() == state.logp.data_ptr()      # a view of the ring
@@ -398,6 +510,28 @@ _REFUSALS = {
     "streams_xb_bfloat16": ("streams",
                             _swap(_streams_ok, 1, lambda a: a.bfloat16()),
                             TypeError),
+    # Log-prob rows: float32 or bfloat16, both alike.
+    "ref_rows_float16": ("ref", lambda: [a.half() for a in _ref_ok()[:2]]
+                         + _ref_ok()[2:], TypeError),
+    "ref_xn_bfloat16_alone": ("ref", _swap(_ref_ok, 0,
+                                           lambda a: a.bfloat16()),
+                              TypeError),
+    "ref_xb_bfloat16_alone": ("ref", _swap(_ref_ok, 1,
+                                           lambda a: a.bfloat16()),
+                              TypeError),
+    "streams_rows_float16": ("streams",
+                             lambda: [a.half() for a in _streams_ok()[:2]]
+                             + _streams_ok()[2:], TypeError),
+    "streams_xn_bfloat16_alone": ("streams",
+                                  _swap(_streams_ok, 0,
+                                        lambda a: a.bfloat16()),
+                                  TypeError),
+    "streams_phi_bfloat16": ("streams",
+                             _swap(_streams_ok, 2, lambda a: a.bfloat16()),
+                             TypeError),
+    "streams_r_src_bfloat16": ("streams",
+                               _swap(_streams_ok, 5, lambda a: a.bfloat16()),
+                               TypeError),
     "streams_r_src_float16": ("streams",
                               _swap(_streams_ok, 5, lambda a: a.half()),
                               TypeError),
@@ -485,6 +619,9 @@ def test_accepted_operands_pass_the_plans():
     """The refusal cases' starting points are themselves accepted."""
     _reference_plan(*_ref_ok())
     _streams_plan(*_streams_ok())
+    for ok, plan in ((_ref_ok, _reference_plan), (_streams_ok, _streams_plan)):
+        args = ok()
+        plan(*(a.bfloat16() for a in args[:2]), *args[2:])
     # A ring of one frame is never stepped along time: any stride there.
     one = [a[..., :1] for a in _streams_ok()[:3]]
     p = _streams_plan(*one, *_streams_ok()[3:5],

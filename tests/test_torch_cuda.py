@@ -7,7 +7,8 @@ The tolerances are those of chip_smoke.py: A and E within 1e-5; B within
 1e-4 + 1e-5·|ref| (its scan adds the same float32 terms in another order
 than the plain version's frame-by-frame loop: about ten ulps where r reaches
 a few thousand) and equal to the last bit on every frame outside
-[start, end); C and D exact.
+[start, end), and B on bfloat16 rows equal to the last bit to B on the same
+rows widened to float32; C and D exact.
 """
 
 import numpy as np
@@ -87,9 +88,11 @@ def _reference_operands(dev, t_cap, n, seed=0):
             for a in (xn, xb, phi, start, end, olen0)]
 
 
-def _stream_operands(dev, t_cap, s_dim, beam, seed=0):
-    """The main path's form: xn gathered from a ring, the blank row as an
-    (S, 1, T) view, phi unshifted, int64 olen, int32 enc_len, r_src."""
+def _stream_operands(dev, t_cap, s_dim, beam, seed=0,
+                     ring_dtype=torch.float32):
+    """The main path's form: xn gathered from a ring of `ring_dtype`, the
+    blank row as an (S, 1, T) view, phi unshifted, int64 olen, int32
+    enc_len, r_src."""
     rng = np.random.default_rng(seed)
     vocab = 6
 
@@ -97,7 +100,7 @@ def _stream_operands(dev, t_cap, s_dim, beam, seed=0):
         return torch.from_numpy(np.log(rng.random(
             shape, dtype=np.float32) + 1e-3)).to(dev)
 
-    ring = logp(s_dim, vocab, t_cap)
+    ring = logp(s_dim, vocab, t_cap).to(ring_dtype)
     token = torch.from_numpy(rng.integers(1, vocab, size=(s_dim, beam))
                              ).to(dev)
     xn = ring[torch.arange(s_dim, device=dev)[:, None], token, :]
@@ -163,6 +166,54 @@ def test_ctc_recursion_forms(dev, form, s_dim, beam, t_cap):
     _recursion_close(got, ref, filled)
 
 
+@pytest.mark.parametrize("t_cap", [200, 768, 203, 204])
+@pytest.mark.parametrize("s_dim,beam", [(1, 5), (8, 5), (32, 5), (37, 1)])
+@pytest.mark.parametrize("form", ["reference", "reference_time_minor",
+                                  "streams", "streams_expanded",
+                                  "streams_offset"])
+def test_ctc_recursion_bfloat16_rows(dev, form, s_dim, beam, t_cap):
+    """B on bfloat16 log-prob rows (gathered from a bfloat16 ring, the blank
+    row a view of it) equals B on the same rows widened to float32 to the
+    last bit, and is within the tolerance of the plain version. T = 768 and
+    200 take eight values a 16-byte load; T = 204 (rows start on four
+    values, not eight), T = 203 and a row that starts 2 bytes past a
+    16-byte boundary take the scalar loads."""
+    n = s_dim * beam
+    t_idx = torch.arange(t_cap, device=dev)
+    before = ctc_forward_recursion.launches
+    if form.startswith("reference"):
+        args = _reference_operands(dev, t_cap, n, seed=n + t_cap)
+        args[:2] = [a.bfloat16() for a in args[:2]]
+        if form == "reference_time_minor":
+            args[:3] = [a.t().contiguous().t() for a in args[:3]]
+        kernel, plain = ctc_forward_recursion, ctc_forward_recursion_plain
+        filled = ((t_idx[:, None] < args[3][None])
+                  | (t_idx[:, None] >= args[4][None]))[None]
+    else:
+        args = _stream_operands(dev, t_cap, s_dim, beam, seed=n + t_cap,
+                                ring_dtype=torch.bfloat16)
+        if form == "streams_expanded":
+            args[1] = args[1].expand(s_dim, beam, t_cap)
+        elif form == "streams_offset":
+            flat = torch.zeros(args[0].numel() + 1, device=dev,
+                               dtype=torch.bfloat16)
+            flat[1:] = args[0].reshape(-1)
+            args[0] = flat[1:].reshape(s_dim, beam, t_cap)
+        kernel = ctc_forward_recursion_streams
+        plain = ctc_forward_recursion_streams_plain
+        begin = args[3].clamp(min=1, max=t_cap)
+        filled = ((t_idx[None, :] < begin[:, None])
+                  | (t_idx[None, :] >= args[4][:, None]))[:, None, None, :]
+    assert args[0].dtype == args[1].dtype == torch.bfloat16
+    got = kernel(*args)
+    widened = kernel(args[0].float(), args[1].float(), *args[2:])
+    assert ctc_forward_recursion.launches == before + 2
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    torch.cuda.synchronize()
+    assert torch.equal(got, widened)
+    _recursion_close(got, plain(*args), filled)
+
+
 @pytest.mark.parametrize("form", ["reference", "streams"])
 def test_ctc_recursion_refuses_on_the_card(dev, form):
     """No silent fallback: what the plan refuses raises on CUDA tensors."""
@@ -172,6 +223,10 @@ def test_ctc_recursion_refuses_on_the_card(dev, form):
             ctc_forward_recursion(*args[:3], args[3].long(), *args[4:])
         with pytest.raises(TypeError):      # float64 xn
             ctc_forward_recursion(args[0].double(), *args[1:])
+        with pytest.raises(TypeError):      # bfloat16 xn beside float32 xb
+            ctc_forward_recursion(args[0].bfloat16(), *args[1:])
+        with pytest.raises(TypeError):      # float16 rows
+            ctc_forward_recursion(args[0].half(), args[1].half(), *args[2:])
         with pytest.raises(ValueError):     # mixed devices
             ctc_forward_recursion(*args[:5], args[5].cpu())
     else:
@@ -183,6 +238,9 @@ def test_ctc_recursion_refuses_on_the_card(dev, form):
             ctc_forward_recursion_streams(
                 *args[:2], torch.zeros((2, 3, 1), device=dev).expand(2, 3, 16),
                 *args[3:])
+        with pytest.raises(TypeError):      # bfloat16 phi
+            ctc_forward_recursion_streams(*args[:2], args[2].bfloat16(),
+                                          *args[3:])
         with pytest.raises(TypeError):      # float olen
             ctc_forward_recursion_streams(*args[:3], args[3].float(),
                                           *args[4:])

@@ -80,21 +80,22 @@ class Script:
         self._record(key, self.eng.finalize(self.slot[key], self._take(key)))
 
 
-def staggered_churn(sc: Script):
+def staggered_churn(sc: Script, wire: str = "float32"):
     """Three streams with staggered starts; batched finals free slots that
-    two later streams reuse; one oversize tail; one single-slot final."""
-    sc.start("a", _utt(3, 1500, 11))
+    two later streams reuse; one oversize tail; one single-slot final.
+    Every stream comes over `wire`."""
+    sc.start("a", _utt(3, 1500, 11), wire)
     sc.tick("a")
-    sc.start("b", _utt(2, 4000, 12))
+    sc.start("b", _utt(2, 4000, 12), wire)
     sc.tick("a", "b")
-    sc.start("c", _utt(5, 300, 13))
+    sc.start("c", _utt(5, 300, 13), wire)
     sc.tick("a", "b", "c")
     sc.finalize_batch("a", "b")
-    sc.start("d", _utt(3, 6000, 14))
+    sc.start("d", _utt(3, 6000, 14), wire)
     sc.tick("c", "d")
     sc.tick("c", "d")
     sc.finalize("c")  # a tail of more than one chunk
-    sc.start("e", _utt(2, 100, 15))
+    sc.start("e", _utt(2, 100, 15), wire)
     sc.tick("d", "e")
     sc.tick("e")
     sc.finalize_batch("d", "e")

@@ -99,33 +99,22 @@ def _decode(session, chunks):
     return best
 
 
-def _port_decode_with_gaps(cfg, tree, chunks):
-    """The port's CPU decode, recording best-minus-second of the global
-    top-B selection at every beam step."""
+def _port_decode_with_steps(cfg, tree, chunks, dtype="float32"):
+    """The port's CPU decode in the precision mode `dtype`: the best
+    hypothesis and, for every beam step, (index of the best candidate of
+    the global top-B selection, its lead over the second)."""
+    import chip_smoke
     import speechcatcher_tpu_torch.decode.beam_search as bs
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
 
-    gaps = []
-    topk = bs._topk_stable
-
-    def spy(x, k):
-        vals, idx = topk(x, k)
-        if x.shape[-1] == BEAM * BEAM:
-            v = vals[0]
-            v = v[v > bs.NEG_INF / 10]
-            if v.numel() >= 2:
-                gaps.append(float(v[0] - v[1]))
-        return vals, idx
-
-    bs._topk_stable = spy
-    try:
-        model = ASRModel.from_numpy(cfg, tree, device="cpu")
-        best = _decode(Speech2TextStreaming(model=model, beam_size=BEAM,
-                                            device="cpu"), chunks)
-    finally:
-        bs._topk_stable = topk
-    return best, gaps
+    model = ASRModel.from_numpy(cfg, tree, device="cpu")
+    session = Speech2TextStreaming(model=model, beam_size=BEAM, device="cpu",
+                                   dtype=dtype)
+    steps = []
+    with chip_smoke.beam_step_trace(bs, BEAM, steps):
+        best = _decode(session, chunks)
+    return best, steps
 
 
 def bless(cfg=None, fixture=FIXTURE, seeds=range(8), eos_bias=EOS_BIAS,
@@ -149,8 +138,9 @@ def bless(cfg=None, fixture=FIXTURE, seeds=range(8), eos_bias=EOS_BIAS,
         yseq, xpos, score = _decode(
             Speech2TextStreaming(model=jax_model(cfg, biased),
                                  beam_size=BEAM), chunks)
-        (p_yseq, p_xpos, p_score), gaps = _port_decode_with_gaps(
+        (p_yseq, p_xpos, p_score), steps = _port_decode_with_steps(
             cfg, biased, chunks)
+        gaps = [gap for _, gap in steps]
         same = (np.array_equal(yseq, p_yseq) and np.array_equal(xpos, p_xpos)
                 and abs(p_score - score) <= 1e-4 * max(1.0, abs(score)))
         min_gap = min(gaps) if gaps else float("inf")

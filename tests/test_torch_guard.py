@@ -1,6 +1,6 @@
 """The port stands alone: no module of speechcatcher_tpu_torch, nor
-chip_smoke.py, imports JAX or the JAX package, and the package imports with
-JAX blocked."""
+chip_smoke.py, imports JAX or the JAX package, none imports PyYAML at import
+time, and the package imports with JAX and PyYAML blocked."""
 
 import ast
 import subprocess
@@ -33,15 +33,56 @@ def test_no_jax_or_jax_package_imports():
     assert not bad, bad
 
 
+def _import_time_imports(node):
+    """Names imported when the module is imported: every import outside a
+    function body."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.Lambda)):
+            continue
+        if isinstance(child, ast.Import):
+            for alias in child.names:
+                yield alias.name
+        elif isinstance(child, ast.ImportFrom) and child.module:
+            yield child.module
+        else:
+            yield from _import_time_imports(child)
+
+
+def test_yaml_is_imported_only_where_it_is_used():
+    """A machine that runs the port may lack PyYAML: no module of the port
+    imports it at import time, only the functions that read a yaml file."""
+    files = sorted((ROOT / "speechcatcher_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"speechcatcher_tpu_torch/checkpoint.py",
+            "speechcatcher_tpu_torch/utils/zoo.py"} <= names
+    bad = [f"{f.relative_to(ROOT)}: {name}" for f in files
+           for name in _import_time_imports(ast.parse(f.read_text()))
+           if name.split(".")[0] == "yaml"]
+    assert not bad, bad
+    # The check sees an import at module level, in a class body and under
+    # a module-level `if` or `try`, and none inside a function.
+    seen = list(_import_time_imports(ast.parse(
+        "import yaml\n"
+        "try:\n    import yaml.a\nexcept ImportError:\n    pass\n"
+        "class C:\n    import yaml.b\n"
+        "def f():\n    import yaml.c\n")))
+    assert seen == ["yaml", "yaml.a", "yaml.b"]
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['speechcatcher_tpu'] = None\n"
+        "sys.modules['yaml'] = None\n"
         "import speechcatcher_tpu_torch.streaming\n"
         "import speechcatcher_tpu_torch.decode.scorers\n"
         "import speechcatcher_tpu_torch.ops.kernels._build\n"
         "import speechcatcher_tpu_torch.serve.engine\n"
+        "import speechcatcher_tpu_torch.checkpoint\n"
+        "import speechcatcher_tpu_torch.utils.zoo\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -4,7 +4,8 @@ package's on the same weights and the same audio, on the CPU.
 Every partial and final result must carry the same token ids and token
 positions; the final beam must hold the same sequences, with scores within
 rtol 1e-4 (float32 on both sides; JAX's CPU path runs the CTC recursion as
-an associative scan, the port sequentially)."""
+an associative scan, the port sequentially). The precision modes of
+``dtype=`` are in ``test_torch_precision.py``."""
 
 import copy
 
@@ -92,8 +93,3 @@ def test_session_matches_jax(cfg_name, kind, eos_commit, use_bbd, seed,
         np.testing.assert_array_equal(px, jx)
         np.testing.assert_allclose(psc, jsc, rtol=1e-4)
 
-
-def test_session_rejects_other_dtypes():
-    pm = ASRModel.random_init(tiny_config(), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Speech2TextStreaming(model=pm, dtype="bfloat16", device="cpu")
