@@ -29,6 +29,14 @@ the engine in the serving default); a model directory written from seed 0
 and loaded through ``Speech2TextStreaming(model_dir=...)``; and warm RTF and
 tick p50 of float32 and the serving default taken in turns.
 
+The app and serving layer, on a flagship that emits tokens (the token-rich
+fixture's weights and biases): ``recognize_file`` on a 70 s WAV serially
+through the session and batched over the engine (equal .txt and .json), the
+command line in a subprocess against ``load_model`` + ``recognize_file`` in
+this process, and six websocket clients on ``start_server`` over an 8-slot
+engine, each final equal to the single-stream session's, a ninth client
+refused as busy, and nothing caught, quarantined or logged as an error.
+
     python3 chip_smoke.py                       # everything
     python3 chip_smoke.py --profile             # device time of one utterance
     python3 chip_smoke.py --profile engine      # device time of engine ticks
@@ -36,6 +44,7 @@ tick p50 of float32 and the serving default taken in turns.
     python3 chip_smoke.py --profile conformer   # one conformer utterance
     python3 chip_smoke.py --profile tiling      # attention kernels, 1-32 windows
     python3 chip_smoke.py --profile recursion   # CTC recursion, 5-160 hypotheses
+    python3 chip_smoke.py --profile recognize   # recognize() on 70 s, 1 and 4
 
 Imports neither JAX nor the JAX package.
 """
@@ -44,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
 import os
 import subprocess
@@ -74,6 +84,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS = 67e12          # H100 SXM float32 peak outside the tensor cores
 CHUNK_SECONDS = 0.5
 ENGINE_MAXB = 2  # StreamingEngine.MAXB at flagship with 8192-sample chunks
+# The app paths' model: the weights (seed 1) and emission profile (EOS +2,
+# blank +8) of the token-rich fixture. With EOS +4 and blank +10 the
+# flagship's transcript of a 27 s span is empty.
+TALKER_SEED, TALKER_BIASES = 1, (2.0, 8.0)
 
 
 def emit(obj) -> None:
@@ -735,14 +749,15 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
 # ---------------------------------------------------------------------------
 
 def flagship_model(dev, seed: int, encoder_type: str = "transformer",
-                   precision: str = "float32"):
+                   precision: str = "float32", biases=(4.0, 10.0)):
     """The flagship with random weights from `seed`. "serving_default"
     builds the serving model of the JAX package's bench.py (_build_model):
     decoder cache, CTC log-prob ring and emitted-frame ring stored in
     bfloat16 and the matmul weights cast to bfloat16; "int8" then quantises
     the encoder's linears and "int8_all" every eligible linear to int8.
     "ctc_ring_bf16" is the float32 model with only the CTC log-prob ring in
-    bfloat16 (what kernel B reads)."""
+    bfloat16 (what kernel B reads). `biases` are added to the EOS logit of
+    the decoder and the blank logit of the CTC head."""
     import torch
 
     from speechcatcher_tpu_torch.config import flagship_config
@@ -757,11 +772,12 @@ def flagship_model(dev, seed: int, encoder_type: str = "transformer",
         cfg = cfg.replace(cache_dtype="bfloat16", ctc_ring_dtype="bfloat16",
                           enc_ring_dtype="bfloat16")
     model = ASRModel.random_init(cfg, seed=seed, device=dev)
-    # Emission profile of a trained model: EOS +4 on the decoder output,
-    # blank +10 on the CTC head, so finals stop after a few steps.
+    # Emission profile of a trained model: by default EOS +4 on the decoder
+    # output, blank +10 on the CTC head, so finals stop after a few steps.
     with torch.no_grad():
-        model.params["decoder"]["output_layer"]["bias"][cfg.eos_id] += 4.0
-        model.params["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += 10.0
+        model.params["decoder"]["output_layer"]["bias"][cfg.eos_id] += \
+            biases[0]
+        model.params["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += biases[1]
     if precision in ("serving_default", "int8", "int8_all"):
         from speechcatcher_tpu_torch.ops.layers import (
             cast_params,
@@ -1625,7 +1641,8 @@ def report_profile(prof, head: dict, wall: float):
     kernels' time)."""
     import torch
 
-    rows = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    rows = [e for e in averages
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
@@ -1649,7 +1666,7 @@ def report_profile(prof, head: dict, wall: float):
               "count": e.count, "device_ms": e.self_device_time_total / 1e3,
               "share": e.self_device_time_total / busy_us})
     # The host side: the PyTorch operators that take most host time.
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in averages
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.key.startswith("aten::")]
     ops.sort(key=lambda e: -e.self_cpu_time_total)
@@ -1684,16 +1701,355 @@ def profile_utterance(dev, encoder_type: str = "transformer",
                           "precision": precision, "audio_s": 6.0}, wall)
 
 
+# ---------------------------------------------------------------------------
+# The app and serving layer
+# ---------------------------------------------------------------------------
+
+class ErrorRecords(logging.Handler):
+    """Counts the ERROR records logged anywhere while it is attached: the
+    serving layer logs every exception it catches to keep serving."""
+
+    def __init__(self):
+        super().__init__(level=logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(f"{record.name}: {record.getMessage()}")
+
+    def __enter__(self):
+        logging.getLogger().addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger().removeHandler(self)
+
+
+def long_recording(seconds: float, rate: int, seed: int = 820):
+    """int16 PCM of `seconds`: speech-like stretches of 8-12 s
+    (``synth_audio``) between pauses of 0.5-1 s of faint noise. Seed 820
+    at 70 s gives one energy cut before the last 10 s (at 54.3 s)."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    rng = np.random.default_rng(seed)
+    parts, n = [], 0
+    while n < seconds * rate:
+        talk = synth_audio(float(rng.uniform(8.0, 12.0)), seed + len(parts),
+                           rate=rate)
+        pause = 0.003 * rng.standard_normal(int(rng.uniform(0.5, 1.0) * rate))
+        parts += [talk, pause.astype(np.float32)]
+        n += len(talk) + len(pause)
+    audio = np.concatenate(parts)[:int(seconds * rate)]
+    return (np.clip(audio, -1.0, 1.0) * 32767).astype(np.int16)
+
+
+def recognize_path(dev, counters, model, smi: str) -> dict:
+    """``recognize_file`` on a 70 s WAV, the flagship from TALKER_SEED
+    with TALKER_BIASES, through the session
+    (num_processes=1) and the batched engine (4): energy segmentation, the
+    split of spans longer than the decode state holds, paragraphs and token
+    timestamps; the .txt and .json of both must be equal byte for byte.
+    Then the command line in a subprocess, ``python3 -m
+    speechcatcher_tpu_torch.recognize -m <dir> -n 4``, on a model directory
+    written by write_model_dir from the same weights: its .txt and .json must equal
+    ``load_model`` + ``recognize_file`` of the same directory in this
+    process (without a config.yaml the directory loads with 4 heads of 128,
+    so it is held against itself, not against the 8-head model)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechcatcher_tpu_torch.endpointing import segment_speech
+    from speechcatcher_tpu_torch.params import random_params
+    from speechcatcher_tpu_torch.recognize import (
+        _split_overlong_spans,
+        load_model,
+        recognize_file,
+    )
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.utils.audio import write_wav
+
+    cfg = model.cfg
+    rate = cfg.sample_rate
+    pcm = long_recording(70.0, rate)
+    audio_s = len(pcm) / rate
+    # The spans recognize() decodes: energy cuts (not in the last 10 s),
+    # then the split at 0.9 x the encoder frames the decode state holds.
+    cuts = [e / 100.0 for _, e in segment_speech(pcm, rate)
+            if e < (audio_s - 10.0) * 100.0]
+    frame_sec = cfg.hop_length * cfg.subsample / rate
+    spans = _split_overlong_spans(
+        list(zip([0.0] + cuts, cuts + [audio_s])),
+        0.9 * cfg.max_enc_frames * frame_sec)
+    if not cuts or len(spans) <= len(cuts) + 1:
+        fail(f"recognize_path: {len(cuts)} energy cuts and {len(spans)} "
+             f"spans; the recording must be cut and split")
+    s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+    by_path, written = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wav = tmp / "recording.wav"
+        write_wav(wav, pcm, rate)
+        for n, phase, zero in (
+                (1, "recognize_serial", ("rel_block_attention",
+                                         "ring_append_rows")),
+                (4, "recognize_batched", ("rel_block_attention",))):
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            res = recognize_file(s2t, str(wav), output_file=str(tmp / phase),
+                                 quiet=True, progress=False, num_processes=n)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+            written[phase] = ((tmp / f"{phase}.txt").read_text(),
+                              (tmp / f"{phase}.json").read_text())
+            paragraphs = res["paragraphs"]
+            n_tokens = sum(len(p["tokens"]) for p in paragraphs)
+            emit({"phase": phase, "num_processes": n, "audio_s": audio_s,
+                  "wall_s": wall, "rtf": wall / audio_s,
+                  "energy_cuts": len(cuts), "spans": len(spans),
+                  "paragraphs": len(paragraphs), "tokens": n_tokens,
+                  "nvidia_smi": smi})
+            check_launches(phase, counters, launches,
+                           [c for c in counters if c.__name__ in zero])
+            by_path[phase] = launches
+            stamps = [t for p in paragraphs for t in p["token_timestamps"]]
+            if (n_tokens < 2 or len(stamps) != n_tokens
+                    or stamps != sorted(stamps) or not all(
+                        p["start"] <= t <= p["end"] for p in paragraphs
+                        for t in p["token_timestamps"])):
+                fail(f"{phase}: bad paragraphs {paragraphs}")
+        serial, batched = (json.loads(written[p][1])["paragraphs"]
+                           for p in ("recognize_serial", "recognize_batched"))
+        if written["recognize_serial"] != written["recognize_batched"]:
+            diff = [(k, a[k], b[k]) for a, b in zip(serial, batched)
+                    for k in a if a[k] != b[k]]
+            fail(f"recognize_file: the batched engine's .txt/.json differ "
+                 f"from the serial session's ({len(serial)} / "
+                 f"{len(batched)} paragraphs): {str(diff)[:3000]}")
+
+        tree = random_params(cfg, TALKER_SEED)
+        tree["decoder"]["output_layer"]["bias"][cfg.eos_id] += \
+            TALKER_BIASES[0]
+        tree["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += TALKER_BIASES[1]
+        run = write_model_dir(tmp / "model", cfg, tree)
+        # Both entry points run on the card unless told otherwise.
+        on_cpu = {} if dev.type == "cuda" else {"device": "cpu"}
+        loaded = load_model(str(run), quiet=True, **on_cpu)
+        if loaded.model.device != dev:
+            fail(f"load_model put the model on {loaded.model.device}")
+        recognize_file(loaded, str(wav), output_file=str(tmp / "load_model"),
+                       quiet=True, progress=False, num_processes=4)
+        ref = ((tmp / "load_model.txt").read_text(),
+               (tmp / "load_model.json").read_text())
+        cli_wav = tmp / "cli" / "recording.wav"
+        cli_wav.parent.mkdir()
+        shutil.copy(wav, cli_wav)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "speechcatcher_tpu_torch.recognize",
+             "-m", str(run), "-n", "4", "--quiet", "--no-progress",
+             *(["-d", "cpu"] if on_cpu else []), str(cli_wav)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the command line exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        cli = ((cli_wav.parent / "recording.wav.txt").read_text(),
+               (cli_wav.parent / "recording.wav.json").read_text())
+        if cli != ref:
+            fail("the command line's .txt/.json differ from load_model + "
+                 "recognize_file in this process")
+        emit({"phase": "recognize_cli", "num_processes": 4,
+              "heads": loaded.cfg.encoder_heads, "wall_s": wall,
+              "paragraphs": len(json.loads(cli[1])["paragraphs"]),
+              "txt_equal": True, "json_equal": True})
+    return by_path
+
+
+def server_path(dev, counters, model, smi: str) -> dict:
+    """The websocket server as ``speechcatcher_tpu_torch_server`` runs it,
+    in this process: ``start_server`` on 127.0.0.1 over a SessionManager
+    of an 8-slot engine (int16 wire; endpointing off, so each stream ends
+    in one final at eof). Six clients send the Vosk config, 3-6 s of int16
+    PCM in 0.25 s messages as fast as they can, then eof, all at once; two
+    more hold the other slots, and a ninth is refused as busy. Each final
+    must equal ``_assemble_final`` over the single-stream session's final
+    on the audio the server staged; the manager must have caught nothing
+    and the engine quarantined nothing."""
+    import asyncio
+    import socket
+
+    import numpy as np
+    import websockets
+
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.serve.server import (
+        Session,
+        SessionManager,
+        start_server,
+    )
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    rate, chunk, n_clients = model.cfg.sample_rate, 8192, 6
+    pcms = []
+    for k in range(n_clients):
+        a = synth_audio(3.0 + 0.55 * k, 900 + k, rate=rate)
+        pcm = (np.clip(a, -1.0, 1.0) * 32767).astype(np.int16)
+        # A whole number of chunks would leave the final an empty tail.
+        pcms.append(pcm[:-1] if len(pcm) % chunk == 0 else pcm)
+    engine = StreamingEngine(model, n_slots=8, beam_size=5,
+                             chunk_samples=chunk, device=dev)
+    manager = SessionManager(engine, finalize_update_iters=10**6,
+                             max_partial_iters=10**6, wire="int16")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    uri = f"ws://127.0.0.1:{port}"
+
+    async def connect():
+        for _ in range(400):
+            try:
+                return await websockets.connect(uri, max_size=None)
+            except OSError:
+                await asyncio.sleep(0.05)
+        fail("server_path: the server did not come up")
+
+    async def open_client():
+        ws = await connect()
+        await ws.send(json.dumps({"config": {"sample_rate": rate}}))
+        reply = await asyncio.wait_for(ws.recv(), 60)
+        if json.loads(reply) != {"partial": ""}:
+            fail(f"server_path: config answered with {reply!r}")
+        return ws
+
+    async def stream(ws, pcm):
+        step = rate // 4
+        for i in range(0, len(pcm), step):
+            await ws.send(pcm[i:i + step].tobytes())
+        await ws.send(json.dumps({"eof": 1}))
+        partials = 0
+        while True:
+            msg = json.loads(await asyncio.wait_for(ws.recv(), 300))
+            if "result" in msg:
+                await ws.close()
+                return msg, partials
+            partials += 1
+
+    async def drive():
+        server = asyncio.ensure_future(start_server(
+            "127.0.0.1", port, manager, tick_interval=0.002))
+        try:
+            clients = [await open_client() for _ in range(n_clients)]
+            holders = [await open_client() for _ in range(8 - n_clients)]
+            refused = await connect()
+            busy = await asyncio.wait_for(refused.recv(), 60)
+            await refused.close()
+            t0 = time.perf_counter()
+            results = await asyncio.wait_for(asyncio.gather(
+                *(stream(ws, pcm) for ws, pcm in zip(clients, pcms))), 600)
+            wall = time.perf_counter() - t0
+            for ws in holders:
+                await ws.close()
+        finally:
+            server.cancel()
+            try:
+                await server
+            except asyncio.CancelledError:
+                pass
+        return results, busy, wall
+
+    for c in counters:
+        c.launches = 0
+    results, busy, wall = asyncio.run(drive())
+    launches = {c.__name__: c.launches for c in counters}
+    snap = manager.metrics.snapshot()
+    emit({"phase": "server_path", "n_slots": 8, "clients": n_clients,
+          "audio_s": sum(len(p) for p in pcms) / rate, "wall_s": wall,
+          "partials": [p for _, p in results], "busy_reply": busy,
+          "caught": manager.caught, "quarantined": engine.quarantined,
+          "metrics": snap, "nvidia_smi": smi})
+    check_launches("server_path", counters, launches,
+                   [c for c in counters if c.__name__ == "rel_block_attention"])
+    if busy != "Server busy, please try again later.":
+        fail(f"server_path: the ninth client got {busy!r}")
+    if any(manager.caught.values()) or engine.quarantined:
+        fail(f"server_path: caught {manager.caught}, quarantined "
+             f"{engine.quarantined}")
+    if snap["total_finals"] != n_clients:
+        fail(f"server_path: {snap['total_finals']} finals")
+
+    # The reference: the session over what the server staged (int16 times
+    # the ring's float32 scale) in the engine's chunking.
+    s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+    words = 0
+    for k, pcm in enumerate(pcms):
+        audio = pcm.astype(np.float32) * np.float32(1 / 32767.0)
+        yseq, xpos, _ = single_stream_final(s2t, audio, chunk)
+        sess = Session(slot=None)
+        want = manager._assemble_final(sess, yseq, xpos)
+        if sess.slot is not None:
+            engine.release_slot(sess.slot)
+        got = results[k][0]
+        if got != want:
+            fail(f"server_path client {k}: final {got} differs from the "
+                 f"single-stream session's {want}")
+        words += len(got["result"])
+    if words < 2:
+        fail(f"server_path: {words} words in {n_clients} finals")
+    emit({"phase": "server_path_vs_single_stream", "clients": n_clients,
+          "text_equal": True, "word_times_equal": True, "words": words})
+    return launches
+
+
+def profile_recognize(dev):
+    """torch.profiler over one warm ``recognize`` of the 70 s recording of
+    recognize_path, batched over 4 streams and then serial: device busy
+    time by kernel and the device's idle share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechcatcher_tpu_torch.recognize import recognize
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+
+    model = flagship_model(dev, seed=TALKER_SEED, biases=TALKER_BIASES)
+    s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+    rate = model.cfg.sample_rate
+    pcm = long_recording(70.0, rate)
+    for n in (4, 1):
+        recognize(s2t, pcm, rate, num_processes=n, progress=False,
+                  quiet=True)  # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            recognize(s2t, pcm, rate, num_processes=n, progress=False,
+                      quiet=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report_profile(prof, {"phase": f"profile_recognize_{n}",
+                              "num_processes": n,
+                              "audio_s": len(pcm) / rate}, wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="utterance",
                     choices=("utterance", "engine", "conformer", "tiling",
-                             "recursion"),
+                             "recursion", "recognize"),
                     help="profile one main-path utterance (default), "
                     "engine ticks at S=8, one conformer utterance, or the "
                     "attention kernels' device time under either tiling "
                     "at 1 to 32 windows, or the CTC recursion kernel's time "
-                    "at 5 to 160 hypotheses, then stop")
+                    "at 5 to 160 hypotheses, or recognize() on 70 s, "
+                    "serial and batched, then stop")
     ap.add_argument("--precision", choices=PRECISIONS, default="float32",
                     help="the model of --profile, --profile engine and "
                     "--profile conformer: float32, that with only the CTC "
@@ -1744,6 +2100,9 @@ def main() -> int:
     if args.profile == "engine":
         profile_engine(dev, precision=args.precision)
         return 0
+    if args.profile == "recognize":
+        profile_recognize(dev)
+        return 0
     if args.profile == "conformer":
         profile_utterance(dev, encoder_type="conformer",
                           precision=args.precision)
@@ -1768,6 +2127,8 @@ def main() -> int:
     checks = [
         check_attention(dev, cfg, n_blocks, rel)
         for rel in (False, True) for n_blocks in (2, 8, 8 * ENGINE_MAXB)]
+    # recognize_file's batched engine runs 4 slots: 4 to 8 windows.
+    checks.append(check_attention(dev, cfg, 4, rel=False))
     # A model directory without a config.yaml loads with the default 4
     # heads: one window of 4 heads of 128.
     checks.append(check_attention(dev, cfg.replace(encoder_heads=4), 1,
@@ -1800,6 +2161,15 @@ def main() -> int:
                                     zero=(rel_block_attention,))
     engine_fixture_replay(dev)
     engine_load_point(dev, model)
+    # The app and serving layer on the float32 flagship that talks: no
+    # exception caught, no slot quarantined, no ERROR record.
+    talker = flagship_model(dev, seed=TALKER_SEED, biases=TALKER_BIASES)
+    with ErrorRecords() as errors:
+        by_path.update(recognize_path(dev, counters, talker, smi))
+        by_path["server"] = server_path(dev, counters, talker, smi)
+    if errors.records:
+        fail(f"ERROR records on the serving paths: {errors.records[:5]}")
+    del talker
     # The precision modes. Each session mode casts a float32 model of its
     # own; the engine serves the serving default over the mu-law wire.
     for dtype in ("bfloat16", "int8", "int8-all"):

@@ -545,6 +545,8 @@ class StreamingEngine:
         self.output_index_dev = torch.zeros((self.S,), dtype=torch.int32,
                                             device=dev)
         self.c = SlotCounters.zeros(self.S)
+        # Slots finalize_batch quarantined (their finalize raised).
+        self.quarantined = 0
         self._slot_clean = np.ones(self.S, bool)  # fresh-state slots
 
         self.trim = math.ceil(math.ceil(cfg.win_length / cfg.hop_length) / 2)
@@ -1155,6 +1157,7 @@ class StreamingEngine:
             try:
                 out[s] = self.finalize(s, items[s])
             except Exception:
+                self.quarantined += 1
                 logger.exception("finalize failed for slot %d; "
                                  "quarantining", s)
                 try:

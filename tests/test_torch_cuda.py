@@ -568,3 +568,63 @@ def test_attention_stream_and_graph(dev, which):
     ref = plain(*args)
     assert float((out - ref).abs().max()) <= 1e-5
     assert float((out - warm).abs().max()) > 1e-3    # the replay recomputed
+
+
+def _manager_messages(dev, in_threads: bool):
+    """Two sessions of a small model on the card through the server's
+    SessionManager; every tick from the calling thread or, as the server's
+    batcher calls it, from a new worker thread. Returns every message and
+    the kernel launches of the run."""
+    import threading
+
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.serve.server import SessionManager
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    cfg = flagship_config(encoder_dim=64, encoder_heads=4, encoder_layers=2,
+                          decoder_dim=64, decoder_heads=4, decoder_layers=2,
+                          encoder_linear_units=128, decoder_linear_units=128)
+    model = ASRModel.random_init(cfg, seed=1, device=dev)
+    mgr = SessionManager(StreamingEngine(model, n_slots=2, beam_size=3,
+                                         device=dev),
+                         finalize_update_iters=99)
+    counters = (block_attention, ctc_forward_recursion, ring_append_cols,
+                ring_append_rows)
+    before = [c.launches for c in counters]
+
+    def tick():
+        if not in_threads:
+            return mgr.tick()
+        out = []
+        t = threading.Thread(target=lambda: out.append(mgr.tick()))
+        t.start()
+        t.join(timeout=300)
+        assert not t.is_alive() and len(out) == 1
+        return out[0]
+
+    log = []
+    sids = [mgr.open_session() for _ in range(2)]
+    for k, sid in enumerate(sids):
+        pcm = np.clip(synth_audio(2.3 + 0.4 * k, 40 + k), -1, 1) * 32767
+        mgr.feed(sid, pcm.astype(np.int16).tobytes())
+    while mgr.ready():
+        log.append(tick())
+    for sid in sids:
+        mgr.request_final(sid)
+    log.append(tick())
+    assert mgr.caught == {"batcher": 0, "finalize_batch": 0, "finalize": 0}
+    return log, [c.launches - b for c, b in zip(counters, before)]
+
+
+def test_server_tick_from_a_worker_thread(dev):
+    """The engine needs none of its caller's per-thread state (current
+    stream, grad mode, current device): ticks from worker threads give
+    the messages of ticks from the main thread, through the kernels."""
+    main_log, main_launches = _manager_messages(dev, in_threads=False)
+    thread_log, thread_launches = _manager_messages(dev, in_threads=True)
+    assert thread_log == main_log
+    assert thread_launches == main_launches and min(main_launches) > 0
+    finals = [m for out in main_log for m in out.values() if "result" in m]
+    assert len(finals) == 2

@@ -259,7 +259,7 @@ def test_finalize_batch_quarantines_a_failing_fallback(monkeypatch):
     out = eng.finalize_batch({long_s: a[2 * CH:],
                               short_s: synth_audio(0.3, 52)})
     assert set(out) == {long_s} and len(out[long_s][0]) > 2
-    assert not eng.c.active.any()
+    assert not eng.c.active.any() and eng.quarantined == 1
     assert eng.acquire_slot() is not None
 
 

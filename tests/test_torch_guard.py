@@ -83,6 +83,15 @@ def test_package_imports_with_jax_blocked():
         "import speechcatcher_tpu_torch.serve.engine\n"
         "import speechcatcher_tpu_torch.checkpoint\n"
         "import speechcatcher_tpu_torch.utils.zoo\n"
+        "import speechcatcher_tpu_torch.recognize\n"
+        "import speechcatcher_tpu_torch.endpointing_cli\n"
+        "import speechcatcher_tpu_torch.wer\n"
+        "import speechcatcher_tpu_torch.decode_kaldidir\n"
+        "import speechcatcher_tpu_torch.serve.server\n"
+        "import speechcatcher_tpu_torch.serve.vosk_test_client\n"
+        "import speechcatcher_tpu_torch.utils.metrics\n"
+        "import speechcatcher_tpu_torch.utils.term\n"
+        "from speechcatcher_tpu_torch import load_model, recognize_file\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -107,3 +116,53 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                              text=True, timeout=300)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def test_packaging_names_the_port():
+    """An installed package holds every kernel source the build compiles
+    or hashes, and each console script of the port names a function."""
+    import fnmatch
+    import importlib
+    import tomllib
+
+    meta = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = meta["tool"]["setuptools"]["package-data"][
+        "speechcatcher_tpu_torch"]
+    pkg = ROOT / "speechcatcher_tpu_torch"
+    sources = [f.relative_to(pkg).as_posix()
+               for f in (pkg / "csrc").iterdir() if f.is_file()]
+    assert any(s.endswith(".cuh") for s in sources)
+    missing = [s for s in sources
+               if not any(fnmatch.fnmatch(s, g) for g in globs)]
+    assert not missing, missing
+    scripts = {k: v for k, v in meta["project"]["scripts"].items()
+               if v.startswith("speechcatcher_tpu_torch.")}
+    assert set(scripts) == {
+        "speechcatcher_tpu_torch", "speechcatcher_tpu_torch_server",
+        "speechcatcher_tpu_torch_compute_wer",
+        "speechcatcher_tpu_torch_endpointing",
+        "speechcatcher_tpu_torch_decode_kaldidir",
+        "speechcatcher_tpu_torch_vosk_client"}
+    for target in scripts.values():
+        module, func = target.split(":")
+        assert callable(getattr(importlib.import_module(module), func))
+
+
+def test_package_import_is_light():
+    """Importing the package loads its config only, none of the models,
+    the decoder or the app; the lazy exports load their modules on first
+    use."""
+    code = (
+        "import sys\n"
+        "import speechcatcher_tpu_torch as p\n"
+        "heavy = [m for m in sys.modules if m.startswith(\n"
+        "         'speechcatcher_tpu_torch.') and m != 'speechcatcher_tpu_torch.config']\n"
+        "assert not heavy, heavy\n"
+        "assert callable(p.Speech2TextStreaming) and 'de_streaming_transformer_m' in p.tags\n"
+        "assert 'speechcatcher_tpu_torch.recognize' in sys.modules\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
