@@ -37,6 +37,16 @@ this process, and six websocket clients on ``start_server`` over an 8-slot
 engine, each final equal to the single-stream session's, a ninth client
 refused as busy, and nothing caught, quarantined or logged as an error.
 
+Training and offline greedy decode: kernels A and E through their autograd
+Functions at the training shapes (16, 40 and 392 windows), each gradient
+equal to plain autograd's, and B, C and D refusing operands that require
+grad; five flagship train steps and ``evaluate`` (greedy WER), with A's
+forward and backward counted per step; one small-width train step on the
+card against the CPU; three flagship conformer steps (E); a batch of eight
+waveforms of 2-30 s through ``greedy_decode_batch`` (RTF; at small width
+equal to the CPU's tokens); and the trainer's command line as a process,
+resumed from its checkpoint.
+
     python3 chip_smoke.py                       # everything
     python3 chip_smoke.py --profile             # device time of one utterance
     python3 chip_smoke.py --profile engine      # device time of engine ticks
@@ -45,6 +55,7 @@ refused as busy, and nothing caught, quarantined or logged as an error.
     python3 chip_smoke.py --profile tiling      # attention kernels, 1-32 windows
     python3 chip_smoke.py --profile recursion   # CTC recursion, 5-160 hypotheses
     python3 chip_smoke.py --profile recognize   # recognize() on 70 s, 1 and 4
+    python3 chip_smoke.py --profile train       # one flagship train step
 
 Imports neither JAX nor the JAX package.
 """
@@ -150,10 +161,8 @@ def check_attention(dev, cfg, n_blocks: int, rel: bool):
         block_attention_plain,
     )
     from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
-        MASK_MIN,
         rel_block_attention,
         rel_block_attention_plain,
-        rel_shift,
     )
 
     kernel, plain = ((rel_block_attention, rel_block_attention_plain) if rel
@@ -194,24 +203,7 @@ def check_attention(dev, cfg, n_blocks: int, rel: bool):
             fail(f"{name}: merging the heads of the result copies")
     args = forms["projection"]
     q, k, v = args[:3]
-    if rel:
-        # Library yardstick: SDPA with (q+u) and the shifted, scaled
-        # position scores precomputed as an additive float mask (masked:
-        # the float32 minimum). Not the same function: SDPA does not zero
-        # row 0.
-        pos, bias_u, bias_v = args[3:6]
-        lib_q = q + bias_u[None, :, None, :]
-        bd = rel_shift(torch.matmul(q + bias_v[None, :, None, :],
-                                    pos.transpose(-1, -2)[None]))
-        lib_mask = torch.where(mask != 0, bd / math.sqrt(dk), MASK_MIN)
-        library = ("torch.nn.functional.scaled_dot_product_attention "
-                   "(shifted position scores precomputed as an additive "
-                   "float mask; row 0 not zeroed)")
-        extra = pos.numel() + 2 * bias_u.numel()
-    else:
-        lib_q, lib_mask = q, mask != 0
-        library = "torch.nn.functional.scaled_dot_product_attention"
-        extra = 0
+    library, lib_q, lib_mask, extra = library_call(rel, args, mask, dk)
 
     def main_form():
         return kernel(*args).transpose(1, 2).reshape(n, w, h * dk)
@@ -1642,8 +1634,10 @@ def report_profile(prof, head: dict, wall: float):
     import torch
 
     averages = prof.key_averages()
+    # A range's row on the device timeline repeats its kernels' time.
     rows = [e for e in averages
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in rows)
     rows.sort(key=lambda e: -e.self_device_time_total)
@@ -2039,17 +2033,625 @@ def profile_recognize(dev):
                               "audio_s": len(pcm) / rate}, wall)
 
 
+# ---------------------------------------------------------------------------
+# Training and offline greedy decode
+# ---------------------------------------------------------------------------
+
+# Windows per layer of encoder_forward_train at batch 8 and the flagship's
+# block geometry: the 2 s, 4 s and 32 s sample buckets of BucketBatcher.
+TRAIN_WINDOWS = (16, 40, 392)
+TRAIN_LR, TRAIN_CLIP = 1e-3, 5.0
+
+
+def attention_grad(dev, cfg, n_blocks: int, rel: bool) -> dict:
+    """Kernel A (rel=False) or E through its autograd Function at a
+    training shape, the operands in the main path's form (transposed views
+    of (N, W, H*dk) projections that require grad; E's pos a view of a
+    projected table, its biases trainable leaves). The forward must equal
+    the plain version as the kernel lines require; every gradient of the
+    Function's backward must equal plain autograd's on the same card inputs
+    (it is the same plain code, so 0.0 is expected). Kernel, SDPA and plain
+    forward are timed in three interleaved rounds; the backward (the plain
+    recompute and its VJP) by CUDA events."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from speechcatcher_tpu_torch.models.encoder import block_attention_mask
+    from speechcatcher_tpu_torch.ops.kernels.block_attention import (
+        BlockAttentionFn,
+        block_attention,
+        block_attention_plain,
+        plain_vjp,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+        RelBlockAttentionFn,
+        rel_block_attention,
+        rel_block_attention_plain,
+    )
+
+    kernel, plain, fn = ((rel_block_attention, rel_block_attention_plain,
+                          RelBlockAttentionFn) if rel else
+                         (block_attention, block_attention_plain,
+                          BlockAttentionFn))
+    name = kernel.__name__
+    n, h, w = n_blocks, cfg.encoder_heads, cfg.block_size + 2
+    dk = cfg.encoder_dim // h
+    rng = np.random.default_rng(n + (7 if rel else 3))
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev)
+
+    bases = [rand(n, w, h * dk).requires_grad_() for _ in range(3)]
+    if rel:
+        bases += [rand(1, w, h * dk).requires_grad_(),
+                  rand(h, dk).requires_grad_(), rand(h, dk).requires_grad_()]
+
+    def operands():
+        views = [b.reshape(n, w, h, dk).transpose(1, 2) for b in bases[:3]]
+        if rel:
+            views += [bases[3].reshape(1, w, h, dk).transpose(1, 2)[0],
+                      bases[4], bases[5]]
+        return views
+
+    mask = torch.from_numpy(block_attention_mask(cfg.block_size)).to(dev)
+    cot = rand(n, h, w, dk)
+    out = kernel(*operands(), mask)
+    if type(out.grad_fn).__name__ != fn.__name__ + "Backward":
+        fail(f"attention_grad: {name} with trainable operands did not go "
+             f"through {fn.__name__} (grad_fn {out.grad_fn})")
+    got = torch.autograd.grad(out, bases, cot)
+    ref_out = plain(*operands(), mask)
+    ref = torch.autograd.grad(ref_out, bases, cot)
+    torch.cuda.synchronize()
+    fwd_err = float((out - ref_out).detach().abs().max())
+    grad_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    if not fwd_err <= 1e-5 or grad_err != 0.0:
+        fail(f"attention_grad: {name} at N={n}: forward differs by "
+             f"{fwd_err} (tol 1e-5) or a gradient by {grad_err} (expected "
+             f"0.0: the backward is plain autograd's own code)")
+
+    args = [x.detach() for x in operands()] + [mask]
+    q, k, v = args[:3]
+    library, lib_q, lib_mask, extra = library_call(rel, args, mask, dk)
+
+    def kernel_fwd():
+        return kernel(*args).transpose(1, 2).reshape(n, w, h * dk)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(lib_q, k, v,
+                                              attn_mask=lib_mask)
+
+    import statistics
+
+    runs = {"kernel": [], "sdpa": [], "plain": []}
+    for _ in range(3):
+        runs["kernel"].append(cuda_ms(kernel_fwd, 50))
+        runs["sdpa"].append(cuda_ms(sdpa_fwd, 50))
+        runs["plain"].append(cuda_ms(lambda: plain(*args), 50))
+    before = fn.backward_launches
+    bwd_ms = cuda_ms(lambda: plain_vjp(plain, tuple(args[:-1]), (mask,),
+                                       cot, fn), 20)
+    fn.backward_launches = before
+    n_bytes = (4 * q.numel() + extra + mask.numel()) * 4
+    n_ops = (3 if rel else 2) * (2 * n * h * w * w * dk)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    row = {"phase": "attention_grad", "name": name, "shape": [n, h, w, dk],
+           "forward_max_abs_err": fwd_err, "grad_max_abs_diff": grad_err,
+           "ms": statistics.median(runs["kernel"]),
+           "sdpa_ms": statistics.median(runs["sdpa"]),
+           "plain_ms": statistics.median(runs["plain"]),
+           "ms_runs": runs["kernel"], "sdpa_ms_runs": runs["sdpa"],
+           "plain_ms_runs": runs["plain"], "backward_ms": bwd_ms,
+           "device_us": device_us(kernel_fwd, name + "_kernel"),
+           "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": n_bytes,
+           "library": library}
+    emit(row)
+    return row
+
+
+def library_call(rel: bool, args, mask, dk: int):
+    """The library yardstick of A or E on the same operands: (description,
+    query, mask, bytes beyond q, k, v and the output). For E, SDPA takes
+    (q+u) and the shifted, scaled position scores precomputed as an
+    additive float mask (masked: the float32 minimum); it is not the same
+    function, since SDPA does not zero row 0."""
+    import torch
+
+    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+        MASK_MIN,
+        rel_shift,
+    )
+
+    q = args[0]
+    if not rel:
+        return ("torch.nn.functional.scaled_dot_product_attention", q,
+                mask != 0, 0)
+    pos, bias_u, bias_v = args[3:6]
+    bd = rel_shift(torch.matmul(q + bias_v[None, :, None, :],
+                                pos.transpose(-1, -2)[None]))
+    return ("torch.nn.functional.scaled_dot_product_attention "
+            "(shifted position scores precomputed as an additive float "
+            "mask; row 0 not zeroed)", q + bias_u[None, :, None, :],
+            torch.where(mask != 0, bd / math.sqrt(dk), MASK_MIN),
+            pos.numel() + 2 * bias_u.numel())
+
+
+def refuse_grad_on_card(dev) -> None:
+    """B, C and D have no backward: each must refuse an operand that
+    requires grad on the card, and run without grad mode."""
+    import torch
+
+    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
+        ctc_forward_recursion,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.ring_append import (
+        ring_append_cols,
+        ring_append_rows,
+    )
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    calls = {
+        "ctc_forward_recursion": (ctc_forward_recursion, [
+            torch.randn(6, 3, device=dev), torch.randn(6, 3, device=dev),
+            torch.randn(6, 3, device=dev), torch.zeros(3, **i32),
+            torch.full((3,), 6, **i32), torch.ones(3, device=dev)]),
+        "ring_append_cols": (ring_append_cols, [
+            torch.zeros(2, 4, 8, device=dev),
+            torch.randn(2, 4, 3, device=dev), torch.zeros(2, **i32),
+            torch.full((2,), 3, **i32)]),
+        "ring_append_rows": (ring_append_rows, [
+            torch.zeros(2, 2, 8, 4, device=dev),
+            torch.randn(2, 2, 3, 4, device=dev), torch.zeros(2, **i32),
+            torch.full((2,), 3, **i32)]),
+    }
+    for name, (call, ops) in calls.items():
+        ops[1].requires_grad_()
+        try:
+            call(*ops)
+        except RuntimeError as err:
+            if "has no backward" not in str(err):
+                raise
+        else:
+            fail(f"{name} accepted an operand that requires grad")
+        with torch.no_grad():
+            call(*ops)
+    torch.cuda.synchronize()
+    emit({"phase": "refuse_grad", "refused": sorted(calls)})
+
+
+def train_batch(model, bucket_s=None):
+    """(first training batch, eval utterances, batcher) of
+    synthetic_dataset(32) split 9:1, batched by BucketBatcher(batch 8), as
+    the trainer's command line makes them; with `bucket_s`, the first batch
+    of that sample bucket (seconds)."""
+    from speechcatcher_tpu_torch.data import (
+        BucketBatcher,
+        synthetic_dataset,
+        train_eval_split,
+    )
+
+    cfg = model.cfg
+    utts = synthetic_dataset(32, cfg, model.tokenizer)
+    train_utts, eval_utts = train_eval_split(utts, 0.1)
+    batcher = BucketBatcher(model.frontend, model.tokenizer, batch_size=8,
+                            input_layer=cfg.input_layer)
+    for b in batcher.batches(train_utts, shuffle_seed=0):
+        if bucket_s is None or b.feats.shape[1] == model.frontend.n_frames(
+                bucket_s * cfg.sample_rate):
+            return b, eval_utts, batcher
+    fail(f"no training batch in the {bucket_s} s bucket")
+
+
+def reset_counts(counters, fns) -> None:
+    for c in counters:
+        c.launches = 0
+    for f in fns:
+        f.backward_launches = 0
+
+
+def counts(counters, fns) -> dict:
+    """Each kernel's launches and each Function's backwards."""
+    return {c.__name__: c.launches for c in counters} | {
+        f.__name__ + ".backward_launches": f.backward_launches for f in fns}
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def run_train_steps(phase: str, counters, fns, model, n_steps: int, batch,
+                    smi: str):
+    """`n_steps` train_steps on one batch, counts from 0: (losses, launch
+    counts, forward counts of the encoder). Every loss finite and the last
+    below the first."""
+    import statistics
+
+    import torch
+
+    from speechcatcher_tpu_torch.training import make_optimizer, train_step
+
+    cfg = model.cfg
+    opt = make_optimizer(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
+    state = opt.init(model.params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters, fns)
+    losses, step_ms = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        _, _, m = train_step(model.params, state, batch, cfg, opt)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+        emit({"phase": phase, "step": i + 1, **losses[-1],
+              "step_ms": step_ms[-1]})
+    launches = counts(counters, fns)
+    totals = [x["loss"] for x in losses]
+    if not all(math.isfinite(x) for x in totals) or totals[-1] >= totals[0]:
+        fail(f"{phase}: losses {totals} are not finite or do not fall")
+    emit({"phase": phase + "_summary", "steps": n_steps,
+          "batch": list(batch.feats.shape), "tokens": list(
+              batch.tokens.shape), "windows_per_layer": batch.feats.shape[0]
+          * train_blocks(cfg, batch.feats.shape[1]),
+          "first_loss": totals[0], "last_loss": totals[-1],
+          "median_step_ms": statistics.median(step_ms),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "nvidia_smi": smi, **launches})
+    return totals, launches
+
+
+def train_blocks(cfg, n_frames: int) -> int:
+    """Blocks per utterance of encoder_forward_train for `n_frames`
+    feature frames (0: the plain path of one block or less)."""
+    from speechcatcher_tpu_torch.params import conv_len
+
+    total = conv_len(n_frames, cfg.input_layer)
+    if total <= cfg.block_size:
+        return 0
+    return math.ceil((total - cfg.block_size + cfg.hop_size)
+                     / cfg.hop_size)
+
+
+def expect_counts(phase: str, launches: dict, want: dict) -> None:
+    emit({"phase": phase + "_launches", **launches})
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        fail(f"{phase}: launch counts (got, expected) {bad}")
+
+
+def train_path(dev, counters, fns, smi: str) -> dict:
+    """The flagship transformer: 5 train_steps on one batch of 8 from
+    synthetic_dataset(32), then evaluate on the eval split with the
+    tokenizer (loss, greedy WER and CER). A launches 18 times per encoder
+    forward and its backward 18 times per step; E never."""
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.training import evaluate
+
+    model = ASRModel.random_init(flagship_config(), seed=0, device=dev)
+    cfg = model.cfg
+    batch, eval_utts, batcher = train_batch(model)
+    n_steps = 5
+    _, launches = run_train_steps("train_path", counters, fns, model,
+                                  n_steps, batch, smi)
+    L = cfg.encoder_layers
+    expect_counts("train_path", launches, {
+        "block_attention": L * n_steps, "rel_block_attention": 0,
+        "BlockAttentionFn.backward_launches": L * n_steps,
+        "RelBlockAttentionFn.backward_launches": 0})
+    eval_batches = list(batcher.batches(eval_utts, with_refs=True))
+    reset_counts(counters, fns)
+    t0 = time.perf_counter()
+    m = evaluate(model.params, cfg, eval_batches, model.tokenizer)
+    wall = time.perf_counter() - t0
+    if not all(math.isfinite(m[k]) for k in ("loss", "ctc", "att", "wer")):
+        fail(f"train_path eval: {m}")
+    eval_launches = counts(counters, fns)
+    blocked = sum(train_blocks(cfg, b.feats.shape[1]) > 0
+                  for b, _ in eval_batches)
+    emit({"phase": "train_path_eval", **m, "eval_batches": len(eval_batches),
+          "eval_utterances": len(eval_utts), "wall_ms": wall * 1e3})
+    # Each eval batch runs the encoder twice: the loss and the greedy WER.
+    expect_counts("train_path_eval", eval_launches, {
+        "block_attention": 2 * L * blocked, "rel_block_attention": 0,
+        "BlockAttentionFn.backward_launches": 0})
+    return add_counts(launches, eval_launches)
+
+
+def conformer_train_path(dev, counters, fns, smi: str) -> dict:
+    """The flagship conformer at flagship widths and depth: 3 train_steps
+    on one batch; E launches in every layer of every step, A never."""
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+
+    model = ASRModel.random_init(flagship_config(encoder_type="conformer"),
+                                 seed=0, device=dev)
+    batch, _, _ = train_batch(model)
+    n_steps = 3
+    _, launches = run_train_steps("conformer_train_path", counters, fns,
+                                  model, n_steps, batch, smi)
+    L = model.cfg.encoder_layers
+    expect_counts("conformer_train_path", launches, {
+        "block_attention": 0, "rel_block_attention": L * n_steps,
+        "BlockAttentionFn.backward_launches": 0,
+        "RelBlockAttentionFn.backward_launches": L * n_steps})
+    return launches
+
+
+def small_train_config():
+    """Small width at the flagship's block geometry: 2 + 2 layers, d 256,
+    4 heads, conv2d."""
+    from speechcatcher_tpu_torch.config import flagship_config
+
+    return flagship_config(encoder_dim=256, decoder_dim=256,
+                           encoder_heads=4, decoder_heads=4,
+                           encoder_layers=2, decoder_layers=2,
+                           encoder_linear_units=1024,
+                           decoder_linear_units=1024)
+
+
+# Card against CPU for one train_step at small width. Loss: float32 sums in
+# another order. Gradients: per leaf within 1e-3 relative plus 5e-4 of the
+# leaf's largest magnitude (at least 1e-8): CUDA's ctc_loss backward and the
+# embedding's index backward add with atomics, in no fixed order, and
+# cuBLAS and cuDNN sum in other orders and forms than the CPU; the worst
+# leaf, the second subsampling conv's weight (each element a sum of 15,048
+# products, through the algorithm cuDNN's heuristics pick), read 1.4e-4 of
+# its scale beyond the relative part on the first run. Parameters after the
+# step: adamw's first update is lr * g / (|g| + eps), about lr * sign(g), so
+# an element whose gradient is float32 noise may move lr either way on each
+# side: within 2 * lr everywhere, and within 1e-6 for all but 1% of the
+# elements.
+TRAIN_VS_CPU_LOSS_RTOL = 1e-5
+TRAIN_VS_CPU_GRAD_RTOL, TRAIN_VS_CPU_GRAD_SCALE = 1e-3, 5e-4
+TRAIN_VS_CPU_PARAM_CLOSE, TRAIN_VS_CPU_PARAM_FAR_SHARE = 1e-6, 0.01
+
+
+def train_vs_cpu(dev) -> None:
+    """One train_step at small width on the card and on the CPU from the
+    same weights and batch (8 utterances of the 4 s bucket: 5 blocks
+    each): loss, every gradient and every updated parameter."""
+    import numpy as np
+    import torch
+
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.params import (
+        params_to_numpy,
+        random_params,
+        tree_leaves,
+        tree_map,
+    )
+    from speechcatcher_tpu_torch.training import (
+        TrainBatch,
+        joint_loss,
+        make_optimizer,
+        train_step,
+    )
+
+    cfg = small_train_config()
+    tree = random_params(cfg, 3)
+    cpu = torch.device("cpu")
+    batch_cpu, _, _ = train_batch(ASRModel.from_numpy(cfg, tree, cpu),
+                                  bucket_s=4)
+    out = []
+    for d in (cpu, dev):
+        model = ASRModel.from_numpy(cfg, tree, d)
+        batch = TrainBatch(*(x.to(d) for x in batch_cpu))
+        opt = make_optimizer(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
+        state = opt.init(model.params)
+        loss, _ = joint_loss(model.params, batch, cfg)
+        grads = torch.autograd.grad(loss, state.leaves)
+        for x, g in zip(state.leaves, grads):
+            x.grad = g
+        grad_tree = params_to_numpy(tree_map(lambda x: x.grad,
+                                             model.params))
+        _, _, m = train_step(model.params, state, batch, cfg, opt)
+        out.append((loss.item(), grad_tree, params_to_numpy(model.params),
+                    float(m["loss"])))
+    (l_cpu, g_cpu, p_cpu, s_cpu), (l_gpu, g_gpu, p_gpu, s_gpu) = out
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst_grad, worst_leaf = 0.0, ""
+    for (path, gc), (_, gg) in zip(tree_leaves(g_cpu), tree_leaves(g_gpu)):
+        atol = max(TRAIN_VS_CPU_GRAD_SCALE * float(np.abs(gc).max()), 1e-8)
+        excess = float((np.abs(gg - gc) - TRAIN_VS_CPU_GRAD_RTOL
+                        * np.abs(gc)).max()) / atol
+        if excess > worst_grad:
+            worst_grad, worst_leaf = excess, path
+    diffs = np.concatenate([np.abs(pg - pc).ravel() for (_, pc), (_, pg) in
+                            zip(tree_leaves(p_cpu), tree_leaves(p_gpu))])
+    far = float((diffs > TRAIN_VS_CPU_PARAM_CLOSE).mean())
+    row = {"phase": "train_vs_cpu", "config": "flagship geometry, d 256, "
+           "4 heads, 2 + 2 layers, conv2d",
+           "batch": list(batch_cpu.feats.shape), "loss_cpu": l_cpu,
+           "loss_card": l_gpu, "loss_rel_err": loss_rel,
+           "loss_tol": TRAIN_VS_CPU_LOSS_RTOL,
+           "grad_worst_share_of_tol": worst_grad,
+           "grad_worst_leaf": worst_leaf,
+           "grad_tol": [TRAIN_VS_CPU_GRAD_RTOL, TRAIN_VS_CPU_GRAD_SCALE],
+           "param_max_abs_diff": float(diffs.max()),
+           "param_share_beyond_1e-6": far,
+           "step_loss_cpu": s_cpu, "step_loss_card": s_gpu}
+    emit(row)
+    if (not loss_rel <= TRAIN_VS_CPU_LOSS_RTOL or worst_grad > 1.0
+            or float(diffs.max()) > 2 * TRAIN_LR
+            or far > TRAIN_VS_CPU_PARAM_FAR_SHARE):
+        fail(f"train_vs_cpu: the card's train step differs from the CPU's: "
+             f"{row}")
+
+
+def greedy_path(dev, counters, fns, smi: str) -> dict:
+    """greedy_decode_batch of 8 waveforms of 2-30 s on the flagship (random
+    weights of the talker, whose CTC head emits), its RTF and launches;
+    then at small width, the card's tokens against the CPU's, exactly."""
+    import torch
+
+    from speechcatcher_tpu_torch.decode.greedy import greedy_decode_batch
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.params import random_params
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    model = flagship_model(dev, seed=TALKER_SEED, biases=TALKER_BIASES)
+    rate = model.cfg.sample_rate
+    seconds = (2.0, 5.5, 9.0, 12.5, 16.0, 21.0, 25.5, 30.0)
+    waves = [synth_audio(s, seed=300 + i, rate=rate)
+             for i, s in enumerate(seconds)]
+    greedy_decode_batch(model, waves[:2])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(counters, fns)
+    t0 = time.perf_counter()
+    out = greedy_decode_batch(model, waves)
+    wall = time.perf_counter() - t0
+    launches = counts(counters, fns)
+    emit({"phase": "greedy_path", "utterances": len(waves),
+          "audio_s": sum(seconds), "wall_s": wall,
+          "rtf": wall / sum(seconds), "tokens": [len(i) for _, i in out],
+          "nvidia_smi": smi})
+    expect_counts("greedy_path", launches, {
+        "block_attention": model.cfg.encoder_layers,
+        "rel_block_attention": 0, "ctc_forward_recursion": 0,
+        "ring_append_cols": 0, "ring_append_rows": 0,
+        "BlockAttentionFn.backward_launches": 0})
+
+    cfg = small_train_config()
+    tree = random_params(cfg, 5)
+    tree["ctc"]["ctc_lo"]["bias"][cfg.blank_id] -= 2.0
+    on_cpu, on_card = (greedy_decode_batch(ASRModel.from_numpy(cfg, tree, d),
+                                           waves)
+                       for d in (torch.device("cpu"), dev))
+    n_tokens = sum(len(ids) for _, ids in on_cpu)
+    emit({"phase": "greedy_vs_cpu", "tokens": n_tokens,
+          "equal": on_cpu == on_card})
+    if on_cpu != on_card or n_tokens < 8:
+        fail("greedy_vs_cpu: the card's tokens differ from the CPU's (or "
+             f"too few: {n_tokens})")
+    return launches
+
+
+def train_cli(dev) -> None:
+    """``python -m speechcatcher_tpu_torch.training --steps 3 --batch 8
+    --save-dir <dir>`` in a subprocess (the default config), then
+    ``--resume --steps 1``: the resumed run's first loss must be that of
+    the saved parameters on the first batch, computed in this process; and
+    ``--num-processes 2`` must exit non-zero naming ROADMAP item 7."""
+    import re
+    import tempfile
+
+    import torch
+
+    from speechcatcher_tpu_torch.config import ModelConfig
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.training import joint_loss
+    from speechcatcher_tpu_torch.utils.save import load_checkpoint
+
+    # The card is the command's default device; a CPU rehearsal names it.
+    device = ["--device", "cpu"] if dev.type == "cpu" else []
+
+    def run(*flags):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "speechcatcher_tpu_torch.training",
+             *flags, *device], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        return res, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res, wall = run("--steps", "3", "--batch", "8", "--save-dir", tmp)
+        if res.returncode != 0:
+            fail(f"train_cli: exit {res.returncode}: {res.stderr[-2000:]}")
+        losses = re.findall(r"^step \d+: loss (\S+)", res.stdout, re.M)
+        evals = re.findall(r"^eval @ step 3: .*", res.stdout, re.M)
+        res2, wall2 = run("--steps", "1", "--batch", "8", "--save-dir", tmp,
+                          "--resume")
+        if res2.returncode != 0:
+            fail(f"train_cli --resume: exit {res2.returncode}: "
+                 f"{res2.stderr[-2000:]}")
+        resumed = re.findall(r"^step 4: loss (\S+)", res2.stdout, re.M)
+        params, cfg, step = load_checkpoint(Path(tmp), step=3, device=dev)
+        model = ASRModel.random_init(ModelConfig(), seed=0, device=dev)
+        batch, _, _ = train_batch(model)
+        with torch.no_grad():
+            loss = float(joint_loss(params, batch, cfg)[0])
+        saved = sorted(p.name for p in Path(tmp).glob("params_*.pt"))
+    res3, _ = run("--steps", "1", "--num-processes", "2")
+    row = {"phase": "train_cli", "losses": losses, "eval": evals,
+           "wall_s": wall, "resume_wall_s": wall2, "resumed_loss": resumed,
+           "saved_params_loss": loss, "saved": saved,
+           "num_processes_2_exit": res3.returncode}
+    emit(row)
+    if (len(losses) != 3 or len(evals) != 1 or len(resumed) != 1
+            or abs(float(resumed[0]) - loss) > 1e-4 or step != 3
+            or saved != ["params_3.pt", "params_4.pt"]):
+        fail(f"train_cli: {row}")
+    if res3.returncode == 0 or "item 7" not in res3.stderr:
+        fail(f"train_cli: --num-processes 2 exited {res3.returncode}: "
+             f"{res3.stderr[-500:]}")
+
+
+def profile_train(dev) -> None:
+    """torch.profiler over one warm flagship train_step (batch 8 of the 4 s
+    bucket, 40 windows per layer): device kernels, busy time, idle share,
+    GEMM share, and the shares of A's forward kernel and of its backward
+    (the plain recompute and its VJP, the range
+    ``block_attention_plain_backward``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.training import make_optimizer, train_step
+
+    model = ASRModel.random_init(flagship_config(), seed=0, device=dev)
+    batch, _, _ = train_batch(model, bucket_s=4)
+    opt = make_optimizer(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
+    state = opt.init(model.params)
+    for _ in range(2):  # warm-up
+        train_step(model.params, state, batch, model.cfg, opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model.params, state, batch, model.cfg, opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    cpu, cuda = (torch.autograd.DeviceType.CPU,
+                 torch.autograd.DeviceType.CUDA)
+    busy_us = sum(e.self_device_time_total for e in averages
+                  if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False))
+    # The backward's range on the host: its row sums the device time of
+    # the kernels launched inside it.
+    ranges = {e.key: e.device_time_total for e in averages
+              if e.device_type == cpu and e.key.endswith("_plain_backward")}
+    fwd_us = sum(e.self_device_time_total for e in averages
+                 if e.device_type == cuda
+                 and "block_attention_kernel" in e.key
+                 and "rel_block_attention_kernel" not in e.key)
+    bwd_us = ranges.get("block_attention_plain_backward", 0.0)
+    report_profile(prof, {"phase": "profile_train", "batch": list(
+        batch.feats.shape), "windows_per_layer": batch.feats.shape[0]
+        * train_blocks(model.cfg, batch.feats.shape[1])}, wall)
+    emit({"phase": "profile_train_attention", "busy_ms": busy_us / 1e3,
+          "block_attention_forward_ms": fwd_us / 1e3,
+          "block_attention_forward_share": fwd_us / busy_us,
+          "block_attention_backward_ms": bwd_us / 1e3,
+          "block_attention_backward_share": bwd_us / busy_us,
+          "backward_ranges_ms": {k: v / 1e3 for k, v in ranges.items()}})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="utterance",
                     choices=("utterance", "engine", "conformer", "tiling",
-                             "recursion", "recognize"),
+                             "recursion", "recognize", "train"),
                     help="profile one main-path utterance (default), "
                     "engine ticks at S=8, one conformer utterance, or the "
                     "attention kernels' device time under either tiling "
                     "at 1 to 32 windows, or the CTC recursion kernel's time "
                     "at 5 to 160 hypotheses, or recognize() on 70 s, "
-                    "serial and batched, then stop")
+                    "serial and batched, or one flagship train step, then "
+                    "stop")
     ap.add_argument("--precision", choices=PRECISIONS, default="float32",
                     help="the model of --profile, --profile engine and "
                     "--profile conformer: float32, that with only the CTC "
@@ -2068,12 +2670,14 @@ def main() -> int:
     from speechcatcher_tpu_torch.device import resolve_device
     from speechcatcher_tpu_torch.ops.kernels import _build
     from speechcatcher_tpu_torch.ops.kernels.block_attention import (
+        BlockAttentionFn,
         block_attention,
     )
     from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
         ctc_forward_recursion,
     )
     from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+        RelBlockAttentionFn,
         rel_block_attention,
     )
     from speechcatcher_tpu_torch.ops.kernels.ring_append import (
@@ -2102,6 +2706,9 @@ def main() -> int:
         return 0
     if args.profile == "recognize":
         profile_recognize(dev)
+        return 0
+    if args.profile == "train":
+        profile_train(dev)
         return 0
     if args.profile == "conformer":
         profile_utterance(dev, encoder_type="conformer",
@@ -2201,6 +2808,31 @@ def main() -> int:
     by_path["conformer_engine"] = engine_path(
         dev, counters, conformer, phase="conformer_engine_path",
         zero=(block_attention,))
+    del conformer
+    # Training and offline greedy decode: A and E through their autograd
+    # Functions at the training shapes, B, C and D refusing grad, then the
+    # paths.
+    fns = [BlockAttentionFn, RelBlockAttentionFn]
+    grad_rows = [attention_grad(dev, cfg, n, rel) for rel in (False, True)
+                 for n in TRAIN_WINDOWS]
+    for row in grad_rows:
+        worst[row["name"]] = max(worst[row["name"]],
+                                 row["forward_max_abs_err"])
+    refuse_grad_on_card(dev)
+    backward = {}
+    for path, run in (("train", train_path),
+                      ("conformer_train", conformer_train_path),
+                      ("greedy", greedy_path)):
+        got = run(dev, counters, fns, smi)
+        by_path[path] = {c.__name__: got[c.__name__] for c in counters}
+        for f in fns:
+            key = f.__name__ + ".backward_launches"
+            backward[key] = backward.get(key, 0) + got[key]
+    train_vs_cpu(dev)
+    train_cli(dev)
+    backward_of = {"block_attention": "BlockAttentionFn.backward_launches",
+                   "rel_block_attention":
+                       "RelBlockAttentionFn.backward_launches"}
     summary = []
     for k in kernels:
         name = k["name"]
@@ -2211,7 +2843,15 @@ def main() -> int:
             "max_abs_err": worst[name],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"]} | {
+            "library_ms": k["library_ms"]} | ({
+            # A and E: backwards on the training paths and the training
+            # shapes' rows of attention_grad.
+            "backward_launches": backward[backward_of[name]],
+            "train_rows": [{key: r[key] for key in (
+                "shape", "ms", "device_us", "bound_ms", "bound_by",
+                "sdpa_ms", "plain_ms", "backward_ms")}
+                for r in grad_rows if r["name"] == name]}
+            if name in backward_of else {}) | {
             # B on bfloat16 rows beside the float32 form.
             key: k[key] for key in ("device_us", "ms_bf16", "device_us_bf16",
                                     "bound_ms_bf16") if "ms_bf16" in k})

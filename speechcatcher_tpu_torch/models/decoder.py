@@ -1,7 +1,8 @@
-"""Transformer decoder, incremental beam step.
+"""Transformer decoder: full forward (training) and incremental beam step.
 
-Port of ``speechcatcher_tpu/models/decoder.py::decoder_step`` on its default
-cross-attention path. Each layer caches its post-norm1 ACTIVATIONS in one
+Port of ``speechcatcher_tpu/models/decoder.py``: ``decoder_forward_train``
+(teacher forcing over whole token sequences, causal and padding masks, no
+kernel) and ``decoder_step`` on its default cross-attention path. Each layer caches its post-norm1 ACTIVATIONS in one
 fixed-capacity (L, N, Lmax, d) buffer; the K/V projections commute to the
 query/output side (``_attend_cached_lane``). The cache is lazily reordered:
 beam pruning permutes a small per-position lane map, never the buffer, so
@@ -27,6 +28,7 @@ contractions in float32. int8 K/V weights are dequantised by
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -40,6 +42,7 @@ from speechcatcher_tpu_torch.ops.layers import (
     feed_forward,
     layer_norm,
     linear,
+    multi_head_attention,
     sinusoidal_pe_table,
 )
 
@@ -59,6 +62,42 @@ def init_decoder_cache(cfg: ModelConfig, n_hyps: int,
 
 def decoder_pe_table(cfg: ModelConfig):
     return sinusoidal_pe_table(cfg.decoder_dim, cfg.pos_enc_max_len)
+
+
+def decoder_forward_train(params: Params, memory: torch.Tensor,
+                          memory_lens: torch.Tensor, ys_in: torch.Tensor,
+                          ys_in_lens: torch.Tensor, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """(B, L, vocab) logits of ys_in (B, L) over memory (B, Tm, d). Both
+    masks are 3-D, (B, L, L) causal & padding and (B, 1, Tm), so the
+    attention is the plain one."""
+    pe = _pe_table(cfg, memory.device)
+    b, l = ys_in.shape
+    d = cfg.decoder_dim
+    dev = memory.device
+    x = params["embed"]["weight"][ys_in.long()] * math.sqrt(d) + pe[None, :l]
+    causal = torch.tril(torch.ones((l, l), dtype=torch.bool, device=dev))
+    pad = torch.arange(l, device=dev)[None, :] < ys_in_lens[:, None]
+    tgt_mask = (pad[:, None, :] & causal[None, :, :]).float()
+    mem_mask = (torch.arange(memory.shape[1], device=dev)[None, :]
+                < memory_lens[:, None]).float()[:, None, :]
+    for p_layer in params["layers"]:
+        hn = layer_norm(p_layer["norm1"], x)
+        x = x + multi_head_attention(p_layer["self_attn"], hn, hn, hn,
+                                     tgt_mask, cfg.decoder_heads)
+        hn = layer_norm(p_layer["norm2"], x)
+        x = x + multi_head_attention(p_layer["src_attn"], hn, memory, memory,
+                                     mem_mask, cfg.decoder_heads)
+        hn = layer_norm(p_layer["norm3"], x)
+        x = x + feed_forward(p_layer["feed_forward"], hn)
+    if cfg.normalize_before:
+        x = layer_norm(params["after_norm"], x)
+    return linear(params["output_layer"], x)
+
+
+@functools.lru_cache(maxsize=8)
+def _pe_table(cfg: ModelConfig, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(decoder_pe_table(cfg)).to(device)
 
 
 def _attend_cached_lane(

@@ -1,4 +1,5 @@
-"""Contextual block transformer/conformer encoder, streaming inference path.
+"""Contextual block transformer/conformer encoder: streaming inference and
+whole-utterance (training-mode) forward.
 
 Port of ``speechcatcher_tpu/models/encoder.py``: conv2d subsampling, block
 assembly with context ("addin") vectors, the layer stack with the per-layer
@@ -9,6 +10,12 @@ context carry, emit-window extraction, and the host-side chunk buffering of
 ``rel_block_attention`` kernel (``ops.conformer.rel_position_attention``),
 with the raw sinusoid table of the window as position embedding.
 
+``encoder_forward_train`` runs whole utterances as the reference's training
+forward does: every block of every utterance at once, N = B·block_num
+windows per layer through the same attention kernels (through their
+``autograd.Function``s where a loss needs gradients), or, for an utterance
+no longer than one block, the plain layer stack under a padding mask.
+
 Parameters: the encoder subtree of the port's model parameters, whose
 ``layers`` entry is a list of per-layer dicts (see ``params.unstack_layers``).
 """
@@ -16,6 +23,7 @@ Parameters: the encoder subtree of the port's model parameters, whose
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -148,6 +156,31 @@ def apply_layers_plain(layers: List[Params], x: torch.Tensor,
     layer_fn = _layer_fn(layer_kind)
     for p_layer in layers:
         x = layer_fn(p_layer, x, mask, n_head, pos_emb)
+    return x
+
+
+def apply_layers_train(
+    layers: List[Params],
+    xs_chunk: torch.Tensor,  # (B, bn, bs+2, d)
+    mask: torch.Tensor,      # (bs+2, bs+2)
+    n_head: int,
+    layer_kind: str = "transformer",
+    pos_emb: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Training-mode layer stack. Layer 0 keeps the addin context vectors
+    that ``encoder_forward_train`` placed at position 0 of each block;
+    before every later layer, position 0 of block 0 takes that block's own
+    last frame and position 0 of block i the last frame of block i-1, both
+    from the layer before."""
+    b, bn, w, d = xs_chunk.shape
+    layer_fn = _layer_fn(layer_kind)
+    x = xs_chunk
+    for l, p_layer in enumerate(layers):
+        if l:
+            ctx = torch.cat([x[:, 0:1, -1, :], x[:, :-1, -1, :]], dim=1)
+            x = torch.cat([ctx[:, :, None, :], x[:, :, 1:, :]], dim=2)
+        h = layer_fn(p_layer, x.reshape(b * bn, w, d), mask, n_head, pos_emb)
+        x = h.reshape(b, bn, w, d)
     return x
 
 
@@ -375,3 +408,91 @@ class StreamingEncoder:
             n_processed_blocks=npb + block_num,
             past_ctx=next_ctx,
         )
+
+
+@functools.lru_cache(maxsize=8)
+def _constants(cfg: ModelConfig, device: torch.device):
+    """(PE table, block mask) of a config on a device, made once."""
+    return (torch.from_numpy(encoder_pe_table(cfg)).to(device),
+            torch.from_numpy(block_attention_mask(cfg.block_size)).to(device))
+
+
+def subsampled_lens(ilens: torch.Tensor, input_layer: str) -> torch.Tensor:
+    """Frame counts after the conv subsampling: the kernel/stride walk of
+    ``CONV_SPECS`` on lengths ('linear' keeps them)."""
+    if input_layer == "linear":
+        return ilens
+    kernels, strides = CONV_SPECS[input_layer]
+    for k, s in zip(kernels, strides):
+        ilens = (ilens - k) // s + 1
+    return ilens
+
+
+def encoder_forward_train(params: Params, feats: torch.Tensor,
+                          ilens: torch.Tensor, cfg: ModelConfig
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-utterance block-simulated forward: feats (B, T, n_mels), ilens
+    (B,) → (ys (B, T', d), olens (B,))."""
+    pe, mask = _constants(cfg, feats.device)
+    layers = params["layers"]
+    xs = conv2d_subsample(params["embed"], feats, cfg.input_layer)
+    olens = subsampled_lens(ilens, cfg.input_layer)
+
+    total = xs.shape[1]
+    bs, hop, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
+    past_size = bs - hop - la
+
+    if total <= bs:
+        x = add_positional_encoding(xs, pe, 0)
+        pad_mask = (torch.arange(total, device=xs.device)[None, :]
+                    < olens[:, None]).float()[:, None, :]
+        x = apply_layers_plain(layers, x, pad_mask, cfg.encoder_heads,
+                               layer_kind=cfg.encoder_type,
+                               pos_emb=pe[None, :total])
+        if cfg.normalize_before:
+            x = layer_norm(params["after_norm"], x)
+        return x, olens
+
+    block_num = math.ceil(float(total - past_size - la) / float(hop))
+
+    # Context vectors per block: the mean (or max) of its frames.
+    addins = []
+    for i in range(block_num):
+        chunk = xs[:, i * hop: i * hop + min(bs, total - i * hop), :]
+        addins.append(chunk.mean(dim=1) if cfg.init_average
+                      else chunk.amax(dim=1))
+    addin = torch.stack(addins, dim=1)  # (B, bn, d)
+    if cfg.ctx_pos_enc:
+        addin = add_positional_encoding(addin, pe, 0)
+    xs_pe = add_positional_encoding(xs, pe, 0)
+
+    # Chunks: [previous block's addin, bs frames (zero-padded), own addin].
+    prev = torch.cat([addin[:, 0:1], addin[:, :block_num - 1]], dim=1)
+    chunks = []
+    for i in range(block_num):
+        c = xs_pe[:, i * hop: i * hop + min(bs, total - i * hop), :]
+        if c.shape[1] < bs:
+            c = F.pad(c, (0, 0, 0, bs - c.shape[1]))
+        chunks.append(torch.cat([prev[:, i:i + 1], c, addin[:, i:i + 1]],
+                                dim=1))
+    xs_chunk = torch.stack(chunks, dim=1)
+
+    ys_chunk = apply_layers_train(
+        layers, xs_chunk, mask, cfg.encoder_heads,
+        layer_kind=cfg.encoder_type, pos_emb=pe[None, :bs + 2])
+    ys_chunk = ys_chunk[:, :, 1:, :]  # drop the previous-context slot
+
+    # Extraction on the frame indices after that slot.
+    offset = bs - la - hop
+    pieces = [ys_chunk[:, 0, 0:bs - la, :]]
+    emitted = bs - la
+    for i in range(1, block_num - 1):
+        pieces.append(ys_chunk[:, i, offset:offset + hop, :])
+        emitted += hop
+    if block_num > 1:
+        pieces.append(ys_chunk[:, block_num - 1,
+                               offset:offset + total - emitted, :])
+    ys = torch.cat(pieces, dim=1)
+    if cfg.normalize_before:
+        ys = layer_norm(params["after_norm"], ys)
+    return ys, olens

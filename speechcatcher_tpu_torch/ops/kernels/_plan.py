@@ -49,6 +49,22 @@ def check_devices(name: str, *tensors) -> None:
                          + ", ".join(str(a.device) for a in tensors))
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd must follow a call on these operands: grad mode on
+    and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would have to follow a kernel that has no
+    backward (B, C, D; their JAX counterparts have no VJP either). A result
+    without a gradient would otherwise pass unnoticed."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{name} has no backward: call it under "
+                           "torch.no_grad() or on operands that do not "
+                           "require grad")
+
+
 def launch(plans: dict, key: tuple, args: ctypes.Structure, entry: str,
            device: torch.device, out_shape: tuple = ()) -> Launch:
     """Bind a planned signature's entry point on CUDA and cache it."""

@@ -16,6 +16,13 @@ warp per score row) and returns the ``transpose(1, 2)`` view of a contiguous
 H·dk)`` merges without a copy. On a CPU tensor it runs
 ``block_attention_plain``, the same arithmetic in PyTorch.
 
+Training: where grad mode is on and an operand requires grad, the call goes
+through ``BlockAttentionFn``, whose backward recomputes the attention
+through ``block_attention_plain`` and takes its VJP, as the JAX package's
+``custom_vjp`` rematerialises its XLA reference. ``backward_launches`` on
+the Function counts those backwards on the card; any other call takes the
+path above unchanged.
+
 Both routes check the operands alike, once per input signature:
 ``attention_plan`` (plain Python, shared with ``rel_block_attention``) does
 every check and holds the launch's integers in a ``ctypes.Structure``,
@@ -165,11 +172,10 @@ def _launch(key: tuple, q, k, v, mask) -> _plan.Launch:
                         (args.n, args.w, args.h, args.dk))
 
 
-def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, dk) float32 q, k, v (any strides on N, H, W) and a
-    contiguous (W, W) float32 mask -> (N, H, W, dk); on the card, the
-    transposed view of a contiguous (N, W, H, dk) tensor."""
+def _block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """The forward call: the kernel on the card, the plain version on the
+    CPU."""
     key = (q.shape, q.stride(), q.dtype, q.device,
            k.shape, k.stride(), k.dtype, k.device,
            v.shape, v.stride(), v.dtype, v.device,
@@ -184,6 +190,54 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _plan.raise_launch_error("block_attention", err)
     block_attention.launches += 1
     return out.transpose(1, 2)
+
+
+def plain_vjp(plain, operands: tuple, fixed: tuple, grad: torch.Tensor,
+              fn) -> tuple:
+    """Gradients of ``plain(*operands, *fixed)`` for the cotangent `grad`,
+    recomputed through autograd (what the JAX ``custom_vjp`` does with its
+    XLA reference); counts one backward on the card. A profiler sees it as
+    the range ``<plain's name>_backward``."""
+    with torch.profiler.record_function(plain.__name__ + "_backward"):
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in operands]
+            out = plain(*xs, *fixed)
+        grads = torch.autograd.grad(out, xs, grad)
+    if grad.device.type == "cuda":
+        fn.backward_launches += 1
+    return grads
+
+
+class BlockAttentionFn(torch.autograd.Function):
+    """Kernel A with a backward: the forward is the kernel (the plain
+    version on the CPU), the backward the VJP of
+    ``block_attention_plain`` recomputed from the saved operands. The mask
+    gets no gradient."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return _block_attention(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, mask = ctx.saved_tensors
+        return (*plain_vjp(block_attention_plain, (q, k, v), (mask,), grad,
+                           BlockAttentionFn), None)
+
+
+def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, dk) float32 q, k, v (any strides on N, H, W) and a
+    contiguous (W, W) float32 mask -> (N, H, W, dk); on the card, the
+    transposed view of a contiguous (N, W, H, dk) tensor. Where autograd
+    must follow the call (grad mode on and q, k or v requiring grad) it goes
+    through ``BlockAttentionFn``."""
+    if _plan.needs_grad(q, k, v):
+        return BlockAttentionFn.apply(q, k, v, mask)
+    return _block_attention(q, k, v, mask)
 
 
 block_attention.launches = 0

@@ -247,6 +247,7 @@ def ctc_forward_recursion(xn: torch.Tensor, xb: torch.Tensor,
     LOGZERO at t = 0); start, end (N,) int32;
     olen0 (N,) float32, 1.0 where the hypothesis has no token yet -> r
     (2, T, N) float32 [r_n, r_b], LOGZERO outside [start, end)."""
+    _plan.refuse_grad("ctc_forward_recursion", xn, xb, phi_shift, olen0)
     key = _signature(xn, xb, phi_shift, start, end, olen0)
     plan = _PLANS.get(key)
     if plan is None:
@@ -280,6 +281,7 @@ def ctc_forward_recursion_streams(xn: torch.Tensor, xb: torch.Tensor,
     over [min(max(olen, 1), T), enc_len), with r_n[0] = x_n[0] where olen is
     0; r_src (S, B, 2, T) float32 -> a new contiguous (S, B, 2, T) float32
     r, equal to r_src from enc_len on."""
+    _plan.refuse_grad("ctc_forward_recursion_streams", xn, xb, phi, r_src)
     key = _signature(xn, xb, phi, olen, enc_len, r_src)
     plan = _STREAMS_PLANS.get(key)
     if plan is None:

@@ -29,7 +29,10 @@ view of a contiguous (N, W, H, dk) result, which the caller merges into
 (N, W, H·dk) without a copy. On a CPU tensor it runs
 ``rel_block_attention_plain``, the same arithmetic in PyTorch. Both routes
 check the operands alike, once per input signature, through
-``block_attention.attention_plan``.
+``block_attention.attention_plan``. Where grad mode is on and an operand
+requires grad, the call goes through ``RelBlockAttentionFn``, whose backward
+recomputes the plain version and takes its VJP (``backward_launches`` counts
+those backwards on the card).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from speechcatcher_tpu_torch.ops.kernels import _build, _plan
 from speechcatcher_tpu_torch.ops.kernels.block_attention import (
     MASK_MIN,
     attention_plan,
+    plain_vjp,
 )
 
 
@@ -84,14 +88,9 @@ def _launch(key: tuple, q, k, v, pos, bias_u, bias_v, mask) -> _plan.Launch:
                         q.device, (args.n, args.w, args.h, args.dk))
 
 
-def rel_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        pos: torch.Tensor, bias_u: torch.Tensor,
-                        bias_v: torch.Tensor, mask: torch.Tensor
-                        ) -> torch.Tensor:
-    """(N, H, W, dk) float32 q, k, v, a shared (H, W, dk) position table and
-    (H, dk) biases (any strides on the leading dims) and a contiguous (W, W)
-    float32 mask -> (N, H, W, dk); on the card, the transposed view of a
-    contiguous (N, W, H, dk) tensor."""
+def _rel_block_attention(q, k, v, pos, bias_u, bias_v, mask):
+    """The forward call: the kernel on the card, the plain version on the
+    CPU."""
     key = (q.shape, q.stride(), q.dtype, q.device,
            k.shape, k.stride(), k.dtype, k.device,
            v.shape, v.stride(), v.dtype, v.device,
@@ -110,6 +109,42 @@ def rel_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _plan.raise_launch_error("rel_block_attention", err)
     rel_block_attention.launches += 1
     return out.transpose(1, 2)
+
+
+class RelBlockAttentionFn(torch.autograd.Function):
+    """Kernel E with a backward: the forward is the kernel (the plain
+    version on the CPU), the backward the VJP of
+    ``rel_block_attention_plain`` recomputed from the saved operands, with
+    real gradients for q, k, v, pos, bias_u and bias_v (the linear_pos
+    projection and the Transformer-XL biases train). The mask gets none."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos, bias_u, bias_v, mask):
+        ctx.save_for_backward(q, k, v, pos, bias_u, bias_v, mask)
+        return _rel_block_attention(q, k, v, pos, bias_u, bias_v, mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        *operands, mask = ctx.saved_tensors
+        return (*plain_vjp(rel_block_attention_plain, tuple(operands),
+                           (mask,), grad, RelBlockAttentionFn), None)
+
+
+def rel_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        pos: torch.Tensor, bias_u: torch.Tensor,
+                        bias_v: torch.Tensor, mask: torch.Tensor
+                        ) -> torch.Tensor:
+    """(N, H, W, dk) float32 q, k, v, a shared (H, W, dk) position table and
+    (H, dk) biases (any strides on the leading dims) and a contiguous (W, W)
+    float32 mask -> (N, H, W, dk); on the card, the transposed view of a
+    contiguous (N, W, H, dk) tensor. Where autograd must follow the call
+    (grad mode on and an operand requiring grad) it goes through
+    ``RelBlockAttentionFn``."""
+    if _plan.needs_grad(q, k, v, pos, bias_u, bias_v):
+        return RelBlockAttentionFn.apply(q, k, v, pos, bias_u, bias_v, mask)
+    return _rel_block_attention(q, k, v, pos, bias_u, bias_v, mask)
 
 
 rel_block_attention.launches = 0

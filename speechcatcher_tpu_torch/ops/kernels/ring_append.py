@@ -145,6 +145,7 @@ def ring_append_cols(ring: torch.Tensor, new: torch.Tensor,
     (S, V, TN) of the ring's dtype or float32, any strides (the transposed
     view of time-major (S, TN, V) log-probs reads as it lies); start, n_new
     (S,) int32. Returns ring."""
+    _plan.refuse_grad("ring_append_cols", ring, new)
     key = _signature(ring, new, start, n_new)
     plan = _COLS_PLANS.get(key) or _launch(
         _COLS_PLANS, key, _cols_plan, "sc_ring_append_cols", ring, new,
@@ -185,6 +186,7 @@ def ring_append_rows(cache: torch.Tensor, new: torch.Tensor,
     new (L, S, TN, D) of the cache's dtype or float32, any strides on its
     first three dims, its last dim contiguous; start, n_new (S,) int32.
     Returns cache."""
+    _plan.refuse_grad("ring_append_rows", cache, new)
     key = _signature(cache, new, start, n_new)
     plan = _ROWS_PLANS.get(key) or _launch(
         _ROWS_PLANS, key, _rows_plan, "sc_ring_append_rows", cache, new,

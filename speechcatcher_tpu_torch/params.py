@@ -11,7 +11,8 @@ statistics), drawn from ``np.random.default_rng(seed)``; the numbers differ
 from JAX's own random_init, which uses JAX keys.
 
 ``params_from_numpy(tree, device)`` turns any such numpy tree into tensors,
-whether it came from here or from the JAX package.
+whether it came from here or from the JAX package; ``params_to_numpy`` turns
+the port's tree (``layers`` as lists) back into that layout.
 """
 
 from __future__ import annotations
@@ -217,3 +218,41 @@ def params_from_numpy(tree, device) -> Dict[str, Any]:
     return tree_map(
         lambda x: torch.from_numpy(np.array(x, copy=True)).to(dev), tree
     )
+
+
+def _stack_layers(layers: list):
+    """Per-layer numpy trees (dicts of arrays) → one tree of arrays with a
+    leading layer axis."""
+    if isinstance(layers[0], dict):
+        return {k: _stack_layers([l[k] for l in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+def params_to_numpy(params) -> Dict[str, Any]:
+    """The port's tree (each ``layers`` entry a list of per-layer dicts) →
+    numpy in the JAX pytree layout (layers stacked on a leading axis), the
+    inverse of ``params_from_numpy`` + ``unstack_layers``. bfloat16 leaves
+    widen to float32 (numpy has no bfloat16)."""
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            items = [walk(v) for v in node]
+            return (_stack_layers(items) if key == "layers"
+                    else type(node)(items))
+        x = node.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+
+    return walk(params)
+
+
+def trainable_leaves(params) -> List[torch.Tensor]:
+    """Mark every floating-point leaf trainable (``requires_grad_()``) and
+    return them in ``tree_leaves`` order. The per-layer views of the port's
+    tree are leaves of their own here: gradients and in-place updates land
+    on the views, whose memory is the stacked tensor's."""
+    leaves = []
+    for _, x in tree_leaves(params):
+        if x.is_floating_point():
+            leaves.append(x.requires_grad_())
+    return leaves

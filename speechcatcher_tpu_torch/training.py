@@ -1,0 +1,361 @@
+"""Joint CTC + attention training on one card.
+
+Port of ``speechcatcher_tpu/training.py``: the label-smoothed attention
+cross entropy plus the CTC loss, weighted ``ctc_weight·L_ctc + (1 -
+ctc_weight)·L_att``, and an optimizer that matches the JAX package's optax
+chain step for step:
+
+- ``clip_by_global_norm``: the gradients stay as they are where their global
+  norm is below the limit and are scaled by ``limit / norm`` otherwise
+  (``torch.nn.utils.clip_grad_norm_`` would divide by ``norm + 1e-6``);
+- ``adamw`` with b1 0.9, b2 0.999, eps 1e-8 and decoupled weight decay
+  (1e-6 here) on every leaf;
+- the learning rate, or ESPnet's WarmupLR schedule, evaluated at the number
+  of updates made so far (0 for the first), which the schedule raises to 1.
+
+Every floating-point leaf of the parameter tree trains, the conformer's
+BatchNorm running statistics included: they are leaves of the JAX tree, and
+``jax.value_and_grad`` differentiates the eval-mode affine through them.
+
+Parameters update in place; ``train_step`` returns the same tree and state
+objects, as the JAX function returns their successors. The command line,
+``python -m speechcatcher_tpu_torch.training``, runs on one card (``--device
+cpu`` for the CPU); multi-process and tensor-parallel runs are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from speechcatcher_tpu_torch.config import ModelConfig
+from speechcatcher_tpu_torch.models.ctc import ctc_loss
+from speechcatcher_tpu_torch.models.decoder import decoder_forward_train
+from speechcatcher_tpu_torch.models.encoder import encoder_forward_train
+from speechcatcher_tpu_torch.params import trainable_leaves
+
+# adamw's constants in optax (its defaults, which the JAX trainer keeps).
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+MULTI_GPU = ("multi-process and tensor-parallel training (--coordinator, "
+             "--num-processes, --process-id, --tp > 1) is not ported yet: "
+             "ROADMAP.md, section 1, item 7 'Multi-GPU'")
+
+
+class TrainBatch(NamedTuple):
+    feats: torch.Tensor       # (B, T, n_mels) normalized log-mel
+    feat_lens: torch.Tensor   # (B,)
+    tokens: torch.Tensor      # (B, U) target ids (0-padded)
+    token_lens: torch.Tensor  # (B,)
+
+
+def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor,
+                       lengths: torch.Tensor, smoothing: float = 0.1
+                       ) -> torch.Tensor:
+    """Label-smoothed cross entropy of (B, U, V) logits against (B, U)
+    targets; positions at or past `lengths` are masked out, and the sum is
+    divided by the count of the rest (at least 1)."""
+    vocab = logits.shape[-1]
+    logp = torch.log_softmax(logits, dim=-1)
+    onehot = F.one_hot(targets.long(), vocab).to(logp.dtype)
+    smoothed = onehot * (1.0 - smoothing) + smoothing / vocab
+    nll = -(smoothed * logp).sum(dim=-1)
+    mask = (torch.arange(targets.shape[1], device=targets.device)[None, :]
+            < lengths[:, None]).to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def joint_loss(params: Dict[str, Any], batch: TrainBatch, cfg: ModelConfig,
+               smoothing: float = 0.1
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """ctc_weight·L_ctc + (1 - ctc_weight)·L_att; (loss, {"loss", "ctc",
+    "att"})."""
+    enc_out, enc_lens = encoder_forward_train(
+        params["encoder"], batch.feats, batch.feat_lens, cfg)
+    l_ctc = ctc_loss(params["ctc"], enc_out, enc_lens, batch.tokens,
+                     batch.token_lens, blank=cfg.blank_id)
+
+    # Teacher forcing: ys_in = [sos] + y; ys_out = y + [eos], the EOS at
+    # each row's own length.
+    tokens = batch.tokens.long()
+    b, u = tokens.shape
+    ys_in = torch.cat([torch.full((b, 1), cfg.sos_id, dtype=tokens.dtype,
+                                  device=tokens.device), tokens], dim=1)
+    eos = F.one_hot(batch.token_lens.long(), u + 1) * cfg.eos_id
+    ys_out = torch.cat([tokens, tokens.new_zeros((b, 1))], dim=1) + eos
+    logits = decoder_forward_train(params["decoder"], enc_out, enc_lens,
+                                   ys_in, batch.token_lens + 1, cfg)
+    l_att = label_smoothing_ce(logits, ys_out, batch.token_lens + 1,
+                               smoothing)
+    loss = cfg.ctc_weight * l_ctc + (1.0 - cfg.ctc_weight) * l_att
+    return loss, {"loss": loss, "ctc": l_ctc, "att": l_att}
+
+
+def warmup_lr_schedule(peak_lr: float, warmup_steps: int):
+    """ESPnet's WarmupLR: lr · warmup^0.5 · min(step^-0.5, step ·
+    warmup^-1.5), the step raised to at least 1; computed in float32."""
+    def schedule(step) -> float:
+        s = np.maximum(np.float32(step), np.float32(1.0))
+        return float(np.float32(peak_lr * warmup_steps ** 0.5)
+                     * np.minimum(s ** np.float32(-0.5),
+                                  s * np.float32(warmup_steps ** -1.5)))
+    return schedule
+
+
+@dataclasses.dataclass
+class AdamState:
+    """The optimizer's state: updates made, the trained leaves and their
+    first and second moments."""
+
+    count: int
+    leaves: List[torch.Tensor]
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """optax's ``chain(clip_by_global_norm(grad_clip), adamw(lr,
+    weight_decay=...))`` on the parameter tree's floating-point leaves,
+    updated in place."""
+
+    lr: float = 1e-3
+    weight_decay: float = 1e-6
+    warmup_steps: int = 0
+    grad_clip: float = 0.0
+
+    def init(self, params) -> AdamState:
+        """Mark the tree's floating-point leaves trainable; zero moments."""
+        leaves = trainable_leaves(params)
+        return AdamState(
+            count=0, leaves=leaves,
+            mu=[torch.zeros_like(x, requires_grad=False) for x in leaves],
+            nu=[torch.zeros_like(x, requires_grad=False) for x in leaves])
+
+    def learning_rate(self, count: int) -> float:
+        if self.warmup_steps > 0:
+            return warmup_lr_schedule(self.lr, self.warmup_steps)(count)
+        return self.lr
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: AdamState) -> None:
+        """One step on ``state.leaves`` with their gradients `grads`."""
+        if self.grad_clip > 0:
+            norm = torch.stack(torch._foreach_norm(grads)).square().sum()
+            norm = norm.sqrt()
+            keep = norm < self.grad_clip
+            torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+            torch._foreach_mul_(grads, torch.where(keep, 1.0, self.grad_clip))
+        state.count += 1
+        # mu = (1 - b1)·g + b1·mu, nu = (1 - b2)·g² + b2·nu.
+        torch._foreach_mul_(state.mu, B1)
+        torch._foreach_add_(state.mu, grads, alpha=1.0 - B1)
+        torch._foreach_mul_(state.nu, B2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - B2)
+        c1 = float(1.0 - np.float32(B1) ** np.float32(state.count))
+        c2 = float(1.0 - np.float32(B2) ** np.float32(state.count))
+        mu_hat = torch._foreach_div(state.mu, c1)
+        denom = torch._foreach_div(state.nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, EPS)
+        upd = torch._foreach_div(mu_hat, denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, state.leaves, alpha=self.weight_decay)
+        lr = self.learning_rate(state.count - 1)
+        torch._foreach_add_(state.leaves, upd, alpha=-lr)
+
+
+def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-6,
+                   warmup_steps: int = 0, grad_clip: float = 0.0) -> AdamW:
+    """adamw, optionally under WarmupLR and global-norm clipping (ESPnet
+    trains these models with grad_clip 5.0)."""
+    return AdamW(lr=lr, weight_decay=weight_decay, warmup_steps=warmup_steps,
+                 grad_clip=grad_clip)
+
+
+def train_step(params: Dict[str, Any], opt_state: AdamState,
+               batch: TrainBatch, cfg: ModelConfig, optimizer: AdamW):
+    """One update: loss, gradients of every trained leaf, the optimizer
+    step in place. Returns (params, opt_state, metrics) with detached
+    metric tensors."""
+    loss, metrics = joint_loss(params, batch, cfg)
+    # A leaf the loss does not use gets zeros, as under jax.grad.
+    grads = torch.autograd.grad(loss, opt_state.leaves, allow_unused=True,
+                                materialize_grads=True)
+    optimizer.update(list(grads), opt_state)
+    return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+
+
+def evaluate(params, cfg: ModelConfig, batches, tokenizer=None
+             ) -> Dict[str, float]:
+    """Held-out evaluation: mean joint, CTC and attention loss over the
+    batches, plus the greedy-CTC WER and CER when a tokenizer is given.
+
+    `batches` yields (TrainBatch, ref_texts) pairs (``BucketBatcher``
+    with_refs=True); a flush-padded batch carries fewer refs than rows and
+    only those rows are scored."""
+    from speechcatcher_tpu_torch.decode.greedy import _encode_and_collapse
+    from speechcatcher_tpu_torch.wer import word_error_rate
+
+    sums = {"loss": 0.0, "ctc": 0.0, "att": 0.0}
+    refs: list = []
+    hyps: list = []
+    n = 0
+    with torch.no_grad():
+        for batch, texts in batches:
+            m = joint_loss(params, batch, cfg)[1]
+            for k in sums:
+                sums[k] += float(m[k])
+            n += 1
+            if tokenizer is not None:
+                tokens, counts = _encode_and_collapse(
+                    params, batch.feats, batch.feat_lens, cfg)
+                tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
+                for i, text in enumerate(texts):
+                    refs.append(text)
+                    hyps.append(tokenizer.ids_to_text(
+                        [int(t) for t in tokens[i, : counts[i]]]))
+    out = {k: v / max(n, 1) for k, v in sums.items()}
+    if refs:
+        wer_stats = word_error_rate(refs, hyps)
+        out["wer"] = wer_stats["wer"]
+        out["cer"] = wer_stats["cer"]
+    return out
+
+
+def main(argv=None):
+    """Training / fine-tuning on one card.
+
+    Smoke run: ``python -m speechcatcher_tpu_torch.training --steps 10``
+    (synthetic data, a random model of the default config). Real data:
+    ``--data-dir <kaldi dir>`` (wav.scp + text). Checkpoints are torch files
+    (``utils/save.py``), which the JAX package cannot read, nor the port its
+    orbax ones.
+    """
+    import argparse
+    from pathlib import Path
+
+    parser = argparse.ArgumentParser(
+        description="speechcatcher_tpu_torch trainer")
+    parser.add_argument("--model-dir", type=str, default=None,
+                        help="ESPnet model dir to fine-tune (default: "
+                        "random-init from the default config)")
+    parser.add_argument("--data-dir", type=str, default=None,
+                        help="Kaldi-style data dir (wav.scp + text); "
+                        "default: synthetic smoke data")
+    parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor parallelism (not ported yet: only 1)")
+    parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--warmup-steps", type=int, default=0,
+                        help="WarmupLR ramp (ESPnet trains with 25-30k)")
+    parser.add_argument("--grad-clip", type=float, default=5.0)
+    parser.add_argument("--eval-frac", type=float, default=0.1)
+    parser.add_argument("--eval-every", type=int, default=0,
+                        help="evaluate every N steps (0 = only at end)")
+    parser.add_argument("--save-dir", type=str, default=None,
+                        help="checkpoint dir (utils/save.py)")
+    parser.add_argument("--save-every", type=int, default=0)
+    parser.add_argument("--resume", action="store_true",
+                        help="resume params from --save-dir's latest step")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="multi-host coordinator (not ported yet)")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="number of processes (not ported yet: only 1)")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="this process's rank (not ported yet: only 0)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="cuda (the default) or cpu; cuda raises on a "
+                        "machine without it")
+    args = parser.parse_args(argv)
+    if (args.tp != 1 or args.coordinator is not None
+            or args.num_processes not in (None, 1)
+            or args.process_id not in (None, 0)):
+        parser.error(MULTI_GPU)
+
+    from speechcatcher_tpu_torch.data import (
+        BucketBatcher,
+        read_kaldi_dir,
+        synthetic_dataset,
+        train_eval_split,
+    )
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.utils.save import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    if args.model_dir is not None:
+        model = ASRModel.from_directory(Path(args.model_dir),
+                                        device=args.device)
+    else:
+        model = ASRModel.random_init(ModelConfig(), seed=0,
+                                     device=args.device)
+    cfg, tokenizer, frontend = model.cfg, model.tokenizer, model.frontend
+    params = model.params
+    start_step = 0
+    if args.resume and args.save_dir:
+        params, cfg, start_step = load_checkpoint(Path(args.save_dir),
+                                                  device=model.device)
+        print(f"resumed step {start_step} from {args.save_dir}")
+
+    if args.data_dir is not None:
+        utts = read_kaldi_dir(Path(args.data_dir))
+    else:
+        utts = synthetic_dataset(max(4 * args.batch, 32), cfg, tokenizer)
+    train_utts, eval_utts = train_eval_split(utts, args.eval_frac)
+    batcher = BucketBatcher(frontend, tokenizer, batch_size=args.batch,
+                            input_layer=cfg.input_layer)
+    print(f"{len(train_utts)} train / {len(eval_utts)} eval utterances")
+
+    optimizer = make_optimizer(args.lr, warmup_steps=args.warmup_steps,
+                               grad_clip=args.grad_clip)
+    opt_state = optimizer.init(params)
+
+    def run_eval(step):
+        if not eval_utts:
+            return
+        m = evaluate(params, cfg,
+                     batcher.batches(eval_utts, with_refs=True), tokenizer)
+        wer = f" wer {m['wer']*100:.1f}%" if "wer" in m else ""
+        print(f"eval @ step {step}: loss {m['loss']:.4f} "
+              f"(ctc {m['ctc']:.4f}, att {m['att']:.4f}){wer}")
+
+    def save(step):
+        if args.save_dir:
+            save_checkpoint(Path(args.save_dir), params, cfg, step=step)
+            print(f"saved step {step} -> {args.save_dir}")
+
+    step = start_step
+    epoch = 0
+    while step < start_step + args.steps:
+        epoch_start = step
+        for batch in batcher.batches(train_utts, shuffle_seed=epoch):
+            if step >= start_step + args.steps:
+                break
+            params, opt_state, metrics = train_step(
+                params, opt_state, batch, cfg, optimizer)
+            step += 1
+            print(f"step {step}: loss {float(metrics['loss']):.4f} "
+                  f"(ctc {float(metrics['ctc']):.4f}, "
+                  f"att {float(metrics['att']):.4f})")
+            if args.eval_every and step % args.eval_every == 0:
+                run_eval(step)
+            if args.save_every and step % args.save_every == 0:
+                save(step)
+        if step == epoch_start:
+            raise SystemExit("no training batch: every utterance was "
+                             f"dropped ({batcher.n_dropped} so far)")
+        epoch += 1
+    run_eval(step)
+    save(step)
+
+
+if __name__ == "__main__":
+    main()

@@ -628,3 +628,134 @@ def test_server_tick_from_a_worker_thread(dev):
     assert thread_launches == main_launches and min(main_launches) > 0
     finals = [m for out in main_log for m in out.values() if "result" in m]
     assert len(finals) == 2
+
+
+@pytest.mark.parametrize("n", [16, 40])
+@pytest.mark.parametrize("which", ["block", "rel"])
+def test_attention_functions_grad_equal_plain_autograd(dev, which, n):
+    """A and E through their autograd Functions on the card: the kernel's
+    forward, and gradients equal to plain autograd's on the same inputs
+    (the backward is that same plain code), with one backward counted."""
+    from speechcatcher_tpu_torch.ops.kernels.block_attention import (
+        BlockAttentionFn,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+        RelBlockAttentionFn,
+    )
+
+    rel = which == "rel"
+    h, w, dk = 8, 42, 64
+    gen = torch.Generator(device=dev).manual_seed(n)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    bases = [rand(n, w, h * dk).requires_grad_() for _ in range(3)]
+    if rel:
+        bases += [rand(1, w, h * dk).requires_grad_(),
+                  rand(h, dk).requires_grad_(), rand(h, dk).requires_grad_()]
+
+    def operands():
+        views = [b.reshape(n, w, h, dk).transpose(1, 2) for b in bases[:3]]
+        if rel:
+            views += [bases[3].reshape(1, w, h, dk).transpose(1, 2)[0],
+                      bases[4], bases[5]]
+        return views
+
+    mask = torch.from_numpy(block_attention_mask(w - 2)).to(dev)
+    kernel, plain, fn = ((rel_block_attention, rel_block_attention_plain,
+                          RelBlockAttentionFn) if rel else
+                         (block_attention, block_attention_plain,
+                          BlockAttentionFn))
+    launches, backwards = kernel.launches, fn.backward_launches
+    cot = rand(n, h, w, dk)
+    out = kernel(*operands(), mask)
+    got = torch.autograd.grad(out, bases, cot)
+    ref_out = plain(*operands(), mask)
+    ref = torch.autograd.grad(ref_out, bases, cot)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    assert fn.backward_launches == backwards + 1
+    assert float((out - ref_out).detach().abs().max()) <= 1e-5
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_kernels_without_backward_refuse_grad_on_the_card(dev):
+    """B, C and D raise on an operand that requires grad (no result without
+    a gradient), and run under no_grad."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    calls = [
+        (ctc_forward_recursion, [torch.randn(6, 3, device=dev)
+                                 for _ in range(3)]
+         + [torch.zeros(3, **i32), torch.full((3,), 6, **i32),
+            torch.ones(3, device=dev)]),
+        (ring_append_cols, [torch.zeros(2, 4, 8, device=dev),
+                            torch.randn(2, 4, 3, device=dev),
+                            torch.zeros(2, **i32),
+                            torch.full((2,), 3, **i32)]),
+        (ring_append_rows, [torch.zeros(2, 2, 8, 4, device=dev),
+                            torch.randn(2, 2, 3, 4, device=dev),
+                            torch.zeros(2, **i32),
+                            torch.full((2,), 3, **i32)]),
+    ]
+    for call, ops in calls:
+        ops[1].requires_grad_()
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call(*ops)
+        before = call.launches
+        with torch.no_grad():
+            call(*ops)
+        assert call.launches == before + 1
+
+
+def test_flagship_width_train_step_matches_cpu(dev):
+    """One train_step at the flagship's widths (d 512, 8 heads, FFN 2048,
+    vocab 1024; depth cut to 2 + 2 layers) on the card and on the CPU, from
+    the same weights and batch: loss within 1e-5 relative, gradients and
+    parameters within the tolerances of chip_smoke.train_vs_cpu (CUDA's
+    ctc_loss and index backwards add with atomics)."""
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.data import (
+        BucketBatcher,
+        synthetic_dataset,
+    )
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.params import (
+        params_to_numpy,
+        random_params,
+        tree_leaves,
+    )
+    from speechcatcher_tpu_torch.training import (
+        TrainBatch,
+        joint_loss,
+        make_optimizer,
+        train_step,
+    )
+
+    cfg = flagship_config(encoder_layers=2, decoder_layers=2)
+    tree = random_params(cfg, 4)
+    cpu = torch.device("cpu")
+    model = ASRModel.from_numpy(cfg, tree, cpu)
+    utts = synthetic_dataset(16, cfg, model.tokenizer, seed=2)
+    batch_cpu = next(iter(BucketBatcher(model.frontend, model.tokenizer,
+                                        batch_size=4).batches(utts)))
+    out = []
+    for d in (cpu, dev):
+        model = ASRModel.from_numpy(cfg, tree, d)
+        batch = TrainBatch(*(x.to(d) for x in batch_cpu))
+        opt = make_optimizer(lr=1e-3, grad_clip=5.0)
+        state = opt.init(model.params)
+        loss, _ = joint_loss(model.params, batch, cfg)
+        grads = torch.autograd.grad(loss, state.leaves)
+        train_step(model.params, state, batch, cfg, opt)
+        out.append((loss.item(), [g.cpu().numpy() for g in grads],
+                    params_to_numpy(model.params)))
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = out
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for gc, gg in zip(g_cpu, g_gpu):
+        atol = max(5e-4 * float(np.abs(gc).max()), 1e-8)
+        assert np.all(np.abs(gg - gc) <= 1e-3 * np.abs(gc) + atol)
+    diffs = np.concatenate([np.abs(pg - pc).ravel() for (_, pc), (_, pg) in
+                            zip(tree_leaves(p_cpu), tree_leaves(p_gpu))])
+    assert diffs.max() <= 2e-3 and (diffs > 1e-6).mean() <= 0.01

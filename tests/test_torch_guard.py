@@ -28,7 +28,8 @@ def test_no_jax_or_jax_package_imports():
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "speechcatcher_tpu", "optax"):
+            if top in ("jax", "jaxlib", "speechcatcher_tpu", "optax",
+                       "orbax"):
                 bad.append(f"{f.relative_to(ROOT)}: {name}")
     assert not bad, bad
 
@@ -77,6 +78,8 @@ def test_package_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['speechcatcher_tpu'] = None\n"
         "sys.modules['yaml'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "sys.modules['orbax'] = None\n"
         "import speechcatcher_tpu_torch.streaming\n"
         "import speechcatcher_tpu_torch.decode.scorers\n"
         "import speechcatcher_tpu_torch.ops.kernels._build\n"
@@ -91,6 +94,10 @@ def test_package_imports_with_jax_blocked():
         "import speechcatcher_tpu_torch.serve.vosk_test_client\n"
         "import speechcatcher_tpu_torch.utils.metrics\n"
         "import speechcatcher_tpu_torch.utils.term\n"
+        "import speechcatcher_tpu_torch.training\n"
+        "import speechcatcher_tpu_torch.data\n"
+        "import speechcatcher_tpu_torch.decode.greedy\n"
+        "import speechcatcher_tpu_torch.utils.save\n"
         "from speechcatcher_tpu_torch import load_model, recognize_file\n"
         "print('ok')\n"
     )
