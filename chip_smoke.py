@@ -1076,15 +1076,20 @@ def _sync(dev):
 
 def engine_path(dev, counters, model, chunk: int = 8192,
                 phase: str = "engine_path", zero=(), mulaw: bool = False,
-                score_tol: float = 1e-4):
+                score_tol: float = 1e-4, mesh=None, reference=None,
+                finals_out=None):
     """Ten streams of 3-6 s through the port's StreamingEngine at
     n_slots=8, staggered, every other one int16 (or all of them mu-law);
     the last two wait for freed slots; two finals go through finalize().
     Each final must equal the port's single-stream session on the same
     model, audio and chunking: tokens and positions exactly, the score
-    within rel. `score_tol`."""
+    within rel. `score_tol`. With a `mesh` the engine is sharded over it
+    (``shard_engine``) and each final must equal `reference`, the unsharded
+    engine's finals (which equal the session's), the same way. The finals
+    go into `finals_out`."""
     import numpy as np
 
+    from speechcatcher_tpu_torch.parallel.serve_sharding import shard_engine
     from speechcatcher_tpu_torch.serve.engine import StreamingEngine
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
 
@@ -1098,6 +1103,8 @@ def engine_path(dev, counters, model, chunk: int = 8192,
     if engine.MAXB != ENGINE_MAXB:
         fail(f"engine MAXB is {engine.MAXB}; kernels A and E were checked "
              f"at {ENGINE_MAXB} blocks per slot")
+    if mesh is not None:
+        engine = shard_engine(engine, mesh)
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -1107,6 +1114,7 @@ def engine_path(dev, counters, model, chunk: int = 8192,
     launches = {c.__name__: c.launches for c in counters}
     reused = len(slot_of) - len(set(slot_of.values()))
     emit({"phase": phase, "n_slots": 8, "streams": n,
+          "replicas": [r.S for r in getattr(engine, "replicas", [engine])],
           "slots_reused": reused, "ticks": len(tick_s),
           "p50_tick_ms": float(np.median(tick_s)) * 1e3,
           "max_tick_ms": float(np.max(tick_s)) * 1e3,
@@ -1116,11 +1124,16 @@ def engine_path(dev, counters, model, chunk: int = 8192,
     check_launches(phase, counters, launches, zero)
     if reused < 2:
         fail(f"only {reused} streams reused a freed slot")
+    if finals_out is not None:
+        finals_out.update(finals)
 
-    s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+    s2t = (Speech2TextStreaming(model=model, beam_size=5, device=dev)
+           if reference is None else None)
+    what = "single-stream session" if reference is None else "unsharded engine"
     worst = 0.0
     for k, st in enumerate(streams):
-        ry, rx, rs = single_stream_final(s2t, st["audio"], chunk)
+        ry, rx, rs = (single_stream_final(s2t, st["audio"], chunk)
+                      if reference is None else reference[k])
         ey, ex, es = finals[k]
         rel = abs(es - rs) / max(1.0, abs(rs))
         worst = max(worst, rel)
@@ -1128,9 +1141,10 @@ def engine_path(dev, counters, model, chunk: int = 8192,
                 and rel <= score_tol):
             fail(f"{phase} stream {k} ({st['wire']}, "
                  f"{'finalize' if st['single'] else 'finalize_batch'}) "
-                 f"differs from the single-stream session: "
+                 f"differs from the {what}: "
                  f"{ey.tolist()} / {ry.tolist()}, score {es} / {rs}")
-    emit({"phase": phase + "_vs_single_stream", "streams": n,
+    against = "_vs_single_stream" if reference is None else "_vs_unsharded"
+    emit({"phase": phase + against, "streams": n,
           "tokens_equal": True, "xpos_equal": True,
           "max_score_rel_err": worst, "score_tol": score_tol,
           "hyp_lens": [len(finals[k][0]) for k in range(n)]})
@@ -1868,7 +1882,8 @@ def recognize_path(dev, counters, model, smi: str) -> dict:
     return by_path
 
 
-def server_path(dev, counters, model, smi: str) -> dict:
+def server_path(dev, counters, model, smi: str, phase: str = "server_path",
+                mesh=None, reference=None) -> dict:
     """The websocket server as ``speechcatcher_tpu_torch_server`` runs it,
     in this process: ``start_server`` on 127.0.0.1 over a SessionManager
     of an 8-slot engine (int16 wire; endpointing off, so each stream ends
@@ -1877,13 +1892,16 @@ def server_path(dev, counters, model, smi: str) -> dict:
     more hold the other slots, and a ninth is refused as busy. Each final
     must equal ``_assemble_final`` over the single-stream session's final
     on the audio the server staged; the manager must have caught nothing
-    and the engine quarantined nothing."""
+    and the engine quarantined nothing. With a `mesh` the engine is
+    sharded over it (``--dp``); `reference` keeps the session's finals
+    between calls."""
     import asyncio
     import socket
 
     import numpy as np
     import websockets
 
+    from speechcatcher_tpu_torch.parallel.serve_sharding import shard_engine
     from speechcatcher_tpu_torch.serve.engine import StreamingEngine
     from speechcatcher_tpu_torch.serve.server import (
         Session,
@@ -1902,6 +1920,8 @@ def server_path(dev, counters, model, smi: str) -> dict:
         pcms.append(pcm[:-1] if len(pcm) % chunk == 0 else pcm)
     engine = StreamingEngine(model, n_slots=8, beam_size=5,
                              chunk_samples=chunk, device=dev)
+    if mesh is not None:
+        engine = shard_engine(engine, mesh)
     manager = SessionManager(engine, finalize_update_iters=10**6,
                              max_partial_iters=10**6, wire="int16")
     with socket.socket() as s:
@@ -1915,14 +1935,14 @@ def server_path(dev, counters, model, smi: str) -> dict:
                 return await websockets.connect(uri, max_size=None)
             except OSError:
                 await asyncio.sleep(0.05)
-        fail("server_path: the server did not come up")
+        fail(f"{phase}: the server did not come up")
 
     async def open_client():
         ws = await connect()
         await ws.send(json.dumps({"config": {"sample_rate": rate}}))
         reply = await asyncio.wait_for(ws.recv(), 60)
         if json.loads(reply) != {"partial": ""}:
-            fail(f"server_path: config answered with {reply!r}")
+            fail(f"{phase}: config answered with {reply!r}")
         return ws
 
     async def stream(ws, pcm):
@@ -1966,40 +1986,45 @@ def server_path(dev, counters, model, smi: str) -> dict:
     results, busy, wall = asyncio.run(drive())
     launches = {c.__name__: c.launches for c in counters}
     snap = manager.metrics.snapshot()
-    emit({"phase": "server_path", "n_slots": 8, "clients": n_clients,
+    emit({"phase": phase, "n_slots": 8, "clients": n_clients,
+          "replicas": [r.S for r in getattr(engine, "replicas", [engine])],
           "audio_s": sum(len(p) for p in pcms) / rate, "wall_s": wall,
           "partials": [p for _, p in results], "busy_reply": busy,
           "caught": manager.caught, "quarantined": engine.quarantined,
           "metrics": snap, "nvidia_smi": smi})
-    check_launches("server_path", counters, launches,
+    check_launches(phase, counters, launches,
                    [c for c in counters if c.__name__ == "rel_block_attention"])
     if busy != "Server busy, please try again later.":
-        fail(f"server_path: the ninth client got {busy!r}")
+        fail(f"{phase}: the ninth client got {busy!r}")
     if any(manager.caught.values()) or engine.quarantined:
-        fail(f"server_path: caught {manager.caught}, quarantined "
+        fail(f"{phase}: caught {manager.caught}, quarantined "
              f"{engine.quarantined}")
     if snap["total_finals"] != n_clients:
-        fail(f"server_path: {snap['total_finals']} finals")
+        fail(f"{phase}: {snap['total_finals']} finals")
 
     # The reference: the session over what the server staged (int16 times
     # the ring's float32 scale) in the engine's chunking.
-    s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+    if reference is None:
+        reference = {}
+    if not reference:
+        s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+        for k, pcm in enumerate(pcms):
+            audio = pcm.astype(np.float32) * np.float32(1 / 32767.0)
+            reference[k] = single_stream_final(s2t, audio, chunk)[:2]
     words = 0
-    for k, pcm in enumerate(pcms):
-        audio = pcm.astype(np.float32) * np.float32(1 / 32767.0)
-        yseq, xpos, _ = single_stream_final(s2t, audio, chunk)
+    for k in range(n_clients):
         sess = Session(slot=None)
-        want = manager._assemble_final(sess, yseq, xpos)
+        want = manager._assemble_final(sess, *reference[k])
         if sess.slot is not None:
             engine.release_slot(sess.slot)
         got = results[k][0]
         if got != want:
-            fail(f"server_path client {k}: final {got} differs from the "
+            fail(f"{phase} client {k}: final {got} differs from the "
                  f"single-stream session's {want}")
         words += len(got["result"])
     if words < 2:
-        fail(f"server_path: {words} words in {n_clients} finals")
-    emit({"phase": "server_path_vs_single_stream", "clients": n_clients,
+        fail(f"{phase}: {words} words in {n_clients} finals")
+    emit({"phase": phase + "_vs_single_stream", "clients": n_clients,
           "text_equal": True, "word_times_equal": True, "words": words})
     return launches
 
@@ -2041,6 +2066,9 @@ def profile_recognize(dev):
 # block geometry: the 2 s, 4 s and 32 s sample buckets of BucketBatcher.
 TRAIN_WINDOWS = (16, 40, 392)
 TRAIN_LR, TRAIN_CLIP = 1e-3, 5.0
+# The single-card train paths' losses by encoder type, which the tp ranks
+# must reproduce.
+TRAIN_LOSSES: dict = {}
 
 
 def attention_grad(dev, cfg, n_blocks: int, rel: bool) -> dict:
@@ -2333,8 +2361,8 @@ def train_path(dev, counters, fns, smi: str) -> dict:
     cfg = model.cfg
     batch, eval_utts, batcher = train_batch(model)
     n_steps = 5
-    _, launches = run_train_steps("train_path", counters, fns, model,
-                                  n_steps, batch, smi)
+    TRAIN_LOSSES["transformer"], launches = run_train_steps(
+        "train_path", counters, fns, model, n_steps, batch, smi)
     L = cfg.encoder_layers
     expect_counts("train_path", launches, {
         "block_attention": L * n_steps, "rel_block_attention": 0,
@@ -2369,8 +2397,8 @@ def conformer_train_path(dev, counters, fns, smi: str) -> dict:
                                  seed=0, device=dev)
     batch, _, _ = train_batch(model)
     n_steps = 3
-    _, launches = run_train_steps("conformer_train_path", counters, fns,
-                                  model, n_steps, batch, smi)
+    TRAIN_LOSSES["conformer"], launches = run_train_steps(
+        "conformer_train_path", counters, fns, model, n_steps, batch, smi)
     L = model.cfg.encoder_layers
     expect_counts("conformer_train_path", launches, {
         "block_attention": 0, "rel_block_attention": L * n_steps,
@@ -2528,12 +2556,13 @@ def greedy_path(dev, counters, fns, smi: str) -> dict:
     return launches
 
 
-def train_cli(dev) -> None:
+def train_cli(dev) -> list:
     """``python -m speechcatcher_tpu_torch.training --steps 3 --batch 8
     --save-dir <dir>`` in a subprocess (the default config), then
     ``--resume --steps 1``: the resumed run's first loss must be that of
     the saved parameters on the first batch, computed in this process; and
-    ``--num-processes 2`` must exit non-zero naming ROADMAP item 7."""
+    ``--num-processes 2`` without ``--coordinator`` must exit non-zero
+    saying it takes effect only with it. Returns the first run's losses."""
     import re
     import tempfile
 
@@ -2583,9 +2612,11 @@ def train_cli(dev) -> None:
             or abs(float(resumed[0]) - loss) > 1e-4 or step != 3
             or saved != ["params_3.pt", "params_4.pt"]):
         fail(f"train_cli: {row}")
-    if res3.returncode == 0 or "item 7" not in res3.stderr:
+    if (res3.returncode == 0
+            or "only with --coordinator" not in res3.stderr):
         fail(f"train_cli: --num-processes 2 exited {res3.returncode}: "
              f"{res3.stderr[-500:]}")
+    return [float(x) for x in losses]
 
 
 def profile_train(dev) -> None:
@@ -2640,6 +2671,320 @@ def profile_train(dev) -> None:
           "backward_ranges_ms": {k: v / 1e3 for k, v in ranges.items()}})
 
 
+# ---------------------------------------------------------------------------
+# Multi-card: engine replicas and tp ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP = 2
+TP_STREAMS = 4
+# A tp=2 train step against the single-card step on the same batch: the
+# row-parallel sums add in another order, so the first loss agrees to float32
+# rounding; after an update, elements whose gradient is float32 noise move
+# lr either way (see TRAIN_VS_CPU_*), and the losses of later steps agree to
+# this.
+TP_TRAIN_LOSS_RTOL = 1e-4
+
+
+def kernel_counters():
+    """(the five kernel wrappers, the two autograd Functions): what carries
+    a launch count."""
+    from speechcatcher_tpu_torch.ops.kernels.block_attention import (
+        BlockAttentionFn,
+        block_attention,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
+        ctc_forward_recursion,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+        RelBlockAttentionFn,
+        rel_block_attention,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.ring_append import (
+        ring_append_cols,
+        ring_append_rows,
+    )
+
+    return ([block_attention, rel_block_attention, ctc_forward_recursion,
+             ring_append_cols, ring_append_rows],
+            [BlockAttentionFn, RelBlockAttentionFn])
+
+
+def tp_attention_config(cfg, tp: int = TP):
+    """A config whose attention has the shape of one tp rank's: H/tp heads
+    of the same d/H (check_attention and attention_grad read the heads and
+    the width)."""
+    return cfg.replace(encoder_heads=cfg.encoder_heads // tp,
+                       encoder_dim=cfg.encoder_dim // tp)
+
+
+def on_ranks(fn, dev, timeout: float, args=(), n: int = TP):
+    """``run_ranks`` of `fn` over n gloo ranks that all drive this card
+    (NCCL takes one rank per card); the rendezvous file in a fresh
+    temporary directory."""
+    import tempfile
+
+    from speechcatcher_tpu_torch.parallel.launch import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_ranks(fn, n, str(Path(tmp) / "rendezvous"),
+                         backend="gloo", devices=[dev] * n,
+                         timeout=timeout, args=args)
+
+
+def _collectives_rank(devices):
+    import torch
+    import torch.distributed as dist
+
+    r = dist.get_rank()
+    x = torch.full((4,), float(r + 1), device=devices[r])
+    y = x.clone()
+    dist.all_reduce(y)
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x)
+    z = x.clone()
+    dist.broadcast(z, 0)
+    return {"all_reduce": y.tolist(), "all_gather": torch.cat(parts).tolist(),
+            "broadcast": z.tolist(), "device": str(y.device)}
+
+
+def gloo_collectives(dev) -> None:
+    """Which collectives gloo takes on CUDA tensors in this build: all_reduce,
+    all_gather (what gather_from_tp uses) and broadcast on two ranks of the
+    card. A refused one fails the run with the rank's traceback."""
+    t0 = time.perf_counter()
+    out = on_ranks(_collectives_rank, dev, timeout=120)
+    want = {"all_reduce": [3.0] * 4, "all_gather": [1.0] * 4 + [2.0] * 4,
+            "broadcast": [1.0] * 4}
+    emit({"phase": "gloo_cuda_collectives", "ranks": out,
+          "wall_s": time.perf_counter() - t0})
+    for got in out:
+        if {k: got[k] for k in want} != want or "cuda" not in got["device"]:
+            fail(f"gloo_cuda_collectives: {got}")
+
+
+def _tp_train_rank(devices, smi):
+    """One tp rank of tp_train_path: A (or E) at the rank's 4 heads against
+    its plain version, forward and gradients, at the batch's windows; then
+    3 flagship transformer steps and 1 conformer step on train_path's
+    batch, counts from 0 after the check."""
+    import torch
+
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from speechcatcher_tpu_torch.parallel.tp import set_tp_group
+    from speechcatcher_tpu_torch.training import make_optimizer, train_step
+
+    counters, fns = kernel_counters()
+    mesh = make_mesh(TP, tp=TP, devices=devices)
+    set_tp_group(mesh.tp_group)
+    dev = mesh.device
+    out = {}
+    for encoder_type, n_steps in (("transformer", 3), ("conformer", 1)):
+        model = ASRModel.random_init(
+            flagship_config(encoder_type=encoder_type), seed=0, device=dev)
+        cfg = model.cfg
+        batch, _, _ = train_batch(model)
+        windows = batch.feats.shape[0] * train_blocks(cfg,
+                                                      batch.feats.shape[1])
+        row = attention_grad(dev, tp_attention_config(cfg), windows,
+                             rel=encoder_type == "conformer")
+        params = model.params = shard_params(model.params, mesh)
+        opt = make_optimizer(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
+        state = opt.init(params, mesh)
+        torch.cuda.synchronize()
+        reset_counts(counters, fns)
+        losses, step_ms = [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            _, _, m = train_step(params, state, batch, cfg, opt, mesh)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        out[encoder_type] = {
+            "losses": losses, "step_ms": step_ms,
+            "launches": counts(counters, fns),
+            "attention": {k: row[k] for k in (
+                "name", "shape", "forward_max_abs_err", "grad_max_abs_diff",
+                "ms", "sdpa_ms", "plain_ms", "backward_ms", "bound_ms",
+                "bound_by")}}
+        del model, params, state
+    return mesh.coord, out
+
+
+def tp_train_path(dev, counters, smi: str) -> dict:
+    """Two gloo ranks on the card at tp=2, each with its shards of the
+    flagship: 3 transformer steps and 1 conformer step on train_path's
+    batch. Losses equal the single-card steps' (TRAIN_LOSSES) to rel.
+    TP_TRAIN_LOSS_RTOL on both ranks; each rank launches A (E for the
+    conformer) and its backward once per layer and step, at 4 heads.
+    Returns the launches and backwards summed over the ranks."""
+    from speechcatcher_tpu_torch.config import flagship_config
+
+    t0 = time.perf_counter()
+    out = on_ranks(_tp_train_rank, dev, timeout=600, args=(smi,))
+    wall = time.perf_counter() - t0
+    total = {}
+    for coord, res in out:
+        for encoder_type, got in res.items():
+            want = TRAIN_LOSSES[encoder_type][:len(got["losses"])]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                            want))
+            emit({"phase": "tp_train_path", "encoder": encoder_type,
+                  "rank_coord": coord, "losses": got["losses"],
+                  "single_card_losses": want, "max_loss_rel_err": rel,
+                  "loss_rtol": TP_TRAIN_LOSS_RTOL, "step_ms": got["step_ms"],
+                  "attention": got["attention"], "nvidia_smi": smi})
+            if not rel <= TP_TRAIN_LOSS_RTOL:
+                fail(f"tp_train_path {encoder_type} rank {coord}: losses "
+                     f"{got['losses']} vs single-card {want}")
+            L = flagship_config(encoder_type=encoder_type).encoder_layers
+            n = len(got["losses"])
+            rel_enc = encoder_type == "conformer"
+            expect_counts(f"tp_train_path_{encoder_type}_rank{coord[1]}",
+                          got["launches"], {
+                "block_attention": 0 if rel_enc else L * n,
+                "rel_block_attention": L * n if rel_enc else 0,
+                "BlockAttentionFn.backward_launches": 0 if rel_enc else L * n,
+                "RelBlockAttentionFn.backward_launches":
+                    L * n if rel_enc else 0,
+                "ctc_forward_recursion": 0, "ring_append_cols": 0,
+                "ring_append_rows": 0})
+            for key, v in got["launches"].items():
+                total[key] = total.get(key, 0) + v
+            heads = flagship_config().encoder_heads // TP
+            if got["attention"]["shape"][1] != heads:
+                fail(f"tp_train_path: attention checked at "
+                     f"{got['attention']['shape']}")
+    emit({"phase": "tp_train_path_summary", "ranks": len(out),
+          "wall_s": wall, **total})
+    return total
+
+
+def tp_engine_streams(rate: int):
+    return engine_streams(TP_STREAMS, [3.0, 4.0, 5.0, 6.0], [0] * TP_STREAMS,
+                          int16_every=2, seed0=300, rate=rate)
+
+
+def _tp_engine_rank(devices):
+    """One tp rank of tp_engine_path: the flagship engine (TP_STREAMS
+    slots) sharded at tp=2, driven over tp_engine_streams; records the
+    smallest positive gap between the k-th and (k+1)-th candidate of every
+    top-k of the beam search."""
+    import torch
+
+    from speechcatcher_tpu_torch.decode import beam_search
+    from speechcatcher_tpu_torch.parallel.mesh import make_mesh
+    from speechcatcher_tpu_torch.parallel.serve_sharding import shard_engine
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+    counters, _ = kernel_counters()
+    mesh = make_mesh(TP, tp=TP, devices=devices)
+    dev = mesh.device
+    model = flagship_model(dev, seed=0)
+    engine = shard_engine(StreamingEngine(
+        model, n_slots=TP_STREAMS, beam_size=5, chunk_samples=8192,
+        device=dev), mesh)
+    gaps = []
+
+    def recording_topk(x, k):
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        if x.shape[-1] > k:
+            gap = vals[..., k - 1] - vals[..., k]
+            gaps.append(torch.where(torch.isfinite(gap) & (gap > 0), gap,
+                                    float("inf")).amin())
+        return vals[..., :k], idx[..., :k]
+
+    beam_search._topk_stable = recording_topk
+    streams = tp_engine_streams(model.cfg.sample_rate)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    finals, tick_s, _ = drive_engine(engine, streams, 8192,
+                                     sync=torch.cuda.synchronize)
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    margin = float(torch.stack(gaps).amin()) if gaps else None
+    return (mesh.coord, {k: (y.tolist(), x.tolist(), s)
+                         for k, (y, x, s) in finals.items()},
+            launches, margin, tick_s, wall)
+
+
+def tp_engine_path(dev, counters, smi: str) -> dict:
+    """Two gloo ranks on the card, one flagship engine at tp=2 over
+    TP_STREAMS streams; each final on both ranks equals the unsharded
+    engine's on the same streams (tokens and positions exactly, the score
+    within rel. 1e-4). Prints each rank's closest top-k margin."""
+    import numpy as np
+    import torch
+
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+    model = flagship_model(dev, seed=0)
+    streams = tp_engine_streams(model.cfg.sample_rate)
+    ref, ref_tick_s, _ = drive_engine(
+        StreamingEngine(model, n_slots=TP_STREAMS, beam_size=5,
+                        chunk_samples=8192, device=dev),
+        streams, 8192, sync=torch.cuda.synchronize)
+    del model
+    out = on_ranks(_tp_engine_rank, dev, timeout=600)
+    total = {c.__name__: 0 for c in counters}
+    for coord, finals, launches, margin, tick_s, wall in out:
+        worst = 0.0
+        for k in range(TP_STREAMS):
+            ry, rx, rs = ref[k]
+            ey, ex, es = finals[k]
+            rel = abs(es - rs) / max(1.0, abs(rs))
+            worst = max(worst, rel)
+            if ey != ry.tolist() or ex != rx.tolist() or not rel <= 1e-4:
+                fail(f"tp_engine_path rank {coord} stream {k}: {ey} / "
+                     f"{ry.tolist()}, score {es} / {rs} (closest top-k "
+                     f"margin {margin})")
+        emit({"phase": "tp_engine_path", "rank_coord": coord,
+              "streams": TP_STREAMS, "tokens_equal": True,
+              "xpos_equal": True, "max_score_rel_err": worst,
+              "closest_topk_margin": margin,
+              "hyp_lens": [len(finals[k][0]) for k in range(TP_STREAMS)],
+              "p50_tick_ms": float(np.median(tick_s)) * 1e3,
+              "unsharded_p50_tick_ms": float(np.median(ref_tick_s)) * 1e3,
+              "wall_s": wall, "nvidia_smi": smi})
+        check_launches(f"tp_engine_path_rank{coord[1]}", counters, launches,
+                       [c for c in counters
+                        if c.__name__ == "rel_block_attention"])
+        for c in counters:
+            total[c.__name__] += launches[c.__name__]
+    return total
+
+
+def nccl_trainer(dev, want_losses) -> None:
+    """The trainer's command line as one NCCL process on the card:
+    ``--coordinator 127.0.0.1:<free port> --num-processes 1 --process-id 0
+    --steps 2``. NCCL initialises on the card and the dp all-reduces of the
+    step (counts, metrics, gradients) run through it; the losses equal the
+    one-process run's (train_cli) to the 4 printed decimals."""
+    import re
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "speechcatcher_tpu_torch.training",
+         "--steps", "2", "--batch", "8", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in
+              re.findall(r"^step \d+: loss (\S+)", res.stdout, re.M)]
+    emit({"phase": "nccl_trainer", "exit": res.returncode, "losses": losses,
+          "one_process_losses": want_losses[:2], "wall_s": wall})
+    if (res.returncode != 0 or len(losses) != 2
+            or any(abs(a - b) > 1e-4 for a, b in zip(losses, want_losses))):
+        fail(f"nccl_trainer: exit {res.returncode}, losses {losses} vs "
+             f"{want_losses[:2]}: {res.stderr[-2000:]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="utterance",
@@ -2669,22 +3014,11 @@ def main() -> int:
     from speechcatcher_tpu_torch.config import flagship_config
     from speechcatcher_tpu_torch.device import resolve_device
     from speechcatcher_tpu_torch.ops.kernels import _build
-    from speechcatcher_tpu_torch.ops.kernels.block_attention import (
-        BlockAttentionFn,
-        block_attention,
-    )
-    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
-        ctc_forward_recursion,
-    )
-    from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
-        RelBlockAttentionFn,
-        rel_block_attention,
-    )
-    from speechcatcher_tpu_torch.ops.kernels.ring_append import (
-        ring_append_cols,
-        ring_append_rows,
-    )
+    from speechcatcher_tpu_torch.parallel.mesh import make_mesh
 
+    counters, fns = kernel_counters()
+    (block_attention, rel_block_attention, ctc_forward_recursion,
+     ring_append_cols, ring_append_rows) = counters
     dev = resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2740,6 +3074,12 @@ def main() -> int:
     # heads: one window of 4 heads of 128.
     checks.append(check_attention(dev, cfg.replace(encoder_heads=4), 1,
                                   rel=False))
+    # A tp=2 rank's attention, 4 heads of 64, at the tp engine's 4 slots x
+    # ENGINE_MAXB windows; D at a dp=2 replica's 4 of the 8 slots.
+    checks += [check_attention(dev, tp_attention_config(cfg),
+                               TP_STREAMS * ENGINE_MAXB, rel)
+               for rel in (False, True)]
+    checks.append(check_ring_append_rows(dev, cfg, n_slots=8 // TP))
     kernels = [
         check_attention(dev, cfg, n_blocks=1, rel=False),
         check_attention(dev, cfg, n_blocks=1, rel=True),
@@ -2753,8 +3093,9 @@ def main() -> int:
     worst = {}
     for k in checks + kernels:
         worst[k["name"]] = max(worst.get(k["name"], 0.0), k["max_abs_err"])
-    counters = [block_attention, rel_block_attention, ctc_forward_recursion,
-                ring_append_cols, ring_append_rows]
+    gloo_collectives(dev)
+    # dp=2: two engine replicas of 4 slots on this one card.
+    dp_mesh = make_mesh(TP, devices=[dev] * TP)
     # Each path runs every kernel but those it must not: the session never
     # appends engine rows (D), the transformer never runs E, the conformer
     # never A.
@@ -2764,8 +3105,13 @@ def main() -> int:
     fixture_replay(dev)
     fixture_replay(dev, TOKENS_FIXTURE)
     small_reference(dev)
+    engine_finals = {}
     by_path["engine"] = engine_path(dev, counters, model,
-                                    zero=(rel_block_attention,))
+                                    zero=(rel_block_attention,),
+                                    finals_out=engine_finals)
+    by_path["dp_engine"] = engine_path(
+        dev, counters, model, phase="dp_engine_path",
+        zero=(rel_block_attention,), mesh=dp_mesh, reference=engine_finals)
     engine_fixture_replay(dev)
     engine_load_point(dev, model)
     # The app and serving layer on the float32 flagship that talks: no
@@ -2773,7 +3119,12 @@ def main() -> int:
     talker = flagship_model(dev, seed=TALKER_SEED, biases=TALKER_BIASES)
     with ErrorRecords() as errors:
         by_path.update(recognize_path(dev, counters, talker, smi))
-        by_path["server"] = server_path(dev, counters, talker, smi)
+        server_finals = {}
+        by_path["server"] = server_path(dev, counters, talker, smi,
+                                        reference=server_finals)
+        by_path["dp_server"] = server_path(
+            dev, counters, talker, smi, phase="dp_server_path",
+            mesh=dp_mesh, reference=server_finals)
     if errors.records:
         fail(f"ERROR records on the serving paths: {errors.records[:5]}")
     del talker
@@ -2805,14 +3156,17 @@ def main() -> int:
     fixture_replay(dev, CONFORMER_FIXTURE, encoder_type="conformer",
                    tol=1e-5)
     small_reference(dev, encoder_type="conformer")
+    engine_finals = {}
     by_path["conformer_engine"] = engine_path(
         dev, counters, conformer, phase="conformer_engine_path",
-        zero=(block_attention,))
+        zero=(block_attention,), finals_out=engine_finals)
+    by_path["dp_conformer_engine"] = engine_path(
+        dev, counters, conformer, phase="dp_conformer_engine_path",
+        zero=(block_attention,), mesh=dp_mesh, reference=engine_finals)
     del conformer
     # Training and offline greedy decode: A and E through their autograd
     # Functions at the training shapes, B, C and D refusing grad, then the
     # paths.
-    fns = [BlockAttentionFn, RelBlockAttentionFn]
     grad_rows = [attention_grad(dev, cfg, n, rel) for rel in (False, True)
                  for n in TRAIN_WINDOWS]
     for row in grad_rows:
@@ -2828,8 +3182,15 @@ def main() -> int:
         for f in fns:
             key = f.__name__ + ".backward_launches"
             backward[key] = backward.get(key, 0) + got[key]
+    # tp=2 on two gloo ranks of this card: the train step and the engine.
+    got = tp_train_path(dev, counters, smi)
+    by_path["tp_train"] = {c.__name__: got[c.__name__] for c in counters}
+    for f in fns:
+        key = f.__name__ + ".backward_launches"
+        backward[key] += got[key]
+    by_path["tp_engine"] = tp_engine_path(dev, counters, smi)
     train_vs_cpu(dev)
-    train_cli(dev)
+    nccl_trainer(dev, train_cli(dev))
     backward_of = {"block_attention": "BlockAttentionFn.backward_launches",
                    "rel_block_attention":
                        "RelBlockAttentionFn.backward_launches"}

@@ -8,21 +8,28 @@ mean. They differ on an infeasible alignment (more labels, with their
 repeats, than frames): optax clamps it to a large finite value, torch returns
 ``inf``. The trainer's batcher never builds such a batch (its 2U+1 guard,
 ``data.BucketBatcher``).
+
+Under a tp group (``parallel.tp``) ``ctc_lo`` is vocab-sharded and its
+logits are gathered before any softmax or argmax: everything after them,
+the CTC recursion's input and the log-prob ring included, is the same on
+every rank. Under a mesh (``ctc_loss``'s `mesh`) the mean runs over the
+global batch of the dp ranks.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from speechcatcher_tpu_torch.ops.layers import Params, linear
+from speechcatcher_tpu_torch.parallel.tp import copy_to_tp, gather_from_tp
 
 
 def ctc_logits(params: Params, hs: torch.Tensor) -> torch.Tensor:
     """(B, T, d) encoder output → (B, T, vocab) logits."""
-    return linear(params["ctc_lo"], hs)
+    return gather_from_tp(linear(params["ctc_lo"], copy_to_tp(hs)))
 
 
 def ctc_log_softmax(params: Params, hs: torch.Tensor) -> torch.Tensor:
@@ -56,10 +63,12 @@ def ctc_greedy_collapse(predictions: torch.Tensor, lengths: torch.Tensor,
 
 
 def ctc_loss(params: Params, hs: torch.Tensor, hlens: torch.Tensor,
-             ys: torch.Tensor, ylens: torch.Tensor, blank: int = 0
-             ) -> torch.Tensor:
+             ys: torch.Tensor, ylens: torch.Tensor, blank: int = 0,
+             global_batch: Optional[int] = None) -> torch.Tensor:
     """Mean over the batch of the per-sequence CTC loss: hs (B, T, d), hlens
-    (B,), ys (B, U) labels (0-padded), ylens (B,).
+    (B,), ys (B, U) labels (0-padded), ylens (B,). With `global_batch` the
+    sum over these rows is divided by it: this dp rank's share of the mean
+    over the global batch.
 
     ``F.ctc_loss`` takes float32 log-probabilities (T, B, V). Its backward
     returns the gradient with respect to the logits under the log-softmax
@@ -68,4 +77,6 @@ def ctc_loss(params: Params, hs: torch.Tensor, hlens: torch.Tensor,
     logp = torch.log_softmax(ctc_logits(params, hs).float(), dim=-1)
     per_seq = F.ctc_loss(logp.transpose(0, 1), ys.long(), hlens.long(),
                          ylens.long(), blank=blank, reduction="none")
-    return per_seq.mean()
+    if global_batch is None:
+        return per_seq.mean()
+    return per_seq.sum() / global_batch

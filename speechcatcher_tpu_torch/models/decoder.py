@@ -24,6 +24,11 @@ package's non-TPU branch); the cross-attention rounds the query to the K/V
 dtype and the attention weights to the V dtype and accumulates both
 contractions in float32. int8 K/V weights are dequantised by
 ``dense_weight``.
+
+Tensor parallelism (``parallel.tp``): the attentions run on the rank's
+heads (the activation cache keeps whole rows, d wide), the vocab-sharded
+token embedding is looked up with masked local ids and summed over the tp
+group, and ``output_layer``'s logits are gathered before the softmax.
 """
 
 from __future__ import annotations
@@ -43,7 +48,14 @@ from speechcatcher_tpu_torch.ops.layers import (
     layer_norm,
     linear,
     multi_head_attention,
+    row_parallel_linear,
     sinusoidal_pe_table,
+)
+from speechcatcher_tpu_torch.parallel.tp import (
+    copy_to_tp,
+    gather_from_tp,
+    local_heads,
+    vocab_lookup,
 )
 
 
@@ -75,7 +87,8 @@ def decoder_forward_train(params: Params, memory: torch.Tensor,
     b, l = ys_in.shape
     d = cfg.decoder_dim
     dev = memory.device
-    x = params["embed"]["weight"][ys_in.long()] * math.sqrt(d) + pe[None, :l]
+    x = (vocab_lookup(params["embed"]["weight"], ys_in.long()) * math.sqrt(d)
+         + pe[None, :l])
     causal = torch.tril(torch.ones((l, l), dtype=torch.bool, device=dev))
     pad = torch.arange(l, device=dev)[None, :] < ys_in_lens[:, None]
     tgt_mask = (pad[:, None, :] & causal[None, :, :]).float()
@@ -92,7 +105,13 @@ def decoder_forward_train(params: Params, memory: torch.Tensor,
         x = x + feed_forward(p_layer["feed_forward"], hn)
     if cfg.normalize_before:
         x = layer_norm(params["after_norm"], x)
-    return linear(params["output_layer"], x)
+    return output_logits(params, x)
+
+
+def output_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``output_layer``'s logits over the whole vocabulary (gathered over
+    the tp group, whose ranks hold its rows in blocks)."""
+    return gather_from_tp(linear(params["output_layer"], copy_to_tp(x)))
 
 
 @functools.lru_cache(maxsize=8)
@@ -110,7 +129,8 @@ def _attend_cached_lane(
     beam: int,
     n_head: int,
 ) -> torch.Tensor:
-    """Self-attention over the lazily reordered activation cache.
+    """Self-attention over the lazily reordered activation cache, on the
+    rank's heads of `n_head` (its rows of the K and V weights).
 
     Row t of hypothesis b's history lives at lane ``lane[s, b, t]`` of its
     stream; a gather collects those rows. Scores use the K projection
@@ -119,10 +139,11 @@ def _attend_cached_lane(
     (the V bias adds once, as the weights sum to 1)."""
     n, t, d = hh.shape
     s = n // beam
+    h = local_heads(n_head)
     dk = d // n_head
-    wk = dense_weight(p_attn["linear_k"]).reshape(n_head, dk, d)
-    wv = dense_weight(p_attn["linear_v"]).reshape(n_head, dk, d)
-    qk = torch.einsum("nhk,hkd->nhd", q.reshape(n, n_head, dk), wk)
+    wk = dense_weight(p_attn["linear_k"]).reshape(h, dk, d)
+    wv = dense_weight(p_attn["linear_v"]).reshape(h, dk, d)
+    qk = torch.einsum("nhk,hkd->nhd", q.reshape(n, h, dk), wk)
     hhl = hh.float().reshape(s, beam, t, d)
     idx = lane.long()[..., None].expand(s, beam, t, d)
     rows = torch.gather(hhl, 1, idx).reshape(n, t, d)
@@ -137,8 +158,8 @@ def _attend_cached_lane(
     out = torch.einsum("nhd,hkd->nhk", u, wv)
     bias = p_attn["linear_v"].get("bias")
     if bias is not None:
-        out = out + bias.reshape(n_head, dk)
-    return out.reshape(n, d)
+        out = out + bias.reshape(h, dk)
+    return out.reshape(n, h * dk)
 
 
 def _attend_cross_blocked(
@@ -148,17 +169,19 @@ def _attend_cross_blocked(
     valid: torch.Tensor,  # (S, T) bool
     n_head: int,
 ) -> torch.Tensor:
-    """Cross-attention over projected K/V shared by a stream's B hyps. The
+    """Cross-attention over projected K/V shared by a stream's B hyps, on
+    the rank's heads of `n_head` (K and V are the rank's columns). The
     query is rounded to the K dtype and the attention weights to the V
     dtype; both contractions run on the widened operands, so the products
     are exact and accumulate in float32."""
     s, t, d = mk.shape
     n = q.shape[0]
     b = n // s
-    dk = d // n_head
-    qh = q.reshape(s, b, n_head, dk).to(mk.dtype).float()
-    kh = mk.float().reshape(s, t, n_head, dk)
-    vh = mv.float().reshape(s, t, n_head, dk)
+    h = local_heads(n_head)
+    dk = d // h
+    qh = q.reshape(s, b, h, dk).to(mk.dtype).float()
+    kh = mk.float().reshape(s, t, h, dk)
+    vh = mv.float().reshape(s, t, h, dk)
     scores = torch.einsum("sbhd,sthd->sbht", qh, kh) / math.sqrt(dk)
     keep = valid[:, None, None, :]
     scores = torch.where(keep, scores, MASK_MIN)
@@ -212,7 +235,8 @@ def decoder_step(
     dev = tokens.device
 
     pos = pos.long()
-    x = params["embed"]["weight"][tokens.long()] * math.sqrt(d) + pe[pos]
+    x = (vocab_lookup(params["embed"]["weight"], tokens.long()) * math.sqrt(d)
+         + pe[pos])
     hist_valid = torch.arange(lmax, device=dev)[None, :] < pos[:, None]
     mem_valid = (torch.arange(tmax, device=dev)[None, :]
                  < enc_len.long()[:, None])
@@ -230,15 +254,15 @@ def decoder_step(
         q = linear(p_layer["self_attn"]["linear_q"], hn)
         att = _attend_cached_lane(q, h_l, hn, p_layer["self_attn"], lane,
                                   hist_valid, beam, cfg.decoder_heads)
-        h = h + linear(p_layer["self_attn"]["linear_out"], att)
+        h = h + row_parallel_linear(p_layer["self_attn"]["linear_out"], att)
         hn = layer_norm(p_layer["norm2"], h)
         q = linear(p_layer["src_attn"]["linear_q"], hn)
         mk_l, mv_l = cross_kv[l]
         att = _attend_cross_blocked(q, mk_l, mv_l, mem_valid, cfg.decoder_heads)
-        h = h + linear(p_layer["src_attn"]["linear_out"], att)
+        h = h + row_parallel_linear(p_layer["src_attn"]["linear_out"], att)
         hn = layer_norm(p_layer["norm3"], h)
         h = h + feed_forward(p_layer["feed_forward"], hn)
     if cfg.normalize_before:
         h = layer_norm(params["after_norm"], h)
-    logits = linear(params["output_layer"], h)
+    logits = output_logits(params, h)
     return torch.log_softmax(logits, dim=-1), cache

@@ -10,6 +10,11 @@ Port of ``speechcatcher_tpu/ops/conformer.py`` (inference):
   position table, tq == tk) go to the ``rel_block_attention`` kernel, as the
   JAX package routes them to its Pallas kernel; every other call takes the
   plain PyTorch path, which the JAX package also computes outside Pallas.
+
+Under a tp group (``parallel.tp``) the attention runs on the rank's heads:
+``linear_pos`` is column-parallel like q/k/v, and every rank holds the
+whole ``pos_bias_u`` and ``pos_bias_v`` and uses its heads' rows. The
+convolution module stays replicated (BatchNorm uses running statistics).
 """
 
 from __future__ import annotations
@@ -27,10 +32,13 @@ from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
 )
 from speechcatcher_tpu_torch.ops.layers import (
     Params,
+    copy_to_tp_inputs,
     layer_norm,
     linear,
     mha_project,
+    row_parallel_linear,
 )
+from speechcatcher_tpu_torch.parallel.tp import local_rows
 
 
 def conv_module(p: Params, x: torch.Tensor, eps: float = 1e-5
@@ -71,25 +79,27 @@ def rel_position_attention(
     n_head: int,
 ) -> torch.Tensor:
     """Relative-position multi-head attention; mask 2-D (Tq, Tk), 3-D
-    (B, Tq, Tk) or (B, 1, Tk), nonzero = attend."""
-    b, tq, d = query.shape
-    dk = d // n_head
+    (B, Tq, Tk) or (B, 1, Tk), nonzero = attend. `n_head` counts every
+    rank's heads."""
+    b, tq = query.shape[:2]
+    query, key, value = copy_to_tp_inputs(query, key, value)
     q = mha_project(p, query, "linear_q", n_head)
     k = mha_project(p, key, "linear_k", n_head)
     v = mha_project(p, value, "linear_v", n_head)
+    h, dk = q.shape[1], q.shape[3]
     pos = linear(p["linear_pos"], pos_emb)
-    pos = pos.reshape(pos_emb.shape[0], -1, n_head, dk).transpose(1, 2)
+    pos = pos.reshape(pos_emb.shape[0], -1, h, dk).transpose(1, 2)
+    bias_u, bias_v = local_rows(p["pos_bias_u"]), local_rows(p["pos_bias_v"])
 
     if (mask is not None and mask.dim() == 2 and pos.shape[0] == 1
             and pos.shape[2] == key.shape[1] and tq == key.shape[1]):
         # The kernel reads the projections' transposed views as they lie
         # and returns the view that the merge below turns back without a
         # copy.
-        out = rel_block_attention(q, k, v, pos[0], p["pos_bias_u"],
-                                  p["pos_bias_v"], mask)
+        out = rel_block_attention(q, k, v, pos[0], bias_u, bias_v, mask)
     else:
-        q_u = q + p["pos_bias_u"][None, :, None, :]
-        q_v = q + p["pos_bias_v"][None, :, None, :]
+        q_u = q + bias_u[None, :, None, :]
+        q_v = q + bias_v[None, :, None, :]
         ac = torch.matmul(q_u, k.transpose(-1, -2))
         bd = rel_shift(torch.matmul(q_v, pos.transpose(-1, -2)))
         scores = (ac + bd) / math.sqrt(dk)
@@ -103,5 +113,5 @@ def rel_position_attention(
         else:
             attn = torch.softmax(scores, dim=-1)
         out = torch.matmul(attn, v)
-    out = out.transpose(1, 2).reshape(b, tq, d)
-    return linear(p["linear_out"], out)
+    out = out.transpose(1, 2).reshape(b, tq, h * dk)
+    return row_parallel_linear(p["linear_out"], out)

@@ -14,6 +14,7 @@ returns ``BAD_PLAN`` for what does not fit.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -21,6 +22,16 @@ import torch
 from speechcatcher_tpu_torch.ops.kernels import _build
 
 BAD_PLAN = -1  # kBadPlan in csrc/*.cu
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch counter. Engine replicas launch from
+    several threads at once (``parallel.serve_sharding``), where ``+=`` on
+    an attribute could lose a count."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 class Launch(NamedTuple):

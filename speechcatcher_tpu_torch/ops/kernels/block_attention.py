@@ -188,7 +188,7 @@ def _block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   out.data_ptr(), plan.address, _build.stream_ptr(q))
     if err:
         _plan.raise_launch_error("block_attention", err)
-    block_attention.launches += 1
+    _plan.count(block_attention)
     return out.transpose(1, 2)
 
 
@@ -204,7 +204,7 @@ def plain_vjp(plain, operands: tuple, fixed: tuple, grad: torch.Tensor,
             out = plain(*xs, *fixed)
         grads = torch.autograd.grad(out, xs, grad)
     if grad.device.type == "cuda":
-        fn.backward_launches += 1
+        _plan.count(fn, "backward_launches")
     return grads
 
 

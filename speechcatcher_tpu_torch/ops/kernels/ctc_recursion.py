@@ -263,7 +263,7 @@ def ctc_forward_recursion(xn: torch.Tensor, xb: torch.Tensor,
                   r.data_ptr(), plan.address, _build.stream_ptr(xn))
     if err:
         _plan.raise_launch_error("ctc_forward_recursion", err)
-    ctc_forward_recursion.launches += 1
+    _plan.count(ctc_forward_recursion)
     return r
 
 
@@ -298,5 +298,5 @@ def ctc_forward_recursion_streams(xn: torch.Tensor, xb: torch.Tensor,
                   r.data_ptr(), plan.address, _build.stream_ptr(xn))
     if err:
         _plan.raise_launch_error("ctc_forward_recursion_streams", err)
-    ctc_forward_recursion.launches += 1
+    _plan.count(ctc_forward_recursion)
     return r

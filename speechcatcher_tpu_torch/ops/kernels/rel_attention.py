@@ -107,7 +107,7 @@ def _rel_block_attention(q, k, v, pos, bias_u, bias_v, mask):
                   out.data_ptr(), plan.address, _build.stream_ptr(q))
     if err:
         _plan.raise_launch_error("rel_block_attention", err)
-    rel_block_attention.launches += 1
+    _plan.count(rel_block_attention)
     return out.transpose(1, 2)
 
 

@@ -156,7 +156,7 @@ def ring_append_cols(ring: torch.Tensor, new: torch.Tensor,
                   n_new.data_ptr(), plan.address, _build.stream_ptr(ring))
     if err:
         _plan.raise_launch_error("ring_append_cols", err)
-    ring_append_cols.launches += 1
+    _plan.count(ring_append_cols)
     return ring
 
 
@@ -197,7 +197,7 @@ def ring_append_rows(cache: torch.Tensor, new: torch.Tensor,
                   n_new.data_ptr(), plan.address, _build.stream_ptr(cache))
     if err:
         _plan.raise_launch_error("ring_append_rows", err)
-    ring_append_rows.launches += 1
+    _plan.count(ring_append_rows)
     return cache
 
 

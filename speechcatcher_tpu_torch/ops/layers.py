@@ -13,6 +13,12 @@ per-output-channel ``weight_scale``. ``linear`` then rounds its input to
 bfloat16, accumulates the products in float32 and returns float32 in every
 mode, so normalisation and softmax stay float32. Where the JAX package
 splits on its backend, the port follows the non-TPU branch.
+
+Tensor parallelism (``parallel.tp``): under a tp group the attention runs
+on the rank's heads and the column-parallel linears (q/k/v, w_1) on its
+output columns; ``row_parallel_linear`` sums the row-parallel products
+(linear_out, w_2) over the group before adding the bias once. Without a
+group every function here runs what it runs on one card.
 """
 
 from __future__ import annotations
@@ -26,6 +32,12 @@ import torch
 from speechcatcher_tpu_torch.ops.kernels.block_attention import (
     MASK_MIN,
     block_attention,
+)
+from speechcatcher_tpu_torch.parallel.tp import (
+    copy_to_tp,
+    local_heads,
+    reduce_from_tp,
+    tp_size,
 )
 
 Params = Dict[str, torch.Tensor]
@@ -155,6 +167,17 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def row_parallel_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``linear`` of a row-parallel leaf (linear_out, w_2): under a tp group
+    each rank holds the weight's columns of its input features, the partial
+    products are summed over the group and the bias is added once."""
+    if tp_size() == 1:
+        return linear(p, x)
+    y = reduce_from_tp(linear({k: v for k, v in p.items() if k != "bias"},
+                              x))
+    return y + p["bias"] if "bias" in p else y
+
+
 def layer_norm(p: Params, x: torch.Tensor, eps: float = LAYERNORM_EPS
                ) -> torch.Tensor:
     mean = x.mean(dim=-1, keepdim=True)
@@ -165,15 +188,18 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = LAYERNORM_EPS
 
 def feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Position-wise FFN: w_2(relu(w_1(x)))."""
-    return linear(p["w_2"], torch.relu(linear(p["w_1"], x)))
+    return row_parallel_linear(
+        p["w_2"], torch.relu(linear(p["w_1"], copy_to_tp(x))))
 
 
 def mha_project(p: Params, x: torch.Tensor, name: str, n_head: int
                 ) -> torch.Tensor:
-    """(B, T, d) → (B, H, T, d_k) through a torch-layout Linear."""
-    b, t, d = x.shape
+    """(B, T, d) → (B, H, T, d_k) through a torch-layout Linear; H is the
+    rank's share of `n_head` under a tp group."""
+    b, t = x.shape[:2]
     y = linear(p[name], x)
-    return y.reshape(b, t, n_head, d // n_head).transpose(1, 2)
+    h = local_heads(n_head)
+    return y.reshape(b, t, h, y.shape[-1] // h).transpose(1, 2)
 
 
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -198,8 +224,9 @@ def multi_head_attention(p: Params, query: torch.Tensor, key: torch.Tensor,
 
     A 2-D mask is the streaming encoder's shared block-geometry mask and
     goes to the block_attention kernel; (B, Tq, Tk) and (B, 1, Tk) masks go
-    to the plain attention."""
+    to the plain attention. `n_head` counts every rank's heads."""
     b = query.shape[0]
+    query, key, value = copy_to_tp_inputs(query, key, value)
     q = mha_project(p, query, "linear_q", n_head)
     k = mha_project(p, key, "linear_k", n_head)
     v = mha_project(p, value, "linear_v", n_head)
@@ -213,7 +240,17 @@ def multi_head_attention(p: Params, query: torch.Tensor, key: torch.Tensor,
             mask = mask[:, None, :, :]
         x = scaled_dot_attention(q, k, v, mask)
     x = x.transpose(1, 2).reshape(b, -1, p["linear_out"]["weight"].shape[1])
-    return linear(p["linear_out"], x)
+    return row_parallel_linear(p["linear_out"], x)
+
+
+def copy_to_tp_inputs(query: torch.Tensor, key: torch.Tensor,
+                      value: torch.Tensor):
+    """``copy_to_tp`` of an attention's inputs, once for a tensor that
+    serves as several (self-attention's query, key and value)."""
+    q = copy_to_tp(query)
+    k = q if key is query else copy_to_tp(key)
+    v = k if value is key else (q if value is query else copy_to_tp(value))
+    return q, k, v
 
 
 def sinusoidal_pe_table(d_model: int, max_len: int = 5000) -> np.ndarray:

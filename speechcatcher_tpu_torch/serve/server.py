@@ -518,11 +518,6 @@ async def start_server(host: str, port: int, manager: SessionManager,
         batch_task.cancel()
 
 
-MULTI_GPU = ("multi-GPU serving (--dp, --coordinator, --num-processes, "
-             "--process-id) is not ported yet: ROADMAP.md, section 1, "
-             "item 7 'Multi-GPU'")
-
-
 def main(argv=None):
     from speechcatcher_tpu_torch.recognize import load_model
 
@@ -547,15 +542,18 @@ def main(argv=None):
                         choices=["s16le", "wav", "mp3", "mp4", "webm", "ogg"],
                         help="Input stream format (non-PCM needs ffmpeg)")
     parser.add_argument("--dp", type=int, default=1,
-                        help="Shard stream slots over this many cards "
-                        "(not ported yet: only 1)")
+                        help="Shard stream slots over this many cards (one "
+                        "engine replica per card, ticking concurrently; no "
+                        "traffic between cards)")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="Coordinator address for multi-host serving "
-                        "(not ported yet)")
+                        help="host:port of process 0's rendezvous for "
+                        "multi-host serving (one process per host, each "
+                        "serving its block of the slots on its own cards); "
+                        "omit for one host")
     parser.add_argument("--num-processes", type=int, default=None,
-                        help="Total number of hosts (not ported yet: only 1)")
+                        help="Total number of hosts (with --coordinator)")
     parser.add_argument("--process-id", type=int, default=None,
-                        help="This host's rank (not ported yet: only 0)")
+                        help="This host's rank (with --coordinator)")
     parser.add_argument("--finalize-update-iters", type=int, default=6)
     parser.add_argument("--max_partial_iters", type=int, default=42)
     parser.add_argument("--wire", type=str, default="int16",
@@ -566,10 +564,28 @@ def main(argv=None):
                         "at a quarter (serve/wire.py)")
     args = parser.parse_args(argv)
 
-    if (args.dp != 1 or args.coordinator is not None
-            or args.num_processes not in (None, 1)
-            or args.process_id not in (None, 0)):
-        parser.error(MULTI_GPU)
+    from speechcatcher_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_hybrid_mesh,
+        make_mesh,
+    )
+    from speechcatcher_tpu_torch.parallel.serve_sharding import shard_engine
+
+    # The cards this process serves on: every local card, or the CPU.
+    local = None if args.device == "cuda" else ["cpu"]
+    mesh = None
+    try:
+        # Serving exchanges no tensor between processes, only the host
+        # names and card counts of the mesh: a gloo group carries them.
+        if initialize_distributed(args.coordinator, args.num_processes,
+                                  args.process_id, backend="gloo"):
+            # Global (dp, tp=1) mesh over every host's cards; each process
+            # serves its own block of the slot axis.
+            mesh = make_hybrid_mesh(tp=1, local_devices=local)
+        elif args.dp > 1:
+            mesh = make_mesh(args.dp, tp=1, devices=local)
+    except ValueError as e:
+        parser.error(str(e))
 
     s2t = load_model(tag=args.model, device=args.device,
                      beam_size=args.beamsize, cache_dir=args.cache_dir)
@@ -577,13 +593,15 @@ def main(argv=None):
         s2t.model, n_slots=args.pool_size, beam_size=args.beamsize,
         device=args.device,
     )
+    if mesh is not None:
+        engine = shard_engine(engine, mesh)
     manager = SessionManager(
         engine,
         finalize_update_iters=args.finalize_update_iters,
         max_partial_iters=args.max_partial_iters,
         wire=args.wire,
     )
-    print(f"Serving {args.pool_size} concurrent streams on "
+    print(f"Serving {engine.S} concurrent streams on "
           f"ws://{args.host}:{args.port}")
     asyncio.run(start_server(args.host, args.port, manager,
                              audio_format=args.format))

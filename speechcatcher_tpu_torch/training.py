@@ -1,4 +1,4 @@
-"""Joint CTC + attention training on one card.
+"""Joint CTC + attention training, on one card or over a dp × tp mesh.
 
 Port of ``speechcatcher_tpu/training.py``: the label-smoothed attention
 cross entropy plus the CTC loss, weighted ``ctc_weight·L_ctc + (1 -
@@ -18,32 +18,42 @@ BatchNorm running statistics included: they are leaves of the JAX tree, and
 ``jax.value_and_grad`` differentiates the eval-mode affine through them.
 
 Parameters update in place; ``train_step`` returns the same tree and state
-objects, as the JAX function returns their successors. The command line,
+objects, as the JAX function returns their successors.
+
+Over a mesh (``parallel.mesh``, one process per card) ``train_step`` equals
+the JAX package's GSPMD step on the global batch: each dp rank takes its
+rows of the batch (``shard_batch``) and divides its loss sums by the global
+denominators (batch size, unmasked tokens), the gradients are summed over
+the dp group, and the global-norm clip sums the squared norms of
+tp-sharded leaves over the tp group and counts replicated leaves once. The
+conformer's position biases, which every tp rank holds whole and uses in
+part, get their gradients summed over the tp group. The command line,
 ``python -m speechcatcher_tpu_torch.training``, runs on one card (``--device
-cpu`` for the CPU); multi-process and tensor-parallel runs are not ported.
+cpu`` for the CPU) or, with ``--coordinator``, as one process per card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from speechcatcher_tpu_torch.config import ModelConfig
 from speechcatcher_tpu_torch.models.ctc import ctc_loss
 from speechcatcher_tpu_torch.models.decoder import decoder_forward_train
 from speechcatcher_tpu_torch.models.encoder import encoder_forward_train
-from speechcatcher_tpu_torch.params import trainable_leaves
+from speechcatcher_tpu_torch.parallel.mesh import Mesh, is_tp_sharded
+from speechcatcher_tpu_torch.params import trainable_leaves, tree_leaves
 
 # adamw's constants in optax (its defaults, which the JAX trainer keeps).
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
-MULTI_GPU = ("multi-process and tensor-parallel training (--coordinator, "
-             "--num-processes, --process-id, --tp > 1) is not ported yet: "
-             "ROADMAP.md, section 1, item 7 'Multi-GPU'")
+# Leaves every tp rank holds whole but uses in part (its heads' rows).
+TP_SUMMED = ("pos_bias_u", "pos_bias_v")
 
 
 class TrainBatch(NamedTuple):
@@ -54,11 +64,12 @@ class TrainBatch(NamedTuple):
 
 
 def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor,
-                       lengths: torch.Tensor, smoothing: float = 0.1
-                       ) -> torch.Tensor:
+                       lengths: torch.Tensor, smoothing: float = 0.1,
+                       count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Label-smoothed cross entropy of (B, U, V) logits against (B, U)
     targets; positions at or past `lengths` are masked out, and the sum is
-    divided by the count of the rest (at least 1)."""
+    divided by the count of the rest (at least 1), or by `count` where given
+    (the global count of a dp rank's share)."""
     vocab = logits.shape[-1]
     logp = torch.log_softmax(logits, dim=-1)
     onehot = F.one_hot(targets.long(), vocab).to(logp.dtype)
@@ -66,18 +77,38 @@ def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor,
     nll = -(smoothed * logp).sum(dim=-1)
     mask = (torch.arange(targets.shape[1], device=targets.device)[None, :]
             < lengths[:, None]).to(nll.dtype)
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    if count is None:
+        count = mask.sum()
+    return (nll * mask).sum() / count.clamp(min=1.0)
+
+
+def _global_counts(batch: TrainBatch, mesh: Optional[Mesh]):
+    """(global batch size, global count of unmasked decoder targets) summed
+    over the dp group, or (None, None) without one."""
+    if mesh is None or mesh.dp_group is None:
+        return None, None
+    with torch.no_grad():
+        n = torch.stack([
+            torch.tensor(float(batch.token_lens.shape[0]),
+                         device=batch.token_lens.device),
+            (batch.token_lens + 1).sum().float()])
+        dist.all_reduce(n, group=mesh.dp_group)
+    return int(n[0]), n[1]
 
 
 def joint_loss(params: Dict[str, Any], batch: TrainBatch, cfg: ModelConfig,
-               smoothing: float = 0.1
+               smoothing: float = 0.1, mesh: Optional[Mesh] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """ctc_weight·L_ctc + (1 - ctc_weight)·L_att; (loss, {"loss", "ctc",
-    "att"})."""
+    "att"}). Under a mesh, `batch` is this dp rank's rows: the loss is its
+    share of the global batch's (local sums over global denominators) and
+    the metrics are the global values."""
+    global_b, global_tokens = _global_counts(batch, mesh)
     enc_out, enc_lens = encoder_forward_train(
         params["encoder"], batch.feats, batch.feat_lens, cfg)
     l_ctc = ctc_loss(params["ctc"], enc_out, enc_lens, batch.tokens,
-                     batch.token_lens, blank=cfg.blank_id)
+                     batch.token_lens, blank=cfg.blank_id,
+                     global_batch=global_b)
 
     # Teacher forcing: ys_in = [sos] + y; ys_out = y + [eos], the EOS at
     # each row's own length.
@@ -90,9 +121,15 @@ def joint_loss(params: Dict[str, Any], batch: TrainBatch, cfg: ModelConfig,
     logits = decoder_forward_train(params["decoder"], enc_out, enc_lens,
                                    ys_in, batch.token_lens + 1, cfg)
     l_att = label_smoothing_ce(logits, ys_out, batch.token_lens + 1,
-                               smoothing)
+                               smoothing, count=global_tokens)
     loss = cfg.ctc_weight * l_ctc + (1.0 - cfg.ctc_weight) * l_att
-    return loss, {"loss": loss, "ctc": l_ctc, "att": l_att}
+    metrics = {"loss": loss, "ctc": l_ctc, "att": l_att}
+    if global_b is not None:
+        with torch.no_grad():
+            shares = torch.stack([loss, l_ctc, l_att]).detach()
+            dist.all_reduce(shares, group=mesh.dp_group)
+        metrics = dict(zip(("loss", "ctc", "att"), shares))
+    return loss, metrics
 
 
 def warmup_lr_schedule(peak_lr: float, warmup_steps: int):
@@ -115,6 +152,11 @@ class AdamState:
     leaves: List[torch.Tensor]
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    # Under a mesh: its tp group, which leaves the tp ranks hold parts of
+    # and which they hold whole but use in part (TP_SUMMED).
+    tp_group: Optional[Any] = None
+    sharded: Optional[List[bool]] = None
+    tp_summed: Optional[List[bool]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,13 +170,22 @@ class AdamW:
     warmup_steps: int = 0
     grad_clip: float = 0.0
 
-    def init(self, params) -> AdamState:
-        """Mark the tree's floating-point leaves trainable; zero moments."""
+    def init(self, params, mesh: Optional[Mesh] = None) -> AdamState:
+        """Mark the tree's floating-point leaves trainable; zero moments.
+        Under a mesh with tp > 1 the state records which leaves are tp
+        shards (``parallel.mesh.shard_params``)."""
         leaves = trainable_leaves(params)
-        return AdamState(
+        state = AdamState(
             count=0, leaves=leaves,
             mu=[torch.zeros_like(x, requires_grad=False) for x in leaves],
             nu=[torch.zeros_like(x, requires_grad=False) for x in leaves])
+        if mesh is not None and mesh.shape["tp"] > 1:
+            paths = [p for p, x in tree_leaves(params)
+                     if x.is_floating_point()]
+            state.tp_group = mesh.tp_group
+            state.sharded = [is_tp_sharded(p) for p in paths]
+            state.tp_summed = [p.endswith(TP_SUMMED) for p in paths]
+        return state
 
     def learning_rate(self, count: int) -> float:
         if self.warmup_steps > 0:
@@ -145,8 +196,7 @@ class AdamW:
     def update(self, grads: List[torch.Tensor], state: AdamState) -> None:
         """One step on ``state.leaves`` with their gradients `grads`."""
         if self.grad_clip > 0:
-            norm = torch.stack(torch._foreach_norm(grads)).square().sum()
-            norm = norm.sqrt()
+            norm = _global_norm_sq(grads, state).sqrt()
             keep = norm < self.grad_clip
             torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
             torch._foreach_mul_(grads, torch.where(keep, 1.0, self.grad_clip))
@@ -169,6 +219,31 @@ class AdamW:
         torch._foreach_add_(state.leaves, upd, alpha=-lr)
 
 
+def _global_norm_sq(grads: List[torch.Tensor], state: AdamState
+                    ) -> torch.Tensor:
+    """The squared global norm of the whole tree's gradients: the tp shards'
+    squares summed over the tp group, replicated leaves counted once."""
+    sq = torch.stack(torch._foreach_norm(grads)).square()
+    if state.tp_group is None:
+        return sq.sum()
+    mask = torch.tensor(state.sharded, device=sq.device)
+    part = torch.where(mask, sq, 0.0).sum()
+    dist.all_reduce(part, group=state.tp_group)
+    return part + torch.where(mask, 0.0, sq).sum()
+
+
+def _all_reduce_flat(tensors: List[torch.Tensor], group) -> None:
+    """Sum each tensor over `group` in place, in one collective."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    i = 0
+    for t in tensors:
+        t.copy_(flat[i:i + t.numel()].view_as(t))
+        i += t.numel()
+
+
 def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-6,
                    warmup_steps: int = 0, grad_clip: float = 0.0) -> AdamW:
     """adamw, optionally under WarmupLR and global-norm clipping (ESPnet
@@ -178,15 +253,24 @@ def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-6,
 
 
 def train_step(params: Dict[str, Any], opt_state: AdamState,
-               batch: TrainBatch, cfg: ModelConfig, optimizer: AdamW):
+               batch: TrainBatch, cfg: ModelConfig, optimizer: AdamW,
+               mesh: Optional[Mesh] = None):
     """One update: loss, gradients of every trained leaf, the optimizer
     step in place. Returns (params, opt_state, metrics) with detached
-    metric tensors."""
-    loss, metrics = joint_loss(params, batch, cfg)
+    metric tensors. Under a mesh, `params` are this rank's shards
+    (``shard_params``), `opt_state` comes from ``optimizer.init(params,
+    mesh)`` and `batch` holds this dp rank's rows (``shard_batch``)."""
+    loss, metrics = joint_loss(params, batch, cfg, mesh=mesh)
     # A leaf the loss does not use gets zeros, as under jax.grad.
-    grads = torch.autograd.grad(loss, opt_state.leaves, allow_unused=True,
-                                materialize_grads=True)
-    optimizer.update(list(grads), opt_state)
+    grads = list(torch.autograd.grad(loss, opt_state.leaves,
+                                     allow_unused=True,
+                                     materialize_grads=True))
+    if mesh is not None and mesh.dp_group is not None:
+        _all_reduce_flat(grads, mesh.dp_group)
+    if opt_state.tp_group is not None:
+        _all_reduce_flat([g for g, s in zip(grads, opt_state.tp_summed) if s],
+                         opt_state.tp_group)
+    optimizer.update(grads, opt_state)
     return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
 
@@ -228,13 +312,18 @@ def evaluate(params, cfg: ModelConfig, batches, tokenizer=None
 
 
 def main(argv=None):
-    """Training / fine-tuning on one card.
+    """Training / fine-tuning on one card, or one process per card.
 
     Smoke run: ``python -m speechcatcher_tpu_torch.training --steps 10``
     (synthetic data, a random model of the default config). Real data:
-    ``--data-dir <kaldi dir>`` (wav.scp + text). Checkpoints are torch files
-    (``utils/save.py``), which the JAX package cannot read, nor the port its
-    orbax ones.
+    ``--data-dir <kaldi dir>`` (wav.scp + text). Several cards: start one
+    process per card with ``--coordinator host:port --num-processes N
+    --process-id i`` (N counts cards; the JAX package counts hosts) and
+    ``--tp`` ranks per tensor-parallel group; ``--batch`` is the global
+    batch, split over the dp ranks. Rank 0 alone prints and saves; the tp
+    group of dp row 0 evaluates. Checkpoints are torch files of the whole
+    tree (``utils/save.py``), which the JAX package cannot read, nor the
+    port its orbax ones.
     """
     import argparse
     from pathlib import Path
@@ -248,9 +337,11 @@ def main(argv=None):
                         help="Kaldi-style data dir (wav.scp + text); "
                         "default: synthetic smoke data")
     parser.add_argument("--steps", type=int, default=10)
-    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--batch", type=int, default=8,
+                        help="GLOBAL batch size (split over the dp ranks)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor parallelism (not ported yet: only 1)")
+                        help="tensor parallelism: ranks per tp group (one "
+                        "process per card, so tp > 1 needs --coordinator)")
     parser.add_argument("--lr", type=float, default=1e-3)
     parser.add_argument("--warmup-steps", type=int, default=0,
                         help="WarmupLR ramp (ESPnet trains with 25-30k)")
@@ -264,20 +355,61 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="resume params from --save-dir's latest step")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="multi-host coordinator (not ported yet)")
+                        help="host:port of rank 0's rendezvous (or a "
+                        "tcp:// or file:// init method) for a run of one "
+                        "process per card")
     parser.add_argument("--num-processes", type=int, default=None,
-                        help="number of processes (not ported yet: only 1)")
+                        help="number of processes, one per card (the JAX "
+                        "trainer counts hosts)")
     parser.add_argument("--process-id", type=int, default=None,
-                        help="this process's rank (not ported yet: only 0)")
+                        help="this process's rank")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="cuda (the default) or cpu; cuda raises on a "
                         "machine without it")
     args = parser.parse_args(argv)
-    if (args.tp != 1 or args.coordinator is not None
-            or args.num_processes not in (None, 1)
-            or args.process_id not in (None, 0)):
-        parser.error(MULTI_GPU)
+
+    from speechcatcher_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        local_rank,
+        make_hybrid_mesh,
+        shard_batch,
+        shard_params,
+        unshard_params,
+    )
+    from speechcatcher_tpu_torch.parallel.tp import set_tp_group
+
+    try:
+        joined = initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id,
+            backend="nccl" if args.device == "cuda" else "gloo")
+    except ValueError as e:
+        parser.error(str(e))
+    if not joined and args.tp != 1:
+        parser.error(f"--tp {args.tp} runs one process per card: start "
+                     f"{args.tp} or more processes with --coordinator, "
+                     "--num-processes and --process-id")
+    device = torch.device(args.device)
+    mesh = None
+    if joined:
+        if device.type == "cuda":
+            device = torch.device("cuda", local_rank())
+            torch.cuda.set_device(device)
+        try:
+            mesh = make_hybrid_mesh(tp=args.tp, local_devices=[device])
+        except ValueError as e:
+            parser.error(str(e))
+        if args.batch % mesh.shape["dp"]:
+            parser.error(f"--batch {args.batch} does not split over "
+                         f"dp={mesh.shape['dp']}")
+        set_tp_group(mesh.tp_group)
+    rank0 = not joined or dist.get_rank() == 0
+    # The tp group of dp row 0 evaluates and gathers the checkpoint.
+    lead = mesh is None or mesh.coord[0] == 0
+
+    def say(msg):
+        if rank0:
+            print(msg, flush=True)
 
     from speechcatcher_tpu_torch.data import (
         BucketBatcher,
@@ -292,18 +424,16 @@ def main(argv=None):
     )
 
     if args.model_dir is not None:
-        model = ASRModel.from_directory(Path(args.model_dir),
-                                        device=args.device)
+        model = ASRModel.from_directory(Path(args.model_dir), device=device)
     else:
-        model = ASRModel.random_init(ModelConfig(), seed=0,
-                                     device=args.device)
+        model = ASRModel.random_init(ModelConfig(), seed=0, device=device)
     cfg, tokenizer, frontend = model.cfg, model.tokenizer, model.frontend
     params = model.params
     start_step = 0
     if args.resume and args.save_dir:
         params, cfg, start_step = load_checkpoint(Path(args.save_dir),
                                                   device=model.device)
-        print(f"resumed step {start_step} from {args.save_dir}")
+        say(f"resumed step {start_step} from {args.save_dir}")
 
     if args.data_dir is not None:
         utts = read_kaldi_dir(Path(args.data_dir))
@@ -312,25 +442,30 @@ def main(argv=None):
     train_utts, eval_utts = train_eval_split(utts, args.eval_frac)
     batcher = BucketBatcher(frontend, tokenizer, batch_size=args.batch,
                             input_layer=cfg.input_layer)
-    print(f"{len(train_utts)} train / {len(eval_utts)} eval utterances")
+    say(f"{len(train_utts)} train / {len(eval_utts)} eval utterances")
 
+    if mesh is not None:
+        params = shard_params(params, mesh)
     optimizer = make_optimizer(args.lr, warmup_steps=args.warmup_steps,
                                grad_clip=args.grad_clip)
-    opt_state = optimizer.init(params)
+    opt_state = optimizer.init(params, mesh)
 
     def run_eval(step):
-        if not eval_utts:
+        if not eval_utts or not lead:
             return
         m = evaluate(params, cfg,
                      batcher.batches(eval_utts, with_refs=True), tokenizer)
         wer = f" wer {m['wer']*100:.1f}%" if "wer" in m else ""
-        print(f"eval @ step {step}: loss {m['loss']:.4f} "
-              f"(ctc {m['ctc']:.4f}, att {m['att']:.4f}){wer}")
+        say(f"eval @ step {step}: loss {m['loss']:.4f} "
+            f"(ctc {m['ctc']:.4f}, att {m['att']:.4f}){wer}")
 
     def save(step):
-        if args.save_dir:
-            save_checkpoint(Path(args.save_dir), params, cfg, step=step)
-            print(f"saved step {step} -> {args.save_dir}")
+        if not args.save_dir or not lead:
+            return
+        whole = params if mesh is None else unshard_params(params, mesh)
+        if rank0:
+            save_checkpoint(Path(args.save_dir), whole, cfg, step=step)
+            say(f"saved step {step} -> {args.save_dir}")
 
     step = start_step
     epoch = 0
@@ -339,12 +474,14 @@ def main(argv=None):
         for batch in batcher.batches(train_utts, shuffle_seed=epoch):
             if step >= start_step + args.steps:
                 break
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
             params, opt_state, metrics = train_step(
-                params, opt_state, batch, cfg, optimizer)
+                params, opt_state, batch, cfg, optimizer, mesh)
             step += 1
-            print(f"step {step}: loss {float(metrics['loss']):.4f} "
-                  f"(ctc {float(metrics['ctc']):.4f}, "
-                  f"att {float(metrics['att']):.4f})")
+            say(f"step {step}: loss {float(metrics['loss']):.4f} "
+                f"(ctc {float(metrics['ctc']):.4f}, "
+                f"att {float(metrics['att']):.4f})")
             if args.eval_every and step % args.eval_every == 0:
                 run_eval(step)
             if args.save_every and step % args.save_every == 0:
@@ -355,6 +492,8 @@ def main(argv=None):
         epoch += 1
     run_eval(step)
     save(step)
+    if joined:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

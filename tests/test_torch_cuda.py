@@ -759,3 +759,87 @@ def test_flagship_width_train_step_matches_cpu(dev):
     diffs = np.concatenate([np.abs(pg - pc).ravel() for (_, pc), (_, pg) in
                             zip(tree_leaves(p_cpu), tree_leaves(p_gpu))])
     assert diffs.max() <= 2e-3 and (diffs > 1e-6).mean() <= 0.01
+
+
+# ---------------------------------------------------------------------------
+# Several engine replicas, and a tp rank's attention, on one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [8, 392])
+@pytest.mark.parametrize("which", ["block", "rel"])
+def test_attention_at_tp_heads_in_main_path_form(dev, which, n):
+    """A and E at a tp=2 rank's 4 heads of 64 (the flagship's 8 heads
+    split), on the transposed views of (N, W, 4*64) projections: the tp
+    engine's 8 windows and the training batch's 392."""
+    kernel, plain, rel = _ATTENTION[which]
+    args = _attention_operands(dev, rel, "projection", n, 4, 42, 64,
+                               seed=n + rel)
+    before = kernel.launches
+    got = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert bool((got[:, :, 0] == 0).all())
+    merged = got.transpose(1, 2).reshape(n, 42, 4 * 64)
+    assert merged.data_ptr() == got.data_ptr()
+
+
+def _dp_engine_run(dev, n_replicas: int, threads: bool = True):
+    """Four streams of a small model through an engine of 4 slots, sharded
+    into `n_replicas` replicas on this card (1: the unsharded engine);
+    without `threads` the replicas tick one after another. Returns the
+    finals and the launches of the four kernels."""
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.parallel.mesh import make_mesh
+    from speechcatcher_tpu_torch.parallel.serve_sharding import shard_engine
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    cfg = flagship_config(encoder_dim=64, encoder_heads=4, encoder_layers=2,
+                          decoder_dim=64, decoder_heads=4, decoder_layers=2,
+                          encoder_linear_units=128, decoder_linear_units=128)
+    model = ASRModel.random_init(cfg, seed=1, device=dev)
+    engine = StreamingEngine(model, n_slots=4, beam_size=3, device=dev)
+    if n_replicas > 1:
+        engine = shard_engine(engine, make_mesh(n_replicas,
+                                                devices=[dev] * n_replicas))
+        if not threads:
+            engine._pool = None
+    chunk = engine.A
+    audios = [synth_audio(2.3 + 0.4 * k, 40 + k) for k in range(4)]
+    counters = (block_attention, ctc_forward_recursion, ring_append_cols,
+                ring_append_rows)
+    before = [c.launches for c in counters]
+    slots = [engine.acquire_slot() for _ in audios]
+    n_ticks = min(len(a) for a in audios) // chunk
+    for i in range(n_ticks):
+        engine.tick({s: audios[k][i * chunk:(i + 1) * chunk]
+                     for k, s in enumerate(slots)})
+    res = engine.finalize_batch({s: audios[k][n_ticks * chunk:]
+                                 for k, s in enumerate(slots)})
+    torch.cuda.synchronize()
+    finals = [(np.asarray(res[s][0]).tolist(), np.asarray(res[s][1]).tolist(),
+               float(res[s][2])) for s in slots]
+    return finals, [c.launches - b for c, b in zip(counters, before)]
+
+
+def test_dp_engine_on_one_card_matches_unsharded(dev):
+    """Two replicas of 2 slots on one card, ticking on their own threads:
+    the unsharded engine's tokens and positions, scores within 1e-5."""
+    want, _ = _dp_engine_run(dev, 1)
+    got, launches = _dp_engine_run(dev, 2)
+    for (gy, gx, gs), (wy, wx, ws) in zip(got, want):
+        assert gy == wy and gx == wx
+        assert abs(gs - ws) <= 1e-5 * max(1.0, abs(ws))
+    assert min(launches) > 0
+
+
+def test_replica_threads_count_launches_exactly(dev):
+    """The launch counts of two replicas ticking concurrently equal those
+    of the same run ticking them one after another."""
+    serial_finals, serial = _dp_engine_run(dev, 2, threads=False)
+    finals, threaded = _dp_engine_run(dev, 2)
+    assert threaded == serial and min(serial) > 0
+    assert [f[:2] for f in finals] == [f[:2] for f in serial_finals]

@@ -98,6 +98,11 @@ def test_package_imports_with_jax_blocked():
         "import speechcatcher_tpu_torch.data\n"
         "import speechcatcher_tpu_torch.decode.greedy\n"
         "import speechcatcher_tpu_torch.utils.save\n"
+        "import speechcatcher_tpu_torch.parallel.mesh\n"
+        "import speechcatcher_tpu_torch.parallel.tp\n"
+        "import speechcatcher_tpu_torch.parallel.serve_sharding\n"
+        "import speechcatcher_tpu_torch.parallel.launch\n"
+        "import speechcatcher_tpu_torch.parallel.dryrun\n"
         "from speechcatcher_tpu_torch import load_model, recognize_file\n"
         "print('ok')\n"
     )

@@ -200,11 +200,15 @@ def test_main_trains_saves_and_resumes(tmp_path, capsys):
     assert (save / "params_3.pt").exists()
 
 
-@pytest.mark.parametrize("flags", [["--num-processes", "2"],
-                                   ["--coordinator", "host0:1234"],
-                                   ["--process-id", "1"], ["--tp", "2"]])
-def test_main_refuses_multi_gpu_flags(flags, capsys):
+@pytest.mark.parametrize("flags,message", [
+    (["--num-processes", "2"], "only with --coordinator"),
+    (["--coordinator", "host0:1234"], "--coordinator requires"),
+    (["--process-id", "1"], "only with --coordinator"),
+    (["--tp", "2"], "--tp 2 runs one process per card")])
+def test_main_refuses_multi_gpu_flags(flags, message, capsys):
+    """Multi-card flags that cannot take effect in one process stop the
+    trainer (test_torch_parallel_training runs --tp 2 on two ranks)."""
     with pytest.raises(SystemExit) as exc:
         PT.main(["--device", "cpu", *flags])
     assert exc.value.code != 0
-    assert "item 7" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
