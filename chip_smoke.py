@@ -12,7 +12,7 @@ the batched ``StreamingEngine`` (8 slots), each final held against the
 single-stream session. Each path reads the launch counts of all five
 kernels, set to 0 just before it. It replays the fixtures blessed by the JAX
 package (a transformer utterance that stops early and a token-rich one, a
-conformer utterance, one engine run), decodes at small width on the card
+conformer utterance and a token-rich one, one engine run), decodes at small width on the card
 and the CPU, times ticks with 32 busy slots, and prints JSON lines. The
 last line is ``{"ok": true, "device": {...}}``; any failure exits non-zero
 before it.
@@ -28,6 +28,17 @@ model; the precision fixture (sessions in ``"bfloat16"`` and ``"int8-all"``,
 the engine in the serving default); a model directory written from seed 0
 and loaded through ``Speech2TextStreaming(model_dir=...)``; and warm RTF and
 tick p50 of float32 and the serving default taken in turns.
+
+The device-resident beam loop (``graph_path``, for the transformer and
+the conformer): every block loop and engine encode runs as CUDA graphs on
+the card; here each graphed block and encode of a 6 s utterance and of the
+engine path's ten streams is run again through the eager loop on a copy of
+the same state, and every leaf must be bit-equal. It prints beam steps and
+host syncs per block, the graphs captured and their memory, the runtime
+calls the host makes and the device's idle share under torch.profiler,
+tick p50/p95 and RTF graphed against eager in three interleaved pairs, and
+the dp = 2 tick against the unsharded engine. Every other path runs through
+the graphs too, with the launch counts of the eager loop.
 
 The app and serving layer, on a flagship that emits tokens (the token-rich
 fixture's weights and biases): ``recognize_file`` on a 70 s WAV serially
@@ -80,6 +91,8 @@ CONFORMER_FIXTURE = (ROOT / "tests" / "fixtures"
                      / "torch_port_conformer_flagship.json")
 TOKENS_FIXTURE = (ROOT / "tests" / "fixtures"
                   / "torch_port_flagship_tokens.json")
+CONFORMER_TOKENS_FIXTURE = (ROOT / "tests" / "fixtures"
+                            / "torch_port_conformer_tokens.json")
 PRECISION_FIXTURE = (ROOT / "tests" / "fixtures"
                      / "torch_port_precision_flagship.json")
 PRECISIONS = ("float32", "ctc_ring_bf16", "serving_default", "int8",
@@ -101,7 +114,14 @@ ENGINE_MAXB = 2  # StreamingEngine.MAXB at flagship with 8192-sample chunks
 TALKER_SEED, TALKER_BIASES = 1, (2.0, 8.0)
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also carries the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = obj | {"elapsed_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -908,6 +928,8 @@ def fixture_replay(dev, path=FIXTURE, encoder_type: str = "transformer",
     _, nbest, _ = decode_chunked(s2t, audio, cfg.sample_rate)
     wall = time.perf_counter() - t0
     launched = ctc_forward_recursion.launches - launched
+    loop = s2t.beam_search.loop
+    FIXTURE_STEPS[path.name] = (encoder_type, dict(loop.step_counts))
     yseq, xpos, score = nbest[0]
     tokens_ok = [int(x) for x in yseq] == fx["yseq"]
     xpos_ok = [int(x) for x in xpos] == fx["xpos"]
@@ -916,7 +938,8 @@ def fixture_replay(dev, path=FIXTURE, encoder_type: str = "transformer",
           "tokens_equal": tokens_ok, "xpos_equal": xpos_ok, "score": score,
           "score_ref": fx["score"], "score_rel_err": rel, "tol": tol,
           "hyp_len": len(yseq), "wall_s": wall,
-          "ctc_forward_recursion_launches": launched})
+          "ctc_forward_recursion_launches": launched}
+         | steps_per_block([loop]))
     if not (tokens_ok and xpos_ok and rel <= tol):
         fail(f"{path.name}: replay disagrees with the JAX-blessed decode")
     if launched < len(yseq) - 2:
@@ -1093,11 +1116,9 @@ def engine_path(dev, counters, model, chunk: int = 8192,
     from speechcatcher_tpu_torch.serve.engine import StreamingEngine
     from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
 
-    n = 10
-    seconds = [3.0 + 3.0 * k / (n - 1) for k in range(n)]
-    streams = engine_streams(n, seconds, starts=[k // 2 for k in range(n)],
-                             int16_every=2, seed0=300, single=(3, 8),
-                             rate=model.cfg.sample_rate, mulaw=mulaw)
+    streams = engine_path_streams(model.cfg.sample_rate, mulaw)
+    n = len(streams)
+    seconds = [len(st["audio"]) / model.cfg.sample_rate for st in streams]
     engine = StreamingEngine(model, n_slots=8, beam_size=5,
                              chunk_samples=chunk, device=dev)
     if engine.MAXB != ENGINE_MAXB:
@@ -1120,7 +1141,9 @@ def engine_path(dev, counters, model, chunk: int = 8192,
           "max_tick_ms": float(np.max(tick_s)) * 1e3,
           "chunk_ms": chunk / model.cfg.sample_rate * 1e3,
           "wall_s": wall, "audio_s": float(sum(seconds)),
-          "hbm_bytes_per_stream": engine.hbm_bytes_per_stream()["total"]})
+          "hbm_bytes_per_stream": engine.hbm_bytes_per_stream()["total"],
+          "graph_bytes_per_stream":
+              engine.graph_bytes_per_stream()["total"]})
     check_launches(phase, counters, launches, zero)
     if reused < 2:
         fail(f"only {reused} streams reused a freed slot")
@@ -1250,9 +1273,11 @@ def precision_fixture_replay(dev):
     card: the session in each blessed ``dtype=`` mode and the engine in the
     serving default, tokens and positions exact, scores within rel.
     BF16_STORAGE_SCORE_TOL.
-    A session that disagrees prints the first beam step whose best
-    candidate differs from the blessed trace, with the gap between the two
-    best candidates there on either side."""
+    The sessions replay through the graphs; the beam-step trace (the gap
+    between the two best candidates of every step, read on the host) comes
+    from a second, eager decode. A session that disagrees prints the first
+    beam step whose best candidate differs from the blessed trace, with the
+    gap there on either side."""
     import speechcatcher_tpu_torch.decode.beam_search as bs
     from speechcatcher_tpu_torch.config import ModelConfig, flagship_config
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
@@ -1278,9 +1303,10 @@ def precision_fixture_replay(dev):
         model = ASRModel.from_numpy(cfg, tree, device=dev)
         s2t = Speech2TextStreaming(model=model, beam_size=beam, device=dev,
                                    dtype=dtype)
+        _, nbest, _ = decode_chunked(s2t, audio, cfg.sample_rate)
         steps = []
         with beam_step_trace(bs, beam, steps):
-            _, nbest, _ = decode_chunked(s2t, audio, cfg.sample_rate)
+            decode_chunked(make_eager(s2t), audio, cfg.sample_rate)
         yseq, xpos, score = nbest[0]
         same = ([int(x) for x in yseq] == ref["yseq"]
                 and [int(x) for x in xpos] == ref["xpos"])
@@ -1570,7 +1596,9 @@ def engine_load_point(dev, model, n_slots: int = 32, n_ticks: int = 12,
           "chunk_ms": chunk_ms,
           "p50_tick_over_chunk": float(np.median(tick_s)) * 1e3 / chunk_ms,
           "final_batch_s": wall - float(np.sum(tick_s)),
-          "hbm_bytes_per_stream": engine.hbm_bytes_per_stream()["total"]})
+          "hbm_bytes_per_stream": engine.hbm_bytes_per_stream()["total"],
+          "graph_bytes_per_stream":
+              engine.graph_bytes_per_stream()["total"]})
 
 
 def engine_fixture_replay(dev):
@@ -2558,19 +2586,22 @@ def greedy_path(dev, counters, fns, smi: str) -> dict:
 
 def train_cli(dev) -> list:
     """``python -m speechcatcher_tpu_torch.training --steps 3 --batch 8
-    --save-dir <dir>`` in a subprocess (the default config), then
-    ``--resume --steps 1``: the resumed run's first loss must be that of
-    the saved parameters on the first batch, computed in this process; and
-    ``--num-processes 2`` without ``--coordinator`` must exit non-zero
-    saying it takes effect only with it. Returns the first run's losses."""
+    --save-dir <dir>`` in a subprocess (the default config), then the
+    command line's ``main`` in this process (a start of Python, torch and
+    the card saved each): ``--resume --steps 1``, whose first loss must be
+    that of the saved parameters on the first batch, and ``--num-processes
+    2`` without ``--coordinator``, which must exit non-zero saying it takes
+    effect only with it. Returns the first run's losses."""
+    import contextlib
+    import io
     import re
     import tempfile
 
     import torch
 
+    from speechcatcher_tpu_torch import training
     from speechcatcher_tpu_torch.config import ModelConfig
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
-    from speechcatcher_tpu_torch.training import joint_loss
     from speechcatcher_tpu_torch.utils.save import load_checkpoint
 
     # The card is the command's default device; a CPU rehearsal names it.
@@ -2584,14 +2615,28 @@ def train_cli(dev) -> list:
             timeout=600)
         return res, time.perf_counter() - t0
 
+    def run_here(*flags):
+        """``training.main`` on `flags`: (exit code, stdout, stderr)."""
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        code = 0
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                training.main([*flags, *device])
+            except SystemExit as e:
+                code = e.code if isinstance(e.code, int) else 1
+        return (subprocess.CompletedProcess([], code, out.getvalue(),
+                                            err.getvalue()),
+                time.perf_counter() - t0)
+
     with tempfile.TemporaryDirectory() as tmp:
         res, wall = run("--steps", "3", "--batch", "8", "--save-dir", tmp)
         if res.returncode != 0:
             fail(f"train_cli: exit {res.returncode}: {res.stderr[-2000:]}")
         losses = re.findall(r"^step \d+: loss (\S+)", res.stdout, re.M)
         evals = re.findall(r"^eval @ step 3: .*", res.stdout, re.M)
-        res2, wall2 = run("--steps", "1", "--batch", "8", "--save-dir", tmp,
-                          "--resume")
+        res2, wall2 = run_here("--steps", "1", "--batch", "8",
+                               "--save-dir", tmp, "--resume")
         if res2.returncode != 0:
             fail(f"train_cli --resume: exit {res2.returncode}: "
                  f"{res2.stderr[-2000:]}")
@@ -2600,9 +2645,9 @@ def train_cli(dev) -> list:
         model = ASRModel.random_init(ModelConfig(), seed=0, device=dev)
         batch, _, _ = train_batch(model)
         with torch.no_grad():
-            loss = float(joint_loss(params, batch, cfg)[0])
+            loss = float(training.joint_loss(params, batch, cfg)[0])
         saved = sorted(p.name for p in Path(tmp).glob("params_*.pt"))
-    res3, _ = run("--steps", "1", "--num-processes", "2")
+    res3, _ = run_here("--steps", "1", "--num-processes", "2")
     row = {"phase": "train_cli", "losses": losses, "eval": evals,
            "wall_s": wall, "resume_wall_s": wall2, "resumed_loss": resumed,
            "saved_params_loss": loss, "saved": saved,
@@ -2747,16 +2792,14 @@ def _collectives_rank(devices):
             "broadcast": z.tolist(), "device": str(y.device)}
 
 
-def gloo_collectives(dev) -> None:
+def gloo_collectives(out: list) -> None:
     """Which collectives gloo takes on CUDA tensors in this build: all_reduce,
     all_gather (what gather_from_tp uses) and broadcast on two ranks of the
-    card. A refused one fails the run with the rank's traceback."""
-    t0 = time.perf_counter()
-    out = on_ranks(_collectives_rank, dev, timeout=120)
+    card (`out`: each rank's ``_collectives_rank``). A refused one fails the
+    run with the rank's traceback."""
     want = {"all_reduce": [3.0] * 4, "all_gather": [1.0] * 4 + [2.0] * 4,
             "broadcast": [1.0] * 4}
-    emit({"phase": "gloo_cuda_collectives", "ranks": out,
-          "wall_s": time.perf_counter() - t0})
+    emit({"phase": "gloo_cuda_collectives", "ranks": out})
     for got in out:
         if {k: got[k] for k in want} != want or "cuda" not in got["device"]:
             fail(f"gloo_cuda_collectives: {got}")
@@ -2812,18 +2855,16 @@ def _tp_train_rank(devices, smi):
     return mesh.coord, out
 
 
-def tp_train_path(dev, counters, smi: str) -> dict:
-    """Two gloo ranks on the card at tp=2, each with its shards of the
-    flagship: 3 transformer steps and 1 conformer step on train_path's
-    batch. Losses equal the single-card steps' (TRAIN_LOSSES) to rel.
-    TP_TRAIN_LOSS_RTOL on both ranks; each rank launches A (E for the
-    conformer) and its backward once per layer and step, at 4 heads.
-    Returns the launches and backwards summed over the ranks."""
+def tp_train_path(out: list, smi: str) -> dict:
+    """Two gloo ranks on the card at tp=2 (`out`: each rank's
+    ``_tp_train_rank``), each with its shards of the flagship: 3
+    transformer steps and 1 conformer step on train_path's batch. Losses
+    equal the single-card steps' (TRAIN_LOSSES) to rel. TP_TRAIN_LOSS_RTOL
+    on both ranks; each rank launches A (E for the conformer) and its
+    backward once per layer and step, at 4 heads. Returns the launches and
+    backwards summed over the ranks."""
     from speechcatcher_tpu_torch.config import flagship_config
 
-    t0 = time.perf_counter()
-    out = on_ranks(_tp_train_rank, dev, timeout=600, args=(smi,))
-    wall = time.perf_counter() - t0
     total = {}
     for coord, res in out:
         for encoder_type, got in res.items():
@@ -2856,8 +2897,7 @@ def tp_train_path(dev, counters, smi: str) -> dict:
             if got["attention"]["shape"][1] != heads:
                 fail(f"tp_train_path: attention checked at "
                      f"{got['attention']['shape']}")
-    emit({"phase": "tp_train_path_summary", "ranks": len(out),
-          "wall_s": wall, **total})
+    emit({"phase": "tp_train_path_summary", "ranks": len(out), **total})
     return total
 
 
@@ -2910,24 +2950,15 @@ def _tp_engine_rank(devices):
             launches, margin, tick_s, wall)
 
 
-def tp_engine_path(dev, counters, smi: str) -> dict:
+def tp_engine_path(out: list, counters, smi: str, ref: dict,
+                   ref_tick_s) -> dict:
     """Two gloo ranks on the card, one flagship engine at tp=2 over
-    TP_STREAMS streams; each final on both ranks equals the unsharded
-    engine's on the same streams (tokens and positions exactly, the score
-    within rel. 1e-4). Prints each rank's closest top-k margin."""
+    TP_STREAMS streams (`out`: each rank's ``_tp_engine_rank``); each final
+    on both ranks equals the unsharded engine's on the same streams
+    (`ref`; tokens and positions exactly, the score within rel. 1e-4).
+    Prints each rank's closest top-k margin."""
     import numpy as np
-    import torch
 
-    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
-
-    model = flagship_model(dev, seed=0)
-    streams = tp_engine_streams(model.cfg.sample_rate)
-    ref, ref_tick_s, _ = drive_engine(
-        StreamingEngine(model, n_slots=TP_STREAMS, beam_size=5,
-                        chunk_samples=8192, device=dev),
-        streams, 8192, sync=torch.cuda.synchronize)
-    del model
-    out = on_ranks(_tp_engine_rank, dev, timeout=600)
     total = {c.__name__: 0 for c in counters}
     for coord, finals, launches, margin, tick_s, wall in out:
         worst = 0.0
@@ -2954,6 +2985,40 @@ def tp_engine_path(dev, counters, smi: str) -> dict:
         for c in counters:
             total[c.__name__] += launches[c.__name__]
     return total
+
+
+def _tp_rank(devices, smi):
+    """One rank of the tp phases, all in one spawn of the two ranks (each
+    spawn costs a start of Python, torch and the card): the collectives,
+    then tp_train_path's and tp_engine_path's work."""
+    return (_collectives_rank(devices), _tp_train_rank(devices, smi),
+            _tp_engine_rank(devices))
+
+
+def tp_paths(dev, counters, smi: str):
+    """gloo_cuda_collectives, tp_train_path and tp_engine_path from one
+    spawn of two gloo ranks on the card, after the unsharded engine's run
+    that tp_engine_path holds the ranks against. Returns the train and
+    the engine path's launches."""
+    import torch
+
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+    model = flagship_model(dev, seed=0)
+    ref, ref_tick_s, _ = drive_engine(
+        StreamingEngine(model, n_slots=TP_STREAMS, beam_size=5,
+                        chunk_samples=8192, device=dev),
+        tp_engine_streams(model.cfg.sample_rate), 8192,
+        sync=torch.cuda.synchronize)
+    del model
+    t0 = time.perf_counter()
+    out = on_ranks(_tp_rank, dev, timeout=900, args=(smi,))
+    emit({"phase": "tp_ranks", "ranks": len(out),
+          "wall_s": time.perf_counter() - t0})
+    gloo_collectives([o[0] for o in out])
+    return (tp_train_path([o[1] for o in out], smi),
+            tp_engine_path([o[2] for o in out], counters, smi, ref,
+                           ref_tick_s))
 
 
 def nccl_trainer(dev, want_losses) -> None:
@@ -2983,6 +3048,538 @@ def nccl_trainer(dev, want_losses) -> None:
             or any(abs(a - b) > 1e-4 for a, b in zip(losses, want_losses))):
         fail(f"nccl_trainer: exit {res.returncode}, losses {losses} vs "
              f"{want_losses[:2]}: {res.stderr[-2000:]}")
+
+
+# ---------------------------------------------------------------------------
+# The device-resident beam loop: CUDA graphs against the eager loop
+# ---------------------------------------------------------------------------
+
+def bit_equal(what: str, got, want) -> None:
+    """Fail unless every tensor of the tree `got` equals the one at the same
+    place of `want` to the last bit."""
+    import torch
+
+    from speechcatcher_tpu_torch.decode.graphs import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    if len(a) != len(b):
+        fail(f"{what}: the trees differ in structure")
+    for i, (g, w) in enumerate(zip(a, b)):
+        if (g.shape != w.shape or g.dtype != w.dtype
+                or not torch.equal(g.contiguous().view(torch.uint8),
+                                   w.contiguous().view(torch.uint8))):
+            fail(f"{what}: leaf {i} {tuple(g.shape)} of the graphs differs "
+                 "from the eager loop")
+
+
+class GraphCheck:
+    """While active, every graphed block loop and engine encode is run a
+    second time through the eager reference (``BlockLoop._run_eager``, the
+    eager ``_encode_into``) on a copy of the state it started from, and
+    every leaf of the graphs' result must equal the eager one to the last
+    bit. The eager runs' launches are not counted; their beam steps are
+    (``eager_steps``: the eager loop makes steps + 1 host syncs a
+    block)."""
+
+    def __init__(self):
+        self.blocks = self.encodes = self.eager_steps = 0
+
+    def __enter__(self):
+        import copy
+
+        import torch
+
+        from speechcatcher_tpu_torch.decode import beam_search as bs
+        from speechcatcher_tpu_torch.decode import graphs
+        from speechcatcher_tpu_torch.ops.kernels import _plan
+        from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+        check = self
+        run_graphs = graphs.BlockLoop._run_graphs
+        encode = StreamingEngine._encode
+        step = bs.block_step
+
+        def counted_step(*args, **kwargs):
+            check.eager_steps += 1
+            return step(*args, **kwargs)
+
+        def checked_run(loop):
+            start = graphs.clone_tree(loop.state)
+            run_graphs(loop)
+            ref = copy.copy(loop)
+            ref.state = start
+            ref.stepping0 = torch.zeros_like(loop.stepping0)
+            bs.block_step = counted_step
+            try:
+                with _plan.recording():
+                    ref._run_eager()
+            finally:
+                bs.block_step = step
+            bit_equal(f"block {check.blocks}", loop.state, start)
+            check.blocks += 1
+
+        def checked_encode(engine, audio, bk):
+            start = graphs.clone_tree(engine.buffers)
+            encode(engine, audio, bk)
+            with _plan.recording():
+                engine._encode_into(start, engine._audio_in[audio.dtype].dev,
+                                    engine._enc_ints.dev, bk["maxb"])
+            bit_equal(f"encode {check.encodes}", engine.buffers, start)
+            check.encodes += 1
+
+        self._restore = [(graphs.BlockLoop, "_run_graphs", run_graphs),
+                         (StreamingEngine, "_encode", encode)]
+        graphs.BlockLoop._run_graphs = checked_run
+        StreamingEngine._encode = checked_encode
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._restore:
+            setattr(owner, name, fn)
+
+
+def make_eager(obj):
+    """Run a session's or an engine's block loops, and an engine's encode,
+    through the eager reference: the comparison's other side. No entry
+    point reaches it; on the card they all run the graphs."""
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+    if not isinstance(obj, StreamingEngine):
+        obj.beam_search.loop.graphed = False
+        return obj
+    obj.graphed = False
+    obj._loop.graphed = False
+    obj._finalizer.loop.graphed = False
+    make = obj._block_loop
+
+    def eager_loop(*args):
+        loop = make(*args)
+        loop.graphed = False
+        return loop
+
+    obj._block_loop = eager_loop
+    return obj
+
+
+# Beam steps per block of the fixtures' graphed decodes: file name ->
+# (encoder type, {live steps: blocks}), filled by fixture_replay.
+FIXTURE_STEPS: dict = {}
+K_CHOICES = (1, 2, 4, 8)
+
+
+def steps_per_block(loops) -> dict:
+    """Live beam steps per block of the graphed runs of `loops`: mean, max
+    and the blocks by their step count."""
+    hist: dict = {}
+    for loop in loops:
+        for n, blocks in loop.step_counts.items():
+            hist[n] = hist.get(n, 0) + blocks
+    blocks = sum(hist.values())
+    return {"blocks": blocks,
+            "steps_per_block_mean": sum(n * b for n, b in hist.items())
+            / max(blocks, 1),
+            "steps_per_block_max": max(hist, default=0),
+            "steps_per_block_hist": {str(n): hist[n] for n in sorted(hist)}}
+
+
+def replay_costs(loop, n: int = 50) -> dict:
+    """On the warm graphed `loop`, every stream stopped (a step replay is
+    then an identity, checked to the last bit): the device time of one
+    masked beam step (CUDA events over n queued replays), and what one
+    host readback adds to a replay (n replays each followed by its
+    readback, less n queued replays and one wait, per replay)."""
+    import torch
+
+    from speechcatcher_tpu_torch.decode.graphs import clone_tree
+
+    if bool(loop.state.stepping.any()):
+        fail("replay_costs: a stream of the loop is still stepping")
+    step = loop._graphs[1].graph
+    before = clone_tree(loop.state)
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(n):
+        step.replay()
+    t1.record()
+    t1.synchronize()
+    step_ms = t0.elapsed_time(t1) / n
+    start = time.perf_counter()
+    for _ in range(n):
+        step.replay()
+    torch.cuda.synchronize()
+    queued = time.perf_counter() - start
+    start = time.perf_counter()
+    for _ in range(n):
+        step.replay()
+        loop._flag.read()
+    waited = time.perf_counter() - start
+    bit_equal("replay_costs", loop.state, before)
+    return {"masked_step_ms": step_ms,
+            "readback_ms": (waited - queued) / n * 1e3}
+
+
+def price_k(costs: dict, hist: dict) -> dict:
+    """Mean cost in ms per block of K steps a replay, for each K of
+    K_CHOICES, over blocks counted by their live steps (`hist`): a block of
+    n steps makes max(1, ceil(n/K)) replays, each with a readback, and
+    K per replay less n masked steps."""
+    blocks = sum(hist.values())
+    out = {}
+    for k in K_CHOICES:
+        total = 0.0
+        for n, b in hist.items():
+            replays = max(1, -(-int(n) // k))
+            total += b * (replays * costs["readback_ms"]
+                          + (replays * k - int(n)) * costs["masked_step_ms"])
+        out[str(k)] = total / max(blocks, 1)
+    return out
+
+
+def engine_loops(engine) -> list:
+    return ([engine._loop, engine._finalizer.loop]
+            + [loop for _, loop in engine._compact.values()])
+
+
+def loop_stats(loops) -> dict:
+    """Beam steps per block, host syncs per block and step replays of the
+    graphed runs of `loops`."""
+    from speechcatcher_tpu_torch.decode import graphs
+
+    blocks = sum(x.blocks for x in loops)
+    steps = sum(x.steps for x in loops)
+    return {"blocks": blocks, "steps": steps,
+            "steps_per_block_mean": steps / max(blocks, 1),
+            "steps_per_block_max": max((x.max_steps for x in loops),
+                                       default=0),
+            "syncs_per_block_graphed": sum(x.syncs for x in loops)
+            / max(blocks, 1),
+            # The eager loop reads any(stepping) before every step and
+            # once more to stop.
+            "syncs_per_block_eager": (steps + blocks) / max(blocks, 1),
+            "step_replays": sum(x._graphs[1].replays for x in loops
+                                if x._graphs),
+            "steps_per_replay": graphs.STEPS_PER_REPLAY,
+            "steps_per_block_hist":
+                steps_per_block(loops)["steps_per_block_hist"]}
+
+
+def runtime_calls(averages) -> dict:
+    """Counts of the CUDA runtime calls the host made, from a profile's
+    `key_averages()`: kernels it launched itself (cudaLaunchKernel and
+    kin), graph launches, copies and waits."""
+    import torch
+
+    out = {"kernel_launches": 0, "graph_launches": 0, "memcpy": 0,
+           "host_waits": 0}
+    for e in averages:
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if "LaunchKernel" in e.key:
+            out["kernel_launches"] += e.count
+        elif e.key == "cudaGraphLaunch":
+            out["graph_launches"] += e.count
+        elif e.key.startswith("cudaMemcpy"):
+            out["memcpy"] += e.count
+        elif e.key in ("cudaStreamSynchronize", "cudaEventSynchronize",
+                       "cudaDeviceSynchronize"):
+            out["host_waits"] += e.count
+    return out
+
+
+def device_share(averages, wall: float) -> dict:
+    """Device busy time (kernels and copies on the card) and its idle
+    share of `wall` seconds, from a profile's `key_averages()`."""
+    import torch
+
+    busy_us = sum(e.self_device_time_total for e in averages
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.self_device_time_total > 0)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3)}
+
+
+def graph_profiles(runs: dict, smi: str, encoder_type: str,
+                   utterance_modes=("graphed",),
+                   tick_modes=("graphed", "eager")) -> None:
+    """One warm 6 s utterance (for each of `utterance_modes`) and 10 warm
+    ticks of 8 slots (`tick_modes`) under torch.profiler, on the warm
+    session and engine of each mode of `runs`: the device's idle share and
+    the runtime calls the host made (kernels it issued itself, per
+    tick)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    for mode in utterance_modes:
+        s2t = runs[mode][0]
+        rate = s2t.model.cfg.sample_rate
+        audio = synth_audio(6.0, seed=102, rate=rate)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode_chunked(s2t, audio, rate)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        averages = prof.key_averages()
+        emit({"phase": "graph_profile_utterance", "mode": mode,
+              "encoder_type": encoder_type, "audio_s": 6.0, "card": smi}
+             | device_share(averages, wall) | runtime_calls(averages))
+    for mode in tick_modes:
+        engine = runs[mode][1]
+        rate = engine.cfg.sample_rate
+        chunk = engine.A
+        streams = engine_streams(8, [(10 * chunk + 3000) / rate] * 8,
+                                 [0] * 8, 2, 700, rate=rate)
+        slots = [engine.acquire_slot() for _ in streams]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(10):
+                engine.tick({s: st["audio"][i * chunk:(i + 1) * chunk]
+                             for s, st in zip(slots, streams)})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        averages = prof.key_averages()
+        calls = runtime_calls(averages)
+        emit({"phase": "graph_profile_ticks", "mode": mode,
+              "encoder_type": encoder_type, "n_slots": 8, "ticks": 10,
+              "card": smi} | device_share(averages, wall) | calls
+             | {"kernel_launches_per_tick": calls["kernel_launches"] / 10,
+                "graph_launches_per_tick": calls["graph_launches"] / 10})
+        engine.finalize_batch({s: None for s in slots})
+
+
+def graph_timing(runs: dict, smi: str, encoder_type: str,
+                 pairs: int = 3) -> None:
+    """Tick p50/p95 of the engine path's ten streams and the RTF of a 6 s
+    utterance, graphed and eager, in `pairs` interleaved pairs on the warm
+    sessions and engines of `runs`; the graphed finals must equal the
+    eager ones."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    s2t, engine = runs["graphed"]
+    rate = s2t.model.cfg.sample_rate
+    chunk = engine.A
+    streams = engine_path_streams(rate)
+    audio = synth_audio(6.0, seed=102, rate=rate)
+    out = {mode: {"p50": [], "p95": [], "rtf": [], "finals": None}
+           for mode in runs}
+    for p in range(pairs):
+        order = ("graphed", "eager") if p % 2 == 0 else ("eager", "graphed")
+        for mode in order:
+            s2t, engine = runs[mode]
+            t0 = time.perf_counter()
+            decode_chunked(s2t, audio, rate)
+            out[mode]["rtf"].append((time.perf_counter() - t0) / 6.0)
+            finals, tick_s, _ = drive_engine(engine, streams, chunk,
+                                             sync=_sync(engine.device))
+            out[mode]["finals"] = finals
+            out[mode]["p50"].append(float(np.median(tick_s)) * 1e3)
+            out[mode]["p95"].append(float(np.percentile(tick_s, 95)) * 1e3)
+    for k, (gy, gx, gs) in out["graphed"]["finals"].items():
+        ey, ex, es = out["eager"]["finals"][k]
+        if not (np.array_equal(gy, ey) and np.array_equal(gx, ex)
+                and gs == es):
+            fail(f"graph_timing: stream {k}'s final differs between the "
+                 f"graphs and the eager loop: {gy.tolist()} / {ey.tolist()}")
+    emit({"phase": "graph_timing", "encoder_type": encoder_type,
+          "pairs": pairs, "card": smi,
+          "tick_p50_ms": {m: v["p50"] for m, v in out.items()},
+          "tick_p95_ms": {m: v["p95"] for m, v in out.items()},
+          "utterance_rtf": {m: v["rtf"] for m, v in out.items()},
+          "finals_equal": True})
+
+
+def dp_tick_ratio(engine, smi: str, mesh) -> None:
+    """Tick p50 of the engine path's ten streams over dp = 2 replicas of 4
+    slots on this card against the warm unsharded 8-slot `engine`, both
+    graphed, in turns (unsharded, dp, dp, unsharded) after one pass of the
+    dp engine that captures its graphs."""
+    import numpy as np
+
+    from speechcatcher_tpu_torch.parallel.serve_sharding import shard_engine
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+
+    chunk = engine.A
+    streams = engine_path_streams(engine.cfg.sample_rate)
+    engines = {"unsharded": engine,
+               "dp2": shard_engine(StreamingEngine(
+                   engine.model, n_slots=8, beam_size=5,
+                   chunk_samples=chunk, device=engine.device), mesh)}
+    drive_engine(engines["dp2"], streams, chunk, sync=_sync(engine.device))
+    p50 = {k: [] for k in engines}
+    for name in ("unsharded", "dp2", "dp2", "unsharded"):
+        _, tick_s, _ = drive_engine(engines[name], streams, chunk,
+                                    sync=_sync(engine.device))
+        p50[name].append(float(np.median(tick_s)) * 1e3)
+    emit({"phase": "graph_dp_tick_ratio", "card": smi, "tick_p50_ms": p50,
+          "dp2_over_unsharded": float(np.median(p50["dp2"])
+                                      / np.median(p50["unsharded"]))})
+
+
+def engine_path_streams(rate: int, mulaw: bool = False):
+    """The engine path's ten streams (3 to 6 s, two a tick, every other one
+    int16 or all mu-law, two finals through finalize())."""
+    n = 10
+    seconds = [3.0 + 3.0 * k / (n - 1) for k in range(n)]
+    return engine_streams(n, seconds, starts=[k // 2 for k in range(n)],
+                          int16_every=2, seed0=300, single=(3, 8), rate=rate,
+                          mulaw=mulaw)
+
+
+def k_choice(s2t, engine, smi: str, encoder_type: str) -> None:
+    """Prices K (beam steps a replay) on the card: the masked step's and
+    the readback's cost on the warm session's and engine's loops, over the
+    steps per block of this encoder's token-rich fixture decode (session)
+    and of the engine path (engine)."""
+    from speechcatcher_tpu_torch.decode import graphs
+
+    fixtures = {name: hist for name, (enc, hist) in FIXTURE_STEPS.items()
+                if enc == encoder_type}
+    rich = (CONFORMER_TOKENS_FIXTURE if encoder_type == "conformer"
+            else TOKENS_FIXTURE).name
+    if rich not in fixtures:
+        fail(f"k_choice: {rich} was not replayed before")
+    costs = {"session": replay_costs(s2t.beam_search.loop),
+             "engine": replay_costs(engine._loop)}
+    priced = {"token_rich_fixture": price_k(costs["session"],
+                                            fixtures[rich]),
+              "engine": price_k(costs["engine"],
+                                dict(engine._loop.step_counts))}
+    emit({"phase": "graph_k_choice", "encoder_type": encoder_type,
+          "card": smi, "costs": costs,
+          "fixture_steps_per_block": {
+              name: {str(n): hist[n] for n in sorted(hist)}
+              for name, hist in fixtures.items()},
+          "cost_ms_per_block": priced,
+          "k_in_use": graphs.STEPS_PER_REPLAY,
+          "k_cheapest": {what: min(v, key=v.get)
+                         for what, v in priced.items()}})
+
+
+# What graph_timing's passes may add to the card's allocated memory: the
+# leak it guards against is a compact set per final width, tens of MB each
+# at flagship width.
+HELD_GROWTH_LIMIT = 1 << 20
+
+
+def graph_path(dev, counters, smi: str, encoder_type: str,
+               dp_mesh=None, full_profile: bool = True) -> dict:
+    """The block loop and the engine's encode as CUDA graphs at flagship
+    width: a 6 s session utterance and the engine path's ten streams (their
+    finals through finalize_batch and finalize) with every block and
+    encode held against the eager loop on the same inputs, bit-equal on
+    every leaf; launch counts (B once per replayed step: K a replay); steps
+    and host syncs per block; the graphs captured and their memory; the
+    price of K; then profiles (graphed ticks; with `full_profile` also
+    eager ticks and a graphed utterance), timings, and (with `dp_mesh`)
+    the dp = 2 tick ratio. Once
+    ``capture_graphs`` ran, serving captures nothing more and holds no
+    more memory."""
+    import torch
+
+    from speechcatcher_tpu_torch.decode import graphs
+    from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
+        ctc_forward_recursion,
+    )
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    phase = "graph_path_" + encoder_type
+    model = flagship_model(dev, seed=0, encoder_type=encoder_type)
+    rate = model.cfg.sample_rate
+    k = graphs.STEPS_PER_REPLAY
+    captured0 = len(graphs.CAPTURED)
+    for c in counters:
+        c.launches = 0
+    with GraphCheck() as check:
+        s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+        decode_chunked(s2t, synth_audio(6.0, seed=102, rate=rate), rate)
+        session = loop_stats([s2t.beam_search.loop])
+        session_eager_steps = check.eager_steps
+        session_b = ctc_forward_recursion.launches
+        engine = StreamingEngine(model, n_slots=8, beam_size=5, device=dev)
+        drive_engine(engine, engine_path_streams(rate), 8192,
+                     sync=_sync(dev))
+        eng = loop_stats(engine_loops(engine))
+    launches = {c.__name__: c.launches for c in counters}
+    check_launches(phase, counters, launches,
+                   zero=(counters[0] if encoder_type == "conformer"
+                         else counters[1],))
+    # B launches once a beam step, K steps a replay; the live steps (some
+    # stream stepping) are the eager loop's steps.
+    replays = session["step_replays"] + eng["step_replays"]
+    live = session["steps"] + eng["steps"]
+    if launches["ctc_forward_recursion"] != k * replays:
+        fail(f"{phase}: B launched {launches['ctc_forward_recursion']} "
+             f"times for {replays} replays of {k} steps")
+    if live != check.eager_steps:
+        fail(f"{phase}: {live} live steps in the graphs, "
+             f"{check.eager_steps} in the eager loop")
+    if session_b != k * session["step_replays"]:
+        fail(f"{phase}: the session's B launches do not match its replays")
+    new = graphs.CAPTURED[captured0:]
+    by_name: dict = {}
+    for g in new:
+        key = g.name.split("(")[0] + g.name[g.name.index(")") + 1:]
+        n_, b_ = by_name.get(key, (0, 0))
+        by_name[key] = (n_ + 1, b_ + g.pool_bytes)
+    emit({"phase": phase, "card": smi, "blocks_checked": check.blocks,
+          "encodes_checked": check.encodes, "bit_equal": True,
+          "session": session | {"eager_steps": session_eager_steps},
+          "engine": eng | {"eager_steps":
+                           check.eager_steps - session_eager_steps},
+          "launches": launches,
+          "graphs_captured": len(new),
+          "graph_pool_bytes": sum(g.pool_bytes for g in new),
+          "graphs_by_kind": {key: {"count": v[0], "pool_bytes": v[1]}
+                             for key, v in by_name.items()}})
+    if check.blocks == 0 or check.encodes == 0:
+        fail(f"{phase}: nothing went through the graphs")
+    k_choice(s2t, engine, smi, encoder_type)
+    # The same session and engine (warm, graphs captured: every encode and
+    # compact width too) against an eager pair, warmed the same way.
+    engine.capture_graphs()
+    captured = len(graphs.CAPTURED)
+    emit({"phase": phase + "_memory", "card": smi,
+          "compact_widths": sorted(engine._compact),
+          "hbm_bytes_per_stream": engine.hbm_bytes_per_stream(),
+          "graph_bytes_per_stream": engine.graph_bytes_per_stream()})
+    if sorted(engine._compact) != engine._compact_widths():
+        fail(f"{phase}: compact sets {sorted(engine._compact)}, widths "
+             f"{engine._compact_widths()}")
+    eager = (make_eager(Speech2TextStreaming(model=model, beam_size=5,
+                                             device=dev)),
+             make_eager(StreamingEngine(model, n_slots=8, beam_size=5,
+                                        device=dev)))
+    decode_chunked(eager[0], synth_audio(6.0, seed=102, rate=rate), rate)
+    drive_engine(eager[1], engine_path_streams(rate), 8192, sync=_sync(dev))
+    runs = {"graphed": (s2t, engine), "eager": eager}
+    graph_profiles(runs, smi, encoder_type,
+                   utterance_modes=("graphed",) if full_profile else (),
+                   tick_modes=("graphed", "eager") if full_profile
+                   else ("graphed",))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    graph_timing(runs, smi, encoder_type)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - held
+    emit({"phase": phase + "_held", "captured_while_serving":
+          len(graphs.CAPTURED) - captured, "allocated_growth_bytes": grown,
+          "limit_bytes": HELD_GROWTH_LIMIT})
+    if len(graphs.CAPTURED) != captured or grown > HELD_GROWTH_LIMIT:
+        fail(f"{phase}: serving after capture_graphs captured "
+             f"{len(graphs.CAPTURED) - captured} graphs and grew the "
+             f"allocated memory by {grown} bytes")
+    if dp_mesh is not None:
+        dp_tick_ratio(engine, smi, dp_mesh)
+    return launches
 
 
 def main() -> int:
@@ -3093,7 +3690,6 @@ def main() -> int:
     worst = {}
     for k in checks + kernels:
         worst[k["name"]] = max(worst.get(k["name"], 0.0), k["max_abs_err"])
-    gloo_collectives(dev)
     # dp=2: two engine replicas of 4 slots on this one card.
     dp_mesh = make_mesh(TP, devices=[dev] * TP)
     # Each path runs every kernel but those it must not: the session never
@@ -3112,6 +3708,8 @@ def main() -> int:
     by_path["dp_engine"] = engine_path(
         dev, counters, model, phase="dp_engine_path",
         zero=(rel_block_attention,), mesh=dp_mesh, reference=engine_finals)
+    by_path["graph_path"] = graph_path(dev, counters, smi, "transformer",
+                                       dp_mesh=dp_mesh)
     engine_fixture_replay(dev)
     engine_load_point(dev, model)
     # The app and serving layer on the float32 flagship that talks: no
@@ -3155,6 +3753,7 @@ def main() -> int:
         lengths=(5.0, 6.0), zero=(block_attention, ring_append_rows))
     fixture_replay(dev, CONFORMER_FIXTURE, encoder_type="conformer",
                    tol=1e-5)
+    fixture_replay(dev, CONFORMER_TOKENS_FIXTURE, encoder_type="conformer")
     small_reference(dev, encoder_type="conformer")
     engine_finals = {}
     by_path["conformer_engine"] = engine_path(
@@ -3163,6 +3762,9 @@ def main() -> int:
     by_path["dp_conformer_engine"] = engine_path(
         dev, counters, conformer, phase="dp_conformer_engine_path",
         zero=(block_attention,), mesh=dp_mesh, reference=engine_finals)
+    by_path["conformer_graph_path"] = graph_path(dev, counters, smi,
+                                                 "conformer",
+                                                 full_profile=False)
     del conformer
     # Training and offline greedy decode: A and E through their autograd
     # Functions at the training shapes, B, C and D refusing grad, then the
@@ -3182,13 +3784,13 @@ def main() -> int:
         for f in fns:
             key = f.__name__ + ".backward_launches"
             backward[key] = backward.get(key, 0) + got[key]
-    # tp=2 on two gloo ranks of this card: the train step and the engine.
-    got = tp_train_path(dev, counters, smi)
+    # tp=2 on two gloo ranks of this card: the collectives, the train step
+    # and the engine.
+    got, by_path["tp_engine"] = tp_paths(dev, counters, smi)
     by_path["tp_train"] = {c.__name__: got[c.__name__] for c in counters}
     for f in fns:
         key = f.__name__ + ".backward_launches"
         backward[key] += got[key]
-    by_path["tp_engine"] = tp_engine_path(dev, counters, smi)
     train_vs_cpu(dev)
     nccl_trainer(dev, train_cli(dev))
     backward_of = {"block_attention": "BlockAttentionFn.backward_launches",

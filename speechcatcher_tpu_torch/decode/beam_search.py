@@ -5,9 +5,17 @@ Hypotheses are structure-of-arrays tensors (yseq/xpos/lane (S, B, Lmax),
 scores (S, B)). One beam step runs the decoder over the full vocabulary,
 keeps the top ``pre_beam`` candidates, scores them with the CTC prefix
 scorer, expands each hypothesis by its top B and prunes the B·B expansions
-to the global top B. ``decode_block_device`` loops steps on the host (one
-host sync per step) with per-stream EOS stop, BBD one-step rollback, the
-rewind snapshot and the block-end rewind.
+to the global top B.
+
+A block's beam loop is three sync-free pieces: ``block_extend`` makes the
+block's new frames visible to the CTC scorer, ``block_step`` is one step of
+the loop (per-stream EOS stop, BBD one-step rollback, the rewind snapshot)
+and ``block_rewind`` the block-end rewind. None reads a device value on the
+host, so ``decode.graphs`` captures them as CUDA graphs; on the CPU they
+run eagerly. ``block_step`` is a bit-exact identity once no stream steps,
+so a loop of it may run past the stop. ``decode_block_device`` is the same
+loop as one function over a state (one host sync per step), the form the
+JAX package's parity tests hold it in.
 
 Snapshots: JAX arrays are immutable, so a snapshot is a reference. Here the
 same holds because nothing a snapshot holds is ever written in place: every
@@ -15,7 +23,8 @@ step makes new yseq/xpos/lane/score*/ctc.r/ctc.s tensors. Only the CTC
 log-prob ring (ctc_prefix.ctc_extend) and the decoder activation cache
 (models/decoder.decoder_step) are written in place, and no snapshot holds
 either: a snapshot's ring is empty, and the cache is carried beside the
-beam state.
+beam state. The session's state lives at fixed addresses: each block's
+results are written back into the tensors it read (``graphs.write_tree``).
 
 Ties: every top-k is a stable descending sort, so equal scores keep the
 lower index first, as JAX's exact top-k does.
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 
 from speechcatcher_tpu_torch.config import ModelConfig
+from speechcatcher_tpu_torch.decode import graphs
 from speechcatcher_tpu_torch.decode.ctc_prefix import (
     CTCScorerState,
     _fill_blank,
@@ -101,11 +111,6 @@ def init_beam_arrays(cfg: ModelConfig, n_streams: int, beam: int,
         score_ctc=zeros.clone(),
         ctc=ctc,
     )
-
-
-def _empty_ring(logp: torch.Tensor) -> torch.Tensor:
-    return torch.zeros((logp.shape[0], 0, 0), dtype=logp.dtype,
-                       device=logp.device)
 
 
 def _topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -263,81 +268,87 @@ class BlockDecodeState(NamedTuple):
     stepping: torch.Tensor     # (S,) bool
 
 
-def decode_block_device(
-    params,
-    dec_pe: torch.Tensor,
-    memory: torch.Tensor,       # (S, Tcap, d) raw encoder frames (padded)
-    state: BlockDecodeState,
-    vis_len: torch.Tensor,      # (S,)
-    block_final: torch.Tensor,  # (S,) bool
-    cfg: ModelConfig,
-    beam: int,
-    pre_beam: int,
-    ctc_weight: float,
-    use_bbd: bool,
-    max_length: int,
-    penalty: float = 0.0,
-    eos_commit: str = "native",
-) -> BlockDecodeState:
-    """The beam loop of one block: steps until no stream is stepping.
+class LoopSettings(NamedTuple):
+    """The static arguments of a block loop."""
 
-    eos_commit="native" commits the step that puts EOS in the beam;
-    "espnet" discards it and keeps the snapshot one step behind on
-    non-final blocks."""
-    if eos_commit not in ("native", "espnet"):
-        raise ValueError(f"eos_commit must be native or espnet, got "
-                         f"{eos_commit!r}")
-    lmax = state.arrays.yseq.shape[2]
-    cross_kv = project_cross_kv(params["decoder"], memory,
-                                state.dec_cache.h.dtype)
-    st = state
-    stepping0 = st.stepping
-    while bool(st.stepping.any()):
-        stepping = (st.stepping & (st.process_idx < max_length)
-                    & (st.arrays.ylen + 1 < lmax))
-        if not bool(stepping.any()):
-            st = st._replace(stepping=stepping)
-            break
-        old = st.arrays
-        new, dec_cache, flags = _beam_step_core(
-            params, dec_pe, cross_kv, st.dec_cache, old, vis_len, stepping,
-            cfg, beam, pre_beam, ctc_weight, use_bbd, penalty,
-        )
-        output_index = torch.where(stepping, st.output_index + 1,
-                                   st.output_index)
-        bbd = (stepping & use_bbd & ~block_final & flags.repetition
-               & ~flags.eos_in_beam)
-        stop_eos = stepping & flags.eos_in_beam & ~block_final
-        discard = (bbd | stop_eos) if eos_commit == "espnet" else bbd
-        advanced = stepping & ~discard
-        arrays = select_arrays(advanced, new, old)
-        output_index = torch.where(discard, output_index - 1, output_index)
+    beam: int
+    pre_beam: int
+    ctc_weight: float
+    use_bbd: bool
+    max_length: int
+    penalty: float = 0.0
+    eos_commit: str = "native"
 
-        stop_eos_final = stepping & block_final & flags.best_is_eos
-        cont = advanced & ~stop_eos & ~stop_eos_final
-        if eos_commit == "espnet":
-            prev_src = select_arrays(block_final, arrays, old)
-        else:
-            prev_src = arrays
-        prev_arrays = select_arrays(cont, prev_src, st.prev_arrays)
-        process_idx = torch.where(cont, st.process_idx + 1, st.process_idx)
-        # The ring never changes inside a block: keep each role's own.
-        arrays = arrays._replace(ctc=arrays.ctc._replace(logp=old.ctc.logp))
-        prev_arrays = prev_arrays._replace(
-            ctc=prev_arrays.ctc._replace(logp=st.prev_arrays.ctc.logp))
-        st = BlockDecodeState(
-            arrays=arrays,
-            prev_arrays=prev_arrays,
-            dec_cache=dec_cache,
-            prev_valid=st.prev_valid | cont,
-            process_idx=process_idx,
-            output_index=output_index,
-            stepping=(cont & (process_idx < max_length)
-                      & (arrays.ylen + 1 < lmax)),
-        )
 
-    # Block-end rewind: restore the snapshot; the ring is append-only and
-    # the forward variables are re-extended over frames added since.
+def block_extend(params, state: BlockDecodeState, frames: torch.Tensor,
+                 n_new: torch.Tensor, stepping: torch.Tensor
+                 ) -> BlockDecodeState:
+    """Make the first n_new[s] of the new frames (S, Tnew, d) float32
+    visible to the CTC scorer (ctc_log_softmax → ctc_extend, the ring
+    appended in place) and set the streams that step in this block."""
+    new_logp = ctc_log_softmax(params["ctc"], frames)
+    ctc = ctc_extend(state.arrays.ctc, new_logp, n_new)
+    return state._replace(arrays=state.arrays._replace(ctc=ctc),
+                          stepping=stepping)
+
+
+def block_step(params, dec_pe: torch.Tensor, cross_kv,
+               st: BlockDecodeState, vis_len: torch.Tensor,
+               block_final: torch.Tensor, cfg: ModelConfig,
+               loop: LoopSettings) -> BlockDecodeState:
+    """One step of the block loop for the streams still stepping. With no
+    stream stepping it returns every leaf bit-equal to its input: the
+    selects keep ``old``, the counters move only under ``stepping`` or
+    ``cont`` and the decoder cache writes only where ``write``."""
+    lmax = st.arrays.yseq.shape[2]
+    max_length = loop.max_length
+    stepping = (st.stepping & (st.process_idx < max_length)
+                & (st.arrays.ylen + 1 < lmax))
+    old = st.arrays
+    new, dec_cache, flags = _beam_step_core(
+        params, dec_pe, cross_kv, st.dec_cache, old, vis_len, stepping,
+        cfg, loop.beam, loop.pre_beam, loop.ctc_weight, loop.use_bbd,
+        loop.penalty,
+    )
+    output_index = torch.where(stepping, st.output_index + 1,
+                               st.output_index)
+    bbd = (stepping & loop.use_bbd & ~block_final & flags.repetition
+           & ~flags.eos_in_beam)
+    stop_eos = stepping & flags.eos_in_beam & ~block_final
+    discard = (bbd | stop_eos) if loop.eos_commit == "espnet" else bbd
+    advanced = stepping & ~discard
+    arrays = select_arrays(advanced, new, old)
+    output_index = torch.where(discard, output_index - 1, output_index)
+
+    stop_eos_final = stepping & block_final & flags.best_is_eos
+    cont = advanced & ~stop_eos & ~stop_eos_final
+    if loop.eos_commit == "espnet":
+        prev_src = select_arrays(block_final, arrays, old)
+    else:
+        prev_src = arrays
+    prev_arrays = select_arrays(cont, prev_src, st.prev_arrays)
+    process_idx = torch.where(cont, st.process_idx + 1, st.process_idx)
+    # The ring never changes inside a block: keep each role's own.
+    arrays = arrays._replace(ctc=arrays.ctc._replace(logp=old.ctc.logp))
+    prev_arrays = prev_arrays._replace(
+        ctc=prev_arrays.ctc._replace(logp=st.prev_arrays.ctc.logp))
+    return BlockDecodeState(
+        arrays=arrays,
+        prev_arrays=prev_arrays,
+        dec_cache=dec_cache,
+        prev_valid=st.prev_valid | cont,
+        process_idx=process_idx,
+        output_index=output_index,
+        stepping=(cont & (process_idx < max_length)
+                  & (arrays.ylen + 1 < lmax)),
+    )
+
+
+def block_rewind(st: BlockDecodeState, stepping0: torch.Tensor
+                 ) -> BlockDecodeState:
+    """Block-end rewind of the streams that stepped in the block
+    (`stepping0`): restore the snapshot; the ring is append-only and the
+    forward variables are re-extended over frames added since."""
     rewind = stepping0 & (st.process_idx > 1) & st.prev_valid
     restored = select_arrays(rewind, st.prev_arrays, st.arrays)
     from_len = torch.where(rewind, st.prev_arrays.ctc.enc_len,
@@ -357,24 +368,89 @@ def decode_block_device(
     )
 
 
+def check_eos_commit(eos_commit: str) -> None:
+    if eos_commit not in ("native", "espnet"):
+        raise ValueError(f"eos_commit must be native or espnet, got "
+                         f"{eos_commit!r}")
+
+
+def decode_block_device(
+    params,
+    dec_pe: torch.Tensor,
+    memory: torch.Tensor,       # (S, Tcap, d) raw encoder frames (padded)
+    state: BlockDecodeState,
+    vis_len: torch.Tensor,      # (S,)
+    block_final: torch.Tensor,  # (S,) bool
+    cfg: ModelConfig,
+    beam: int,
+    pre_beam: int,
+    ctc_weight: float,
+    use_bbd: bool,
+    max_length: int,
+    penalty: float = 0.0,
+    eos_commit: str = "native",
+) -> BlockDecodeState:
+    """The beam loop of one block, eagerly: steps until no stream is
+    stepping, reading ``any(stepping)`` on the host before each step.
+
+    eos_commit="native" commits the step that puts EOS in the beam;
+    "espnet" discards it and keeps the snapshot one step behind on
+    non-final blocks."""
+    check_eos_commit(eos_commit)
+    loop = LoopSettings(beam, pre_beam, ctc_weight, use_bbd, max_length,
+                        penalty, eos_commit)
+    cross_kv = project_cross_kv(params["decoder"], memory,
+                                state.dec_cache.h.dtype)
+    st = state
+    while bool(st.stepping.any()):
+        st = block_step(params, dec_pe, cross_kv, st, vis_len, block_final,
+                        cfg, loop)
+    return block_rewind(st, state.stepping)
+
+
+def fresh_block_state(cfg: ModelConfig, n_streams: int, beam: int,
+                      device: torch.device) -> BlockDecodeState:
+    """The block-loop state of fresh sessions: a live beam, an empty-ring
+    snapshot that is not valid, a zero decoder cache and zero counters."""
+    flags = dict(device=device)
+    return BlockDecodeState(
+        arrays=init_beam_arrays(cfg, n_streams, beam, device),
+        prev_arrays=init_beam_arrays(cfg, n_streams, beam, device,
+                                     snapshot=True),
+        dec_cache=init_decoder_cache(cfg, n_streams * beam, device),
+        prev_valid=torch.zeros((n_streams,), dtype=torch.bool, **flags),
+        process_idx=torch.zeros((n_streams,), dtype=torch.int32, **flags),
+        output_index=torch.zeros((n_streams,), dtype=torch.int32, **flags),
+        stepping=torch.zeros((n_streams,), dtype=torch.bool, **flags),
+    )
+
+
 @dataclasses.dataclass
 class BSBSState:
-    """Host-side handles of one decoding session (one stream, S=1)."""
+    """One decoding session (one stream, S=1): host-side encoder handles
+    and counters, and the device state of the block loop at fixed addresses
+    (``block`` and the raw frame ring ``memory``), written in place."""
 
     enc_state: Optional[EncoderState]
     enc_buf: Optional[torch.Tensor]      # (1, L, d) accumulated encoder out
     vis_len: int                         # frames visible to the scorers
-    arrays: BeamArrays
-    memory: torch.Tensor                 # (1, Tcap, d) raw encoder ring
-    dec_cache: DecoderCache
-    prev_arrays: Optional[BeamArrays]    # rewind snapshot
-    process_idx: int
     processed_block: int
-    output_index: int
+    block: BlockDecodeState              # beam, snapshot, cache, counters
+    memory: torch.Tensor                 # (1, Tcap, d) raw encoder ring
+
+    @property
+    def arrays(self) -> BeamArrays:
+        return self.block.arrays
+
+    @property
+    def dec_cache(self) -> DecoderCache:
+        return self.block.dec_cache
 
 
 class BlockwiseSynchronousBeamSearch:
-    """Streaming BSBS over one session's chunks."""
+    """Streaming BSBS over one session's chunks. On the card each block's
+    loop runs as CUDA graphs (``decode.graphs``), eagerly on the CPU and
+    under a tp group (whose collectives cannot be captured)."""
 
     def __init__(
         self,
@@ -387,7 +463,9 @@ class BlockwiseSynchronousBeamSearch:
         penalty: float = 0.0,
         coverage_weight: float = 0.0,
         eos_commit: str = "native",
+        memory_dtype: torch.dtype = torch.float32,
     ):
+        check_eos_commit(eos_commit)
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -401,27 +479,42 @@ class BlockwiseSynchronousBeamSearch:
         self.max_length = max_length or self.cfg.max_tokens - 1
         self.encoder = StreamingEncoder(model.params["encoder"], self.cfg,
                                         model.enc_pe)
-        self.state = self._fresh_state()
+        d = self.cfg.encoder_dim
+        self.state = BSBSState(
+            enc_state=None, enc_buf=None, vis_len=0, processed_block=0,
+            block=fresh_block_state(self.cfg, 1, beam_size, self.device),
+            memory=torch.zeros((1, self.cfg.max_enc_frames, d),
+                               dtype=memory_dtype, device=self.device))
+        # A block's new frames, float32 (the CTC head reads them unrounded
+        # whatever the ring's dtype), in the first n_new rows.
+        frames = self.frames = torch.zeros((1, self.cfg.block_size, d),
+                                           device=self.device)
+        self.loop = graphs.BlockLoop(
+            model, self.state.block, self.state.memory, self._settings(),
+            frames=lambda ints: frames, extcap=self.cfg.block_size)
+        self.reset()
 
-    def _fresh_state(self) -> BSBSState:
-        return BSBSState(
-            enc_state=self.encoder.init_state(),
-            enc_buf=None,
-            vis_len=0,
-            arrays=init_beam_arrays(self.cfg, 1, self.beam_size, self.device),
-            memory=torch.zeros((1, self.cfg.max_enc_frames,
-                                self.cfg.encoder_dim), device=self.device),
-            dec_cache=init_decoder_cache(self.cfg, self.beam_size,
-                                         self.device),
-            prev_arrays=None,
-            process_idx=0,
-            processed_block=0,
-            output_index=0,
-        )
+    def _settings(self) -> LoopSettings:
+        """The loop's static arguments, from this object's attributes (a
+        caller may change them between blocks, as the JAX session allows;
+        the loop then captures anew)."""
+        check_eos_commit(self.eos_commit)
+        return LoopSettings(self.beam_size, self.pre_beam, self.ctc_weight,
+                            self.use_bbd, self.max_length, self.penalty,
+                            self.eos_commit)
 
     def reset(self):
-        """Reset streaming state between utterances."""
-        self.state = self._fresh_state()
+        """Reset streaming state between utterances; the device state is
+        rewritten in place."""
+        st = self.state
+        st.enc_state = self.encoder.init_state()
+        st.enc_buf = None
+        st.vis_len = 0
+        st.processed_block = 0
+        graphs.write_tree(st.block, fresh_block_state(
+            self.cfg, 1, self.beam_size, self.device))
+        st.memory.zero_()
+        self.frames.zero_()
 
     def process_block(self, feats: torch.Tensor, is_final: bool = False
                       ) -> BeamArrays:
@@ -451,12 +544,13 @@ class BlockwiseSynchronousBeamSearch:
                 break
         return st.arrays
 
-    def _extend_scorers(self, cur_end: int):
-        """Make frames [vis_len, cur_end) visible to the CTC scorer and the
-        decoder's cross-attention memory."""
+    def _extend_memory(self, cur_end: int) -> int:
+        """Copy frames [vis_len, cur_end) into the raw-frame ring (in place:
+        the ring is append-only and no snapshot holds it) and into the new
+        frames' buffer; returns how many frames were added."""
         st = self.state
         if cur_end <= st.vis_len:
-            return
+            return 0
         if cur_end > self.cfg.max_enc_frames:
             frame_sec = (self.cfg.hop_length * self.cfg.subsample
                          / self.cfg.sample_rate)
@@ -466,67 +560,39 @@ class BlockwiseSynchronousBeamSearch:
                 f"(~{self.cfg.max_enc_frames * frame_sec:.0f} s). Split the "
                 "audio into shorter segments or raise cfg.max_enc_frames."
             )
-        new_frames = st.enc_buf[:, st.vis_len : cur_end, :]
-        new_logp = ctc_log_softmax(self.model.params["ctc"], new_frames)
-        st.arrays = st.arrays._replace(ctc=ctc_extend(
-            st.arrays.ctc, new_logp,
-            torch.ones((1,), dtype=torch.bool, device=self.device)))
-        # In place: the raw-frame ring is append-only and no snapshot holds it.
-        st.memory[:, st.vis_len : cur_end] = new_frames.to(st.memory.dtype)
-        st.vis_len = cur_end
+        n_new = cur_end - st.vis_len
+        if n_new > self.loop.extcap:
+            raise RuntimeError(f"a block adds {n_new} frames, more than "
+                               f"{self.loop.extcap}")
+        new_frames = st.enc_buf[:, st.vis_len:cur_end]
+        st.memory[:, st.vis_len:cur_end] = new_frames.to(st.memory.dtype)
+        self.frames[:, :n_new] = new_frames
+        return n_new
 
     def _decode_one_block(self, cur_end: int, block_is_final: bool):
         st = self.state
-        self._extend_scorers(cur_end)
+        vis = st.vis_len
+        n_new = self._extend_memory(cur_end)
+        st.vis_len = vis + n_new
         if st.vis_len == 0:
             return
-        if st.prev_arrays is not None:
-            prev = st.prev_arrays
-        else:
-            prev = st.arrays._replace(ctc=st.arrays.ctc._replace(
-                logp=_empty_ring(st.arrays.ctc.logp)))
+        self.loop.settings = self._settings()
+        self.loop.run(vis=[vis], n_new=[n_new], new_vis=[st.vis_len],
+                      stepping=[True], block_final=[block_is_final])
 
-        def flag(v, dtype):
-            return torch.tensor([v], dtype=dtype, device=self.device)
-
-        out = decode_block_device(
-            self.model.params,
-            self.model.dec_pe,
-            st.memory,
-            BlockDecodeState(
-                arrays=st.arrays,
-                prev_arrays=prev,
-                dec_cache=st.dec_cache,
-                prev_valid=flag(st.prev_arrays is not None, torch.bool),
-                process_idx=flag(st.process_idx, torch.int32),
-                output_index=flag(st.output_index, torch.int32),
-                stepping=flag(True, torch.bool),
-            ),
-            flag(st.vis_len, torch.int32),
-            flag(block_is_final, torch.bool),
-            self.cfg,
-            self.beam_size,
-            self.pre_beam,
-            self.ctc_weight,
-            self.use_bbd,
-            self.max_length,
-            penalty=self.penalty,
-            eos_commit=self.eos_commit,
-        )
-        st.arrays = out.arrays
-        st.dec_cache = out.dec_cache
-        st.prev_arrays = out.prev_arrays if bool(out.prev_valid[0]) else None
-        st.process_idx = int(out.process_idx[0])
-        st.output_index = int(out.output_index[0])
+    def _beam_on_host(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """yseq and xpos (B, ylen) and scores (B,) as numpy copies: the
+        device state is rewritten in place by the next block or reset."""
+        arrays = self.state.arrays
+        ylen = int(arrays.ylen[0])
+        return (arrays.yseq[0, :, :ylen].cpu().numpy().copy(),
+                arrays.xpos[0, :, :ylen].cpu().numpy().copy(),
+                arrays.score[0].cpu().numpy().copy())
 
     def best_hypothesis(self) -> Tuple[np.ndarray, np.ndarray, float]:
         """(token_ids, xpos, score) of the best hypothesis; with
         coverage_weight set, re-ranked by score + CoverageScorer."""
-        arrays = self.state.arrays
-        ylen = int(arrays.ylen[0])
-        yseq_h = arrays.yseq[0, :, :ylen].cpu().numpy()
-        xpos_h = arrays.xpos[0, :, :ylen].cpu().numpy()
-        score_h = arrays.score[0].cpu().numpy()
+        yseq_h, xpos_h, score_h = self._beam_on_host()
         best = 0
         if self.coverage_weight:
             from speechcatcher_tpu_torch.decode.scorers import CoverageScorer
@@ -538,10 +604,6 @@ class BlockwiseSynchronousBeamSearch:
         return yseq_h[best], xpos_h[best], float(score_h[best])
 
     def nbest_hypotheses(self) -> List[Tuple[np.ndarray, np.ndarray, float]]:
-        arrays = self.state.arrays
-        ylen = int(arrays.ylen[0])
-        yseq_h = arrays.yseq[0, :, :ylen].cpu().numpy()
-        xpos_h = arrays.xpos[0, :, :ylen].cpu().numpy()
-        score_h = arrays.score[0].cpu().numpy()
+        yseq_h, xpos_h, score_h = self._beam_on_host()
         return [(yseq_h[b], xpos_h[b], float(score_h[b]))
                 for b in range(self.beam_size)]

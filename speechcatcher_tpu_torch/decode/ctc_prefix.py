@@ -57,7 +57,8 @@ def ctc_extend(state: CTCScorerState, new_logp: torch.Tensor,
                n_new: torch.Tensor) -> CTCScorerState:
     """Append up to Tnew frames (S, Tnew, V) per stream to the ring and
     continue the cumulative-blank recursion into them. n_new is (S,) int or
-    bool (bool means all-or-none)."""
+    bool (bool means all-or-none). Nothing here reads the card: the block
+    loop's prologue graph captures it."""
     t_new = new_logp.shape[1]
     if n_new.dtype == torch.bool:
         n_new = torch.where(n_new, t_new, 0)

@@ -1,0 +1,390 @@
+"""The block beam loop as CUDA graphs, and what it needs to capture work.
+
+Counterpart of the JAX package's device-resident loops: its
+``decode_block_device`` runs a block's beam loop as one ``lax.while_loop``,
+and its engine runs a whole tick as one program. Here a block's loop is three
+CUDA graphs over state at fixed addresses (``BlockLoop``), captured once per
+caller (one static signature: S, beam, Lmax, Tcap, the ring and cache
+dtypes, the weights, ``eos_commit``, ``use_bbd``; ``block_final`` is an
+input tensor), in one memory pool:
+
+- prologue: the block's new frames through ``block_extend``
+  (ctc_log_softmax → ctc_extend, kernel C), then ``project_cross_kv`` into
+  buffers the step graph reads;
+- step: ``STEPS_PER_REPLAY`` unrolled ``block_step``s (kernel B and the
+  decoder's GEMMs in each);
+- epilogue: ``block_rewind``.
+
+The host uploads the block's per-stream integers, replays the prologue,
+replays the step graph until a pinned readback of ``any(stepping)`` (one per
+replay) comes back false, then replays the epilogue: ⌈steps / K⌉ host syncs
+a block where the eager loop (``beam_search.decode_block_device``) makes
+steps + 1. A step after every stream has stopped is a bit-exact identity,
+so the unrolled loop is exact. Each graph ends by copying its results into
+the tensors it read (``write_tree``); the CTC log-prob ring, the raw frame
+ring and the decoder cache are read and appended where they lie, never
+copied per block.
+
+No switch and no fallback: on a CUDA device a capture or replay that fails
+raises. The same three programs run eagerly on the CPU and under a tp group
+(``parallel.tp``), whose gloo collectives go through host memory and cannot
+be captured (that loop is eager by configuration): one beam step at a time
+behind a host read of ``any(stepping)``, as ``decode_block_device`` does.
+
+Launch counters: a kernel wrapper that launches during a capture counts
+into the capture's record (``ops.kernels._plan.recording``), and every
+replay adds its graph's record, so the counts are the launches the card
+runs.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import gc
+import threading
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from speechcatcher_tpu_torch.decode import beam_search as bs
+from speechcatcher_tpu_torch.models.decoder import project_cross_kv
+from speechcatcher_tpu_torch.ops.kernels import _plan
+from speechcatcher_tpu_torch.parallel.tp import tp_group
+
+# Beam steps per replay of the step graph (K). A block of n live steps
+# costs max(1, ceil(n / K)) host waits and K * max(1, ceil(n / K)) - n
+# masked steps past the stop. chip_smoke.py's graph_path measures both
+# costs on the card and prices K = 1, 2, 4, 8 over the steps per block of
+# the token-rich fixture decodes (PERF.md §6).
+STEPS_PER_REPLAY = 1
+
+
+# ---------------------------------------------------------------------------
+# Trees of tensors (NamedTuples, lists, tuples)
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def tree_map(fn: Callable, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, list):
+        return [tree_map(fn, x) for x in tree]
+    if isinstance(tree, tuple):
+        items = [tree_map(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def clone_tree(tree):
+    return tree_map(torch.clone, tree)
+
+
+def write_tree(dst, src) -> None:
+    """Copy every tensor of `src` into the tensor at the same place of
+    `dst`, in place. A leaf that is its own destination is skipped; one
+    that shares memory with a destination is copied out first, so no write
+    clobbers a value still to be read."""
+    dst_leaves, src_leaves = tree_leaves(dst), tree_leaves(src)
+    if len(dst_leaves) != len(src_leaves):
+        raise ValueError("write_tree: the trees differ in structure")
+    pairs = []
+    for d, s in zip(dst_leaves, src_leaves):
+        if s.shape != d.shape:
+            raise ValueError(f"write_tree: {tuple(s.shape)} into "
+                             f"{tuple(d.shape)}")
+        if s is not d:
+            pairs.append((d, s))
+    targets = {d.untyped_storage().data_ptr() for d, _ in pairs if d.numel()}
+    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in targets
+              else s) for d, s in pairs]
+    for d, s in pairs:
+        d.copy_(s)
+
+
+# ---------------------------------------------------------------------------
+# Host <-> device without a full sync
+# ---------------------------------------------------------------------------
+
+class Upload:
+    """A device tensor the host rewrites before each use. On the card the
+    values go through pinned memory and an asynchronous copy (a blocking
+    copy would wait for the whole queue); the next write waits for that
+    copy only."""
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        self.host = self.done = None
+        if self.dev.is_cuda:
+            self.host = torch.zeros(shape, dtype=dtype).pin_memory()
+            self.done = torch.cuda.Event()
+
+    def put(self, values: np.ndarray) -> torch.Tensor:
+        if self.host is None:
+            self.dev.copy_(torch.from_numpy(np.ascontiguousarray(values)))
+            return self.dev
+        self.done.synchronize()
+        self.host.numpy()[...] = values
+        self.dev.copy_(self.host, non_blocking=True)
+        self.done.record()
+        return self.dev
+
+
+class Readback:
+    """A small device tensor read on the host through pinned memory: one
+    wait for the work queued before it."""
+
+    def __init__(self, dev: torch.Tensor):
+        self.dev = dev
+        self.host = torch.zeros(dev.shape, dtype=dev.dtype).pin_memory()
+        self.done = torch.cuda.Event()
+
+    def read(self) -> list:
+        self.host.copy_(self.dev, non_blocking=True)
+        self.done.record()
+        self.done.synchronize()
+        return self.host.tolist()
+
+
+# ---------------------------------------------------------------------------
+# Capture
+# ---------------------------------------------------------------------------
+
+class GraphRecord(NamedTuple):
+    """A captured graph: its name, the bytes its capture reserved on the
+    card (``torch.cuda.memory_stats``) and the kernel launches of one
+    replay."""
+
+    name: str
+    pool_bytes: int
+    launches: Dict[str, int]
+
+
+# Every graph this process captured, in order.
+CAPTURED: List[GraphRecord] = []
+
+# Captures run one at a time: engine replicas share a card and a host.
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _reserved() -> int:
+    return torch.cuda.memory_stats().get("reserved_bytes.all.current", 0)
+
+
+@contextlib.contextmanager
+def _no_cyclic_gc():
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+class Graph:
+    """One captured program; ``replay`` adds its launches to the counters."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, launches: dict,
+                 name: str):
+        self.graph = graph
+        self.launches = launches
+        self.name = name
+        self.replays = 0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+        _plan.add_counts(self.launches)
+
+
+def capture_graphs(programs: Sequence, warmup: Callable,
+                   pool) -> List[Graph]:
+    """Capture each (name, fn) of `programs`, in order, into one memory
+    pool. `warmup` first runs the same work eagerly on copies of the state
+    (on a side stream, its launches not counted), so every plan, handle and
+    cache exists before the capture; the captures themselves change
+    nothing. Captures run one at a time in the process, and in thread-local
+    mode: another thread's work on the card goes on meanwhile. Python's
+    cyclic garbage collector is off meanwhile: collected garbage can hold
+    graphs (a sharded engine and its counters refer to each other), and a
+    graph destroyed during a capture invalidates it."""
+    with _CAPTURE_LOCK, _no_cyclic_gc():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), _plan.recording():
+            warmup()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        # torch.cuda.graph empties the allocator's cache on entry: do it
+        # first, so the reserved bytes grow by what the capture keeps.
+        torch.cuda.empty_cache()
+        out = []
+        for name, fn in programs:
+            graph = torch.cuda.CUDAGraph()
+            before = _reserved()
+            with _plan.recording() as rec:
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    fn()
+            launches = {f.__name__: n for (f, attr), n in rec.items()}
+            CAPTURED.append(GraphRecord(name, _reserved() - before,
+                                        launches))
+            out.append(Graph(graph, rec, name))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# The block loop
+# ---------------------------------------------------------------------------
+
+class BlockLoop:
+    """The beam loop of one block for S streams whose state lies at fixed
+    addresses: ``state`` (a ``BlockDecodeState``, written in place) and the
+    raw frame ring ``memory`` (S, Tcap, d), read in place.
+
+    ``frames(ints)`` gives the block's new frames (S, Tnew, d) float32 from
+    the uploaded integers (rows [vis, n_new, new_vis, stepping,
+    block_final]): the engine gathers them from its ring, a session hands
+    its own buffer. Graphed on a CUDA device outside a tp group; the same
+    programs run eagerly otherwise (``_run_eager``)."""
+
+    def __init__(self, model, state: "bs.BlockDecodeState",
+                 memory: torch.Tensor, settings: "bs.LoopSettings",
+                 frames: Callable[[torch.Tensor], torch.Tensor],
+                 extcap: int, pool=None):
+        self.model = model
+        self.state = state
+        self.memory = memory
+        self.settings = settings
+        self.frames = frames
+        self.extcap = extcap
+        self.graphed = memory.is_cuda and tp_group() is None
+        self.ints = Upload((5, memory.shape[0]), torch.int32, memory.device)
+        self.stepping0 = torch.zeros_like(state.stepping)
+        self._pool = pool
+        self._graphs: Optional[List[Graph]] = None
+        self._key = None
+        self._flag: Optional[Readback] = None
+        # What the captured programs hand each other (the prologue's cross
+        # K/V), kept so that no later capture in the pool reuses it.
+        self._held: dict = {}
+        # Live beam steps (some stream stepping), step replays (each one
+        # host sync) and the most steps of one block, over the graphed runs;
+        # blocks by their live steps.
+        self.blocks = self.steps = self.syncs = self.max_steps = 0
+        self.step_counts: collections.Counter = collections.Counter()
+
+    def run(self, vis, n_new, new_vis, stepping, block_final) -> None:
+        """Decode one block: per-stream frames visible so far, frames added,
+        frames visible after, whether the stream steps, whether the block
+        is its last."""
+        self.ints.put(np.stack([np.asarray(x) for x in
+                                (vis, n_new, new_vis, stepping, block_final)
+                                ]).astype(np.int32))
+        if self.graphed:
+            self._run_graphs()
+        else:
+            self._run_eager()
+
+    # -- programs over any copy of the state --------------------------------
+    def _prologue(self, state, stepping0, out: dict) -> None:
+        m = self.model
+        ints = self.ints.dev
+        st = bs.block_extend(m.params, state, self.frames(ints), ints[1],
+                             ints[3].bool())
+        out["cross_kv"] = project_cross_kv(m.params["decoder"], self.memory,
+                                           state.dec_cache.h.dtype)
+        write_tree(state, st)
+        stepping0.copy_(st.stepping)
+
+    def _step(self, state, cross_kv, flag: torch.Tensor,
+              steps: Optional[int] = None) -> None:
+        """`steps` beam steps (STEPS_PER_REPLAY by default); `flag` gets
+        [any stream still stepping, live steps among them]."""
+        m = self.model
+        ints = self.ints.dev
+        st = state
+        live = torch.zeros((), dtype=torch.int32, device=flag.device)
+        for _ in range(STEPS_PER_REPLAY if steps is None else steps):
+            live = live + st.stepping.any()
+            st = bs.block_step(m.params, m.dec_pe, cross_kv, st, ints[2],
+                               ints[4].bool(), m.cfg, self.settings)
+        write_tree(state, st)
+        flag.copy_(torch.stack([st.stepping.any().to(torch.int32),
+                                live.to(torch.int32)]))
+
+    def _epilogue(self, state, stepping0) -> None:
+        write_tree(state, bs.block_rewind(state, stepping0))
+
+    # -- graphs ---------------------------------------------------------------
+    def capture(self) -> List[Graph]:
+        """The three graphs of this loop (captured on first use, and again
+        if the model's weights or the loop's settings were replaced)."""
+        key = (self.model.params, self.settings)
+        if self._graphs is not None and self._key[0] is key[0] \
+                and self._key[1] == key[1]:
+            return self._graphs
+        flag = torch.zeros(2, dtype=torch.int32, device=self.memory.device)
+        held = self._held = {}
+
+        def warmup():
+            w_state = clone_tree(self.state)
+            w_step0 = self.stepping0.clone()
+            w_out: dict = {}
+            self._prologue(w_state, w_step0, w_out)
+            self._step(w_state, w_out["cross_kv"], flag.clone())
+            self._epilogue(w_state, w_step0)
+
+        pool = self._pool if self._pool is not None else \
+            torch.cuda.graph_pool_handle()
+        s_dim = self.memory.shape[0]
+        name = f"block_loop(S={s_dim})"
+        self._graphs = capture_graphs(
+            [(name + ".prologue",
+              lambda: self._prologue(self.state, self.stepping0, held)),
+             (name + ".step",
+              lambda: self._step(self.state, held["cross_kv"], flag)),
+             (name + ".epilogue",
+              lambda: self._epilogue(self.state, self.stepping0))],
+            warmup, pool)
+        self._flag = Readback(flag)
+        self._key = key
+        return self._graphs
+
+    def _run_graphs(self) -> None:
+        prologue, step, epilogue = self.capture()
+        prologue.replay()
+        steps = 0
+        while True:
+            step.replay()
+            any_stepping, live = self._flag.read()
+            self.syncs += 1
+            steps += live
+            if not any_stepping:
+                break
+        epilogue.replay()
+        self.blocks += 1
+        self.steps += steps
+        self.max_steps = max(self.max_steps, steps)
+        self.step_counts[steps] += 1
+
+    def _run_eager(self) -> None:
+        """The block through the same programs without graphs, one beam
+        step at a time behind a host read of ``any(stepping)`` (steps + 1
+        syncs, as ``decode_block_device``): the CPU and tp route, and the
+        reference the graphs are held against."""
+        held: dict = {}
+        self._prologue(self.state, self.stepping0, held)
+        flag = torch.zeros(2, dtype=torch.int32, device=self.memory.device)
+        while bool(self.state.stepping.any()):
+            self._step(self.state, held["cross_kv"], flag, steps=1)
+        self._epilogue(self.state, self.stepping0)

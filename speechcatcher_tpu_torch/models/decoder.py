@@ -9,7 +9,8 @@ beam pruning permutes a small per-position lane map, never the buffer, so
 rows are append-only.
 
 In place: ``decoder_step`` writes this step's rows into ``cache.h`` in place
-(only where ``write`` is set). No beam snapshot holds the cache, and a
+(only where ``write`` is set), at fixed shapes and without a host sync, so a
+beam step can be captured in a CUDA graph. No beam snapshot holds the cache, and a
 rolled-back step's rows are never read again (they sit at positions the
 history mask hides, and the next step overwrites them).
 
@@ -240,17 +241,21 @@ def decoder_step(
     hist_valid = torch.arange(lmax, device=dev)[None, :] < pos[:, None]
     mem_valid = (torch.arange(tmax, device=dev)[None, :]
                  < enc_len.long()[:, None])
-    # Rows past the capacity are dropped, as JAX's mode="drop" scatter does.
-    write = write & (pos < lmax)
-    wrows = torch.arange(n, device=dev)[write]
-    wpos = pos[write]
+    # A fixed-shape write, with no host sync: every row writes at its
+    # position (clamped into the cache) and keeps the old value where it
+    # must not write, so rows past the capacity are dropped, as JAX's
+    # mode="drop" scatter drops them. One position a row: no index repeats.
+    write = (write & (pos < lmax))[:, None]
+    wrows = torch.arange(n, device=dev)
+    wpos = pos.clamp(max=lmax - 1)
 
     h = x
     for l, p_layer in enumerate(params["layers"]):
         h_l = cache.h[l]
         hn = layer_norm(p_layer["norm1"], h)
         # In place: append this step's rows for the writing hypotheses.
-        h_l[wrows, wpos] = hn[write].to(cache_dt)
+        h_l[wrows, wpos] = torch.where(write, hn.to(cache_dt),
+                                       h_l[wrows, wpos])
         q = linear(p_layer["self_attn"]["linear_q"], hn)
         att = _attend_cached_lane(q, h_l, hn, p_layer["self_attn"], lane,
                                   hist_valid, beam, cfg.decoder_heads)

@@ -13,6 +13,7 @@ returns ``BAD_PLAN`` for what does not fit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import NamedTuple
@@ -24,14 +25,40 @@ from speechcatcher_tpu_torch.ops.kernels import _build
 BAD_PLAN = -1  # kBadPlan in csrc/*.cu
 
 _COUNT_LOCK = threading.Lock()
+_RECORD = threading.local()
 
 
 def count(fn, attr: str = "launches") -> None:
     """Add one to a wrapper's launch counter. Engine replicas launch from
     several threads at once (``parallel.serve_sharding``), where ``+=`` on
-    an attribute could lose a count."""
+    an attribute could lose a count. Inside ``recording()`` the launch goes
+    to the record instead: a launch captured into a CUDA graph runs when
+    the graph replays."""
+    record = getattr(_RECORD, "launches", None)
+    if record is not None:
+        record[(fn, attr)] = record.get((fn, attr), 0) + 1
+        return
     with _COUNT_LOCK:
         setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into a fresh dict {(fn, attr): n}
+    instead of the counters (a graph's capture, work not to be counted)."""
+    outer = getattr(_RECORD, "launches", None)
+    _RECORD.launches = {}
+    try:
+        yield _RECORD.launches
+    finally:
+        _RECORD.launches = outer
+
+
+def add_counts(record: dict) -> None:
+    """Add a record of launches to the counters (a graph's replay)."""
+    with _COUNT_LOCK:
+        for (fn, attr), n in record.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
 
 
 class Launch(NamedTuple):

@@ -31,6 +31,10 @@ def _rank_main(fn, rank, world, backend, init_method, devices, args,
         dist.init_process_group(backend, init_method=init_method,
                                 world_size=world, rank=rank)
         out = fn(devices, *args)
+        # No rank tears the group down while another still uses it: a
+        # group made last (``dist.new_group`` does not wait for its
+        # members) may still be connecting on a slower rank.
+        dist.barrier()
     except BaseException:
         # The parent raises it with this traceback; the rank exits non-zero.
         results.put((rank, False, traceback.format_exc()))

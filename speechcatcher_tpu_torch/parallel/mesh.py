@@ -81,6 +81,9 @@ class Mesh:
             g = dist.new_group([int(r) for r in col])
             if rank in col:
                 self.dp_group = g
+        # ``dist.new_group`` returns before its members have connected: a
+        # mesh is ready on every rank once any rank has it.
+        dist.barrier(group=_host_group())
 
     @property
     def device(self) -> torch.device:
@@ -221,18 +224,23 @@ def hybrid_device_grid(devices, tp: int = 1) -> np.ndarray:
 _HOST_GROUP = None
 
 
-def _gather_hosts(local_devices) -> list:
-    """(host name, device names) of every rank, in rank order. The objects
-    travel through a gloo group of the world: under NCCL an object
-    collective would need each rank's card chosen first, which is what the
-    host names decide."""
+def _host_group():
+    """A gloo group of the whole world, made once: host-side collectives
+    (object gathers, barriers) need no card chosen first, even under NCCL."""
     global _HOST_GROUP
     if _HOST_GROUP is None:
         _HOST_GROUP = dist.new_group(backend="gloo")
+    return _HOST_GROUP
+
+
+def _gather_hosts(local_devices) -> list:
+    """(host name, device names) of every rank, in rank order, through
+    the host group: under NCCL an object collective would need each rank's
+    card chosen first, which is what the host names decide."""
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, (socket.gethostname(),
                                  [str(d) for d in local_devices]),
-                           group=_HOST_GROUP)
+                           group=_host_group())
     return out
 
 

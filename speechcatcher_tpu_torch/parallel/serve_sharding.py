@@ -10,13 +10,18 @@ slots on its own device (a device may repeat: two replicas can share a
 card). Global slot s lives on replica s // (S/dp) at local slot
 s % (S/dp), the block layout of ``P("dp")`` on the slot axis. The replicas
 tick concurrently, one host thread each; the engine keeps no per-thread
-state.
+state. On the card each replica runs its own CUDA graphs (captured in
+thread-local mode); ``shard_engine`` captures them replica after replica
+before the first tick.
 
 Under tp > 1 (one process per card, ``parallel.mesh``) every rank of a tp
 group calls ``shard_engine``: the engine's model takes the rank's shards,
 the process's tp group is set (``parallel.tp``), and each rank runs the
 same host bookkeeping on the same audio. The ranks decide alike because the
-logits are gathered before any decision.
+logits are gathered before any decision. This engine keeps the eager host
+loop, by configuration (``StreamingEngine.graphed`` is false under a tp
+group): its collectives are gloo through host memory, which a CUDA graph
+cannot capture.
 """
 
 from __future__ import annotations
@@ -175,9 +180,18 @@ class ShardedEngine:
     def hbm_bytes_per_stream(self) -> Dict[str, int]:
         return self.replicas[0].hbm_bytes_per_stream()
 
+    def graph_bytes_per_stream(self) -> Dict[str, int]:
+        return self.replicas[0].graph_bytes_per_stream()
+
     @property
     def quarantined(self) -> int:
         return sum(r.quarantined for r in self.replicas)
+
+    def capture_graphs(self) -> None:
+        """Capture every replica's tick graphs, one replica after the
+        other, each under its own card."""
+        for r in self.replicas:
+            self._call(r, "capture_graphs")
 
     def close(self) -> None:
         if self._pool is not None:
@@ -202,7 +216,9 @@ def shard_engine(engine: StreamingEngine, mesh: Mesh) -> ShardedEngine:
             raise ValueError(f"rank {mesh.rank} drives no row of {mesh}")
         replicas = [_replica(engine, model_to(model, dev), per, dev)
                     for _, dev in rows]
-        return ShardedEngine(model, replicas, rows[0][0] * per)
+        sharded = ShardedEngine(model, replicas, rows[0][0] * per)
+        sharded.capture_graphs()
+        return sharded
     model.params = shard_params(model.params, mesh)
     set_tp_group(mesh.tp_group)
     dev = mesh.device

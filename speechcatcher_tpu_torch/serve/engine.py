@@ -12,11 +12,18 @@ length masks.
 - Device state is capacity-padded: waveform carry, pre/post-subsample
   feature carries, the emitted-encoder-frame ring ``enc_out``, the CTC
   log-prob ring and forward variables, beam arrays, the decoder cache.
-- A tick encodes every consuming stream, then runs beam rounds in a plain
-  host loop over the host-known schedule (``_round_schedule``): each round
-  makes one block visible to the ready streams (``ctc_log_softmax`` →
-  ``ctc_extend`` → ``decode_block_device``); the other streams' state passes
-  through unchanged (masked lockstep).
+- A tick encodes every consuming stream, then runs beam rounds over the
+  host-known schedule (``_round_schedule``): each round makes one block
+  visible to the ready streams (``ctc_log_softmax`` → ``ctc_extend``) and
+  runs their block beam loop; the other streams' state passes through
+  unchanged (masked lockstep).
+- On the card the encode is one CUDA graph per block count and wire format,
+  and each round is the block loop's graphs (``decode.graphs.BlockLoop``):
+  a tick uploads its integers and audio, replays the encode, replays each
+  round's graphs (one host sync per ``STEPS_PER_REPLAY`` beam steps) and
+  reads the partials back once, a tick later. The JAX engine runs the same
+  tick as one program (``_fused_tick``). Under a tp group the same
+  functions run eagerly: gloo collectives cannot be captured.
 - Finals go through ``finalize_batch`` (a compact copy of the finishing
   slots: batched final encode, drain and final rounds) or ``finalize`` (the
   slot's state injected into the single-stream beam search).
@@ -27,17 +34,19 @@ reach past a ring's capacity: the capacities are sized for it and the host
 asserts it from its counters before each append, since the kernel drops
 rows past the end where the JAX one-hot scatter clipped them to the last.
 
-In place, and why it is safe: the engine's rings (``raw``, ``post``,
-``enc_out``, the CTC log-prob ring, the decoder cache) are written in place
-and no snapshot holds them; every other field is replaced by new tensors.
-``finalize`` clones what the single-stream finalizer writes (its memory
-ring, CTC ring and decoder cache), so nothing lands in the engine's rings
-through a view.
+In place, and why it is safe: every tensor of the engine's state stays at
+the address it was allocated at, which the graphs read. The rings (``raw``,
+``post``, ``enc_out``, the CTC log-prob ring, the decoder cache) are
+appended in place and no snapshot holds them; every other field is computed
+anew and copied back over the old one (``graphs.write_tree``). ``finalize``
+copies the slot's state into the single-stream finalizer's, so nothing lands
+in the engine's rings through a view.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
@@ -50,22 +59,23 @@ from speechcatcher_tpu_torch.decode.beam_search import (
     BeamArrays,
     BlockDecodeState,
     BlockwiseSynchronousBeamSearch,
+    LoopSettings,
     _sel0,
-    decode_block_device,
+    fresh_block_state,
     init_beam_arrays,
     select_arrays,
 )
-from speechcatcher_tpu_torch.decode.ctc_prefix import (
-    CTCScorerState,
-    ctc_extend,
+from speechcatcher_tpu_torch.decode.ctc_prefix import CTCScorerState
+from speechcatcher_tpu_torch.decode.graphs import (
+    BlockLoop,
+    Upload,
+    capture_graphs,
+    clone_tree,
+    write_tree,
 )
 from speechcatcher_tpu_torch.device import resolve_device
 from speechcatcher_tpu_torch.models.asr_model import ASRModel
-from speechcatcher_tpu_torch.models.ctc import ctc_log_softmax
-from speechcatcher_tpu_torch.models.decoder import (
-    DecoderCache,
-    init_decoder_cache,
-)
+from speechcatcher_tpu_torch.models.decoder import DecoderCache
 from speechcatcher_tpu_torch.models.encoder import (
     EncoderState,
     apply_layers_infer,
@@ -80,6 +90,7 @@ from speechcatcher_tpu_torch.ops.frontend import (
 from speechcatcher_tpu_torch.ops.kernels.ring_append import ring_append_rows
 from speechcatcher_tpu_torch.ops.layers import layer_norm
 from speechcatcher_tpu_torch.params import CONV_SPECS
+from speechcatcher_tpu_torch.parallel.tp import tp_group
 from speechcatcher_tpu_torch.serve.wire import mulaw_decode as _mulaw_decode
 
 logger = logging.getLogger(__name__)
@@ -341,6 +352,14 @@ def _gather_new_frames(enc_out: torch.Tensor, vis_len: torch.Tensor,
     return enc_out[torch.arange(enc_out.shape[0], device=dev)[:, None], idx]
 
 
+def _ring_frames(enc_out: torch.Tensor, extcap: int,
+                 ints: torch.Tensor) -> torch.Tensor:
+    """A round's new frames from the ring, at the uploaded vis (row 0). A
+    bfloat16 ring's frames widen exactly to float32, as JAX's mixed-type
+    einsum promotes them."""
+    return _gather_new_frames(enc_out, ints[0], extcap).float()
+
+
 def _reset_program(mask: torch.Tensor, arrays: BeamArrays,
                    prev_arrays: BeamArrays, buffers: EngineBuffers,
                    prev_valid: torch.Tensor, process_idx: torch.Tensor,
@@ -370,7 +389,8 @@ def _reset_program(mask: torch.Tensor, arrays: BeamArrays,
 
 
 def _rows_arrays(a: BeamArrays, rows: torch.Tensor) -> BeamArrays:
-    """Copies of the given streams' rows of every BeamArrays field."""
+    """The given streams' rows of every BeamArrays field (copies for an
+    index tensor, views for a slice)."""
     return BeamArrays(
         yseq=a.yseq[rows], xpos=a.xpos[rows], lane=a.lane[rows],
         ylen=a.ylen[rows], score=a.score[rows], score_dec=a.score_dec[rows],
@@ -519,31 +539,14 @@ class StreamingEngine:
         # multiple of 64 as in the JAX engine, so both rings have one shape.
         self.ECAP_PAD = -(-(self.ECAP + self.EXTCAP) // 64) * 64
 
-        d = cfg.encoder_dim
-        f32 = dict(dtype=torch.float32, device=dev)
-        self.buffers = EngineBuffers(
-            wave=torch.zeros((self.S, self.WCAP), **f32),
-            raw=torch.zeros((self.S, self.RCAP, cfg.n_mels), **f32),
-            post=torch.zeros((self.S, self.PCAP, d), **f32),
-            prev_addin=torch.zeros((self.S, 1, d), **f32),
-            past_ctx=torch.zeros((self.S, cfg.encoder_layers, d), **f32),
-            enc_out=torch.zeros((self.S, self.ECAP_PAD, d),
-                                dtype=cfg.enc_ring_torch_dtype, device=dev),
-        )
-        self.arrays = init_beam_arrays(cfg, self.S, beam_size, dev)
-        # The snapshot carries an EMPTY CTC log-prob ring (append-only,
-        # always read from the live arrays).
-        self.prev_arrays = init_beam_arrays(cfg, self.S, beam_size, dev,
-                                            snapshot=True)
-        # One lane-resident decoder cache for all hypotheses (rows are
-        # append-only; rollback restores the lane map instead).
-        self.dec_cache = init_decoder_cache(cfg, self.S * beam_size, dev)
-        self.prev_valid_dev = torch.zeros((self.S,), dtype=torch.bool,
-                                          device=dev)
-        self.process_idx_dev = torch.zeros((self.S,), dtype=torch.int32,
-                                           device=dev)
-        self.output_index_dev = torch.zeros((self.S,), dtype=torch.int32,
-                                            device=dev)
+        self.buffers = self._new_buffers(self.S)
+        # The block loop's state: the beam; a snapshot with an EMPTY CTC
+        # log-prob ring (append-only, always read from the live arrays);
+        # one lane-resident decoder cache for all hypotheses (rows are
+        # append-only; rollback restores the lane map instead); the
+        # per-stream counters. Like the buffers, it stays where it is
+        # allocated: every tick, reset and final writes it in place.
+        self.block = fresh_block_state(cfg, self.S, beam_size, dev)
         self.c = SlotCounters.zeros(self.S)
         # Slots finalize_batch quarantined (their finalize raised).
         self.quarantined = 0
@@ -571,12 +574,94 @@ class StreamingEngine:
         self._pending_fresh: Optional[np.ndarray] = None
         self._stale_partial = np.zeros(self.S, bool)
 
-        # Single-stream finalizer (shares the weights).
+        # Single-stream finalizer (shares the weights; its frame ring has
+        # the dtype of enc_out, which it takes over).
         self._finalizer = BlockwiseSynchronousBeamSearch(
             model, beam_size=beam_size, ctc_weight=ctc_weight,
             use_bbd=use_bbd, penalty=penalty, max_length=self.max_length,
-            eos_commit=eos_commit,
+            eos_commit=eos_commit, memory_dtype=cfg.enc_ring_torch_dtype,
         )
+
+        # On the card the encode and each round's block loop run as CUDA
+        # graphs over the state above, in one memory pool (decode.graphs);
+        # eagerly on the CPU and under a tp group, whose collectives cannot
+        # be captured.
+        self.graphed = dev.type == "cuda" and tp_group() is None
+        self._graph_pool = (torch.cuda.graph_pool_handle() if self.graphed
+                            else None)
+        self._settings = LoopSettings(beam_size, self.pre_beam, ctc_weight,
+                                      use_bbd, self.max_length, penalty,
+                                      eos_commit)
+        self._loop = self._block_loop(self.block, self.buffers.enc_out)
+        self._enc_ints = Upload((15, self.S), torch.int32, dev)
+        self._audio_in: Dict[np.dtype, Upload] = {}
+        self._encode_graphs: dict = {}
+        # finalize_batch's compact working sets, by width (_compact_width).
+        self._compact: Dict[int, Tuple[EngineBuffers, BlockLoop]] = {}
+
+    @property
+    def arrays(self) -> BeamArrays:
+        return self.block.arrays
+
+    @property
+    def prev_arrays(self) -> BeamArrays:
+        return self.block.prev_arrays
+
+    @property
+    def dec_cache(self) -> DecoderCache:
+        return self.block.dec_cache
+
+    @property
+    def prev_valid_dev(self) -> torch.Tensor:
+        return self.block.prev_valid
+
+    @property
+    def process_idx_dev(self) -> torch.Tensor:
+        return self.block.process_idx
+
+    @property
+    def output_index_dev(self) -> torch.Tensor:
+        return self.block.output_index
+
+    def _new_buffers(self, n: int) -> EngineBuffers:
+        cfg = self.cfg
+        d = cfg.encoder_dim
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return EngineBuffers(
+            wave=torch.zeros((n, self.WCAP), **f32),
+            raw=torch.zeros((n, self.RCAP, cfg.n_mels), **f32),
+            post=torch.zeros((n, self.PCAP, d), **f32),
+            prev_addin=torch.zeros((n, 1, d), **f32),
+            past_ctx=torch.zeros((n, cfg.encoder_layers, d), **f32),
+            enc_out=torch.zeros((n, self.ECAP_PAD, d),
+                                dtype=cfg.enc_ring_torch_dtype,
+                                device=self.device),
+        )
+
+    def _block_loop(self, block: BlockDecodeState,
+                    enc_out: torch.Tensor) -> BlockLoop:
+        """The block loop over `block`, reading new frames and the
+        cross-attention memory from the ring `enc_out`."""
+        return BlockLoop(self.model, block, enc_out, self._settings,
+                         frames=functools.partial(_ring_frames, enc_out,
+                                                  self.EXTCAP),
+                         extcap=self.EXTCAP, pool=self._graph_pool)
+
+    def capture_graphs(self) -> None:
+        """Capture the engine's graphs now rather than at first use: the
+        block loop, the encode for every block count and wire format, and
+        finalize_batch's block loop at every compact width.
+        ``parallel.serve_sharding`` captures its replicas one after the
+        other this way. A no-op where the engine runs eagerly."""
+        if not self.graphed:
+            return
+        self._loop.capture()
+        for wire in (np.float32, np.int16, np.uint8):
+            audio = self._audio_upload(np.dtype(wire)).dev
+            for maxb in range(self.MAXB + 1):
+                self._encode_graph(maxb, audio)
+        for width in self._compact_widths():
+            self._compact_set(width)[1].capture()
 
     def _ints(self, rows) -> torch.Tensor:
         """One packed (K, n) int32 upload of per-stream host integers."""
@@ -604,6 +689,23 @@ class StreamingEngine:
         return {k: v // self.S for k, v in per.items()} | {
             "total": sum(per.values()) // self.S
         }
+
+    def graph_bytes_per_stream(self) -> Dict[str, int]:
+        """Device bytes per stream slot that the port's block loops hold
+        besides ``hbm_bytes_per_stream`` (which counts what the JAX engine
+        holds): the cross-attention K/V of the ring that the graphed
+        prologue keeps for the steps, and finalize_batch's compact sets at
+        every width ``_compact_widths`` allows (each row the state of a
+        slot and its cross K/V)."""
+        cfg = self.cfg
+        itemsize = self.dec_cache.h.element_size()
+        cross_kv = (cfg.decoder_layers * 2 * self.ECAP_PAD
+                    * cfg.decoder_dim * itemsize)
+        state = self.hbm_bytes_per_stream()["total"]
+        rows = sum(self._compact_widths())
+        per = {"cross_kv": cross_kv,
+               "compact_finals": rows * (state + cross_kv) // self.S}
+        return per | {"total": sum(per.values())}
 
     # ------------------------------------------------------------------
     # Slot management
@@ -643,11 +745,14 @@ class StreamingEngine:
         for s in slots:
             self.c.reset_slot(s)
             mask[s] = True
-        (self.arrays, self.prev_arrays, self.buffers, self.prev_valid_dev,
-         self.process_idx_dev, self.output_index_dev) = _reset_program(
-            torch.from_numpy(mask).to(self.device), self.arrays,
-            self.prev_arrays, self.buffers, self.prev_valid_dev,
-            self.process_idx_dev, self.output_index_dev, self.cfg, self.beam)
+        write_tree(
+            (self.arrays, self.prev_arrays, self.buffers, self.prev_valid_dev,
+             self.process_idx_dev, self.output_index_dev),
+            _reset_program(
+                torch.from_numpy(mask).to(self.device), self.arrays,
+                self.prev_arrays, self.buffers, self.prev_valid_dev,
+                self.process_idx_dev, self.output_index_dev, self.cfg,
+                self.beam))
         self._slot_clean[slots] = True
         if self._last_packed is not None:
             for s in slots:
@@ -710,7 +815,6 @@ class StreamingEngine:
         if not do.any():
             return {s: self.partial_tokens(s) for s in slots}
 
-        audio_dev = torch.from_numpy(audio_batch).to(self.device)
         # Read the PREVIOUS tick's [ylen | best yseq]: partials lag one tick.
         if self._pending_packed is not None:
             self._last_packed = self._pending_packed.cpu().numpy()
@@ -722,7 +826,7 @@ class StreamingEngine:
                 self._pending_fresh = None
             self._last_packed[self._stale_partial, 0] = 1
 
-        packed_dev = self._tick_device(audio_dev, do)
+        packed_dev = self._tick_device(audio_batch, do)
         if packed_dev is not None:
             self._pending_packed = packed_dev
             # Every row reflects post-(any prior)reset state; _reset_slots
@@ -745,22 +849,20 @@ class StreamingEngine:
             )
         return out
 
-    def _tick_device(self, audio_dev: torch.Tensor, do: np.ndarray
+    def _tick_device(self, audio: np.ndarray, do: np.ndarray
                      ) -> Optional[torch.Tensor]:
         """Device portion of one tick: the encode, then every beam round of
         the host-known schedule. Returns the last round's packed
         [ylen | best yseq] (None if no round ran)."""
         bk = self._encode_bookkeeping(do)
         rounds, vis_f, pb_f = self._round_schedule(do, bk["buf_new"])
-        self._encode(audio_dev, bk)
+        self._encode(audio, bk)
         self._apply_encode_counters(bk)
         if not rounds:
             return None
-        st = self._decode_state()
         for vis, new_vis, ready in rounds:
-            st = self._round(self.buffers.enc_out, st, vis, new_vis, ready,
-                             np.zeros(self.S, bool))
-        self._store_decode_state(st)
+            self._round(self._loop, vis, new_vis, ready,
+                        np.zeros(self.S, bool))
         self.c.vis_len = vis_f
         self.c.processed_block = pb_f
         a = self.arrays
@@ -827,21 +929,60 @@ class StreamingEngine:
             "buf_new": c.buf_len + emitted,
         }
 
-    def _encode(self, audio: torch.Tensor, bk: dict):
+    def _encode(self, audio: np.ndarray, bk: dict):
         """Frontend → subsample → post append → blocks → enc_out append
-        for every stream, with this tick's bookkeeping."""
+        for every stream, with this tick's bookkeeping: the integers and
+        the audio uploaded, then the encode graph of this block count and
+        wire format replayed (run eagerly off the card)."""
+        ints = self._enc_ints.put(np.stack(bk["ints"]).astype(np.int32))
+        audio_dev = self._audio_upload(audio.dtype).put(audio)
+        if self.graphed:
+            self._encode_graph(bk["maxb"], audio_dev).replay()
+        else:
+            self._encode_into(self.buffers, audio_dev, ints, bk["maxb"])
+
+    def _audio_upload(self, wire: np.dtype) -> Upload:
+        if wire not in self._audio_in:
+            dtype = torch.from_numpy(np.zeros(0, wire)).dtype
+            self._audio_in[wire] = Upload((self.S, self.A), dtype,
+                                          self.device)
+        return self._audio_in[wire]
+
+    def _encode_graph(self, maxb: int, audio: torch.Tensor):
+        """The encode's graph for `maxb` blocks a stream over the static
+        audio tensor `audio` (one per wire format), captured at first
+        use."""
+        key = (maxb, audio.dtype)
+        if key not in self._encode_graphs:
+            ints = self._enc_ints.dev
+
+            def program():
+                self._encode_into(self.buffers, audio, ints, maxb)
+
+            def warmup():
+                self._encode_into(clone_tree(self.buffers), audio, ints,
+                                  maxb)
+
+            (self._encode_graphs[key],) = capture_graphs(
+                [(f"encode(S={self.S}, maxb={maxb}, {audio.dtype})",
+                  program)], warmup, self._graph_pool)
+        return self._encode_graphs[key]
+
+    def _encode_into(self, buf: EngineBuffers, audio: torch.Tensor,
+                     ints: torch.Tensor, maxb: int) -> None:
+        """The encode over the buffers `buf`, which it writes in place
+        (enc_out by kernel D, the carries by copying the results back)."""
         cfg = self.cfg
         model = self.model
         p_enc = model.params["encoder"]
         fe = model.frontend
         (wave_len, trim_start, keep_from, keep_len, raw_len, valid_feats,
          consumed, post_len, n_sub_out, bn, has_prev, has_past, buf_len, npb,
-         emitted) = self._ints(bk["ints"]).unbind(0)
+         emitted) = ints.unbind(0)
         if audio.dtype == torch.int16:
             audio = audio.float() / 32767.0
         elif audio.dtype == torch.uint8:
             audio = self._mulaw[audio.long()]
-        buf = self.buffers
         feats, new_wave = _tick_frontend(
             buf.wave, audio, wave_len.long(), trim_start.long(),
             keep_from.long(), keep_len.long(), fe.window, fe.mel_fb, fe.mean,
@@ -851,16 +992,15 @@ class StreamingEngine:
             cfg)
         _scatter_append(buf.post, sub_frames[:, :self.SUBCAP], post_len,
                         n_sub_out)
-        buf = buf._replace(wave=new_wave, raw=new_raw)
-        maxb = bk["maxb"]
+        new = buf._replace(wave=new_wave, raw=new_raw)
         if maxb > 0:
             new_post, new_prev, new_past = _tick_blocks(
                 p_enc, model.enc_pe, self._mask, buf.post, bn, npb,
                 has_prev.bool(), has_past.bool(), buf.prev_addin,
                 buf.past_ctx, buf.enc_out, buf_len, emitted, cfg, maxb)
-            buf = buf._replace(post=new_post, prev_addin=new_prev,
+            new = new._replace(post=new_post, prev_addin=new_prev,
                                past_ctx=new_past)
-        self.buffers = buf
+        write_tree(buf, new)
 
     def _apply_encode_counters(self, bk: dict):
         """Host counter updates for an encode (exactly once per encode)."""
@@ -904,49 +1044,14 @@ class StreamingEngine:
             pb = np.where(ready, pb + 1, pb)
         return rounds, vis, pb
 
-    def _decode_state(self) -> BlockDecodeState:
-        return BlockDecodeState(
-            arrays=self.arrays,
-            prev_arrays=self.prev_arrays,
-            dec_cache=self.dec_cache,
-            prev_valid=self.prev_valid_dev,
-            process_idx=self.process_idx_dev,
-            output_index=self.output_index_dev,
-            stepping=self.prev_valid_dev,  # replaced in every round
-        )
-
-    def _store_decode_state(self, st: BlockDecodeState):
-        self.arrays = st.arrays
-        self.prev_arrays = st.prev_arrays
-        self.dec_cache = st.dec_cache
-        self.prev_valid_dev = st.prev_valid
-        self.process_idx_dev = st.process_idx
-        self.output_index_dev = st.output_index
-
-    def _round(self, enc_out: torch.Tensor, st: BlockDecodeState,
-               vis: np.ndarray, new_vis: np.ndarray, stepping: np.ndarray,
-               block_final: np.ndarray) -> BlockDecodeState:
+    def _round(self, loop: BlockLoop, vis: np.ndarray, new_vis: np.ndarray,
+               stepping: np.ndarray, block_final: np.ndarray) -> None:
         """One beam round: make frames [vis, new_vis) visible to the CTC
-        scorer (ctc_log_softmax → ctc_extend) and run the block beam loop
-        for the stepping streams. The cross-attention memory is the enc_out
+        scorer and run the block beam loop for the stepping streams, on the
+        loop's state in place. The cross-attention memory is the enc_out
         ring itself, masked by new_vis."""
         n_ext = np.clip(new_vis - vis, 0, self.EXTCAP)
-        ints = self._ints([vis, n_ext, new_vis, stepping, block_final])
-        # A bfloat16 ring's frames widen exactly to float32, as JAX's
-        # mixed-type einsum promotes them.
-        new_frames = _gather_new_frames(enc_out, ints[0], self.EXTCAP).float()
-        new_logp = ctc_log_softmax(self.model.params["ctc"], new_frames)
-        st = st._replace(
-            arrays=st.arrays._replace(
-                ctc=ctc_extend(st.arrays.ctc, new_logp, ints[1])),
-            stepping=ints[3].bool(),
-        )
-        return decode_block_device(
-            self.model.params, self.model.dec_pe, enc_out, st, ints[2],
-            ints[4].bool(), self.cfg, self.beam, self.pre_beam,
-            self.ctc_weight, self.use_bbd, self.max_length,
-            penalty=self.penalty, eos_commit=self.eos_commit,
-        )
+        loop.run(vis, n_ext, new_vis, stepping, block_final)
 
     # ------------------------------------------------------------------
     # Output + finalize
@@ -962,8 +1067,9 @@ class StreamingEngine:
 
     def partial_result(self, s: int):
         ylen = int(self.arrays.ylen[s])
-        yseq = self.arrays.yseq[s, 0, :ylen].cpu().numpy()
-        xpos = self.arrays.xpos[s, 0, :ylen].cpu().numpy()
+        # Copies: the state is rewritten in place by the next tick.
+        yseq = self.arrays.yseq[s, 0, :ylen].cpu().numpy().copy()
+        xpos = self.arrays.xpos[s, 0, :ylen].cpu().numpy().copy()
         return yseq, xpos
 
     @staticmethod
@@ -1014,37 +1120,20 @@ class StreamingEngine:
             st.enc_buf = buf.enc_out[s:s + 1, :int(c.buf_len[s])].float()
         st.vis_len = int(c.vis_len[s])
         st.processed_block = int(c.processed_block[s])
-        st.process_idx = int(self.process_idx_dev[s])
-        st.output_index = int(self.output_index_dev[s])
 
-        # The finalizer never writes the beam fields in place, but it
-        # appends into its CTC ring, decoder cache and memory ring: those
-        # are copies, not views of the engine's rings.
+        # The slot's device state into the finalizer's, in place: copies,
+        # since the finalizer appends into its CTC ring, decoder cache and
+        # frame ring. The snapshot is copied valid or not; its flag comes
+        # along.
         b = self.beam
-        a = self.arrays
         one = slice(s, s + 1)
-        st.arrays = BeamArrays(
-            yseq=a.yseq[one], xpos=a.xpos[one], lane=a.lane[one],
-            ylen=a.ylen[one], score=a.score[one], score_dec=a.score_dec[one],
-            score_ctc=a.score_ctc[one],
-            ctc=CTCScorerState(logp=a.ctc.logp[one].clone(),
-                               enc_len=a.ctc.enc_len[one], r=a.ctc.r[one],
-                               s=a.ctc.s[one]),
-        )
-        st.dec_cache = DecoderCache(h=self.dec_cache.h[:, s * b:(s + 1) * b]
-                                    .clone())
-        if bool(self.prev_valid_dev[s]):
-            p = self.prev_arrays
-            st.prev_arrays = BeamArrays(
-                yseq=p.yseq[one], xpos=p.xpos[one], lane=p.lane[one],
-                ylen=p.ylen[one], score=p.score[one],
-                score_dec=p.score_dec[one], score_ctc=p.score_ctc[one],
-                ctc=CTCScorerState(logp=p.ctc.logp[one],
-                                   enc_len=p.ctc.enc_len[one],
-                                   r=p.ctc.r[one], s=p.ctc.s[one]),
-            )
-        st.memory = buf.enc_out[one, :cfg.max_enc_frames].clone()
-        fin.state = st
+        write_tree(st.block[:6], (
+            _rows_arrays(self.arrays, one),
+            _rows_arrays(self.prev_arrays, one),
+            DecoderCache(h=self.dec_cache.h[:, s * b:(s + 1) * b]),
+            self.prev_valid_dev[one], self.process_idx_dev[one],
+            self.output_index_dev[one]))
+        st.memory.copy_(buf.enc_out[one, :cfg.max_enc_frames])
 
         # Frontend final: the right-aligned wave carry + the last audio
         # through the exact-length path.
@@ -1172,31 +1261,41 @@ class StreamingEngine:
         items: Dict[int, np.ndarray],
         meta: Dict[int, Tuple[int, ...]],
     ) -> Dict[int, Tuple[np.ndarray, np.ndarray, float]]:
-        """Batched finalization at compact width F = len(batch): extract
-        the slots' state, final-encode, drain the remaining full blocks and
-        run each stream's final block, read the best hypotheses back, reset
-        the slots. The final block may burst to max_length beam steps, so
-        its per-step cost should scale with F, not S."""
+        """Batched finalization at the compact width F of len(batch) slots
+        (``_compact_width``, under 2·len(batch)): extract the slots' state,
+        final-encode, drain the remaining full blocks and run each stream's
+        final block, read the best hypotheses back, reset the slots. The
+        final block may burst to max_length beam steps, so its per-step
+        cost should scale with F, not S."""
         c = self.c
         cfg = self.cfg
         bs, hop_b, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
-        f = len(batch)
-        rows = torch.tensor(batch, dtype=torch.long, device=self.device)
-        (cb, carr, cprev, ccache, cpv, cpi, coi) = _extract_rows(
-            self.buffers, self.arrays, self.prev_arrays, self.dec_cache,
-            self.prev_valid_dev, self.process_idx_dev,
-            self.output_index_dev, rows, self.beam)
+        n_fin = len(batch)
+        f = self._compact_width(n_fin)
+        # Padding rows repeat the first slot; they are encoded with it and
+        # never decoded.
+        padded = batch + [batch[0]] * (f - n_fin)
+        rows = torch.tensor(padded, dtype=torch.long, device=self.device)
+        cb, loop = self._compact_set(f)
+        cst = loop.state
+        write_tree(
+            (cb, cst.arrays, cst.prev_arrays, cst.dec_cache, cst.prev_valid,
+             cst.process_idx, cst.output_index),
+            _extract_rows(self.buffers, self.arrays, self.prev_arrays,
+                          self.dec_cache, self.prev_valid_dev,
+                          self.process_idx_dev, self.output_index_dev, rows,
+                          self.beam))
 
-        do_f = np.ones(f, bool)
-        buf_f = c.buf_len[batch].astype(np.int64)
-        vis_f = c.vis_len[batch].astype(np.int64)
-        pb_f = c.processed_block[batch].astype(np.int64)
+        do_f = np.arange(f) < n_fin
+        buf_f = c.buf_len[padded].astype(np.int64)
+        vis_f = c.vis_len[padded].astype(np.int64)
+        pb_f = c.processed_block[padded].astype(np.int64)
 
         maxb = max(meta[s][5] for s in batch)
         if maxb > 0:
             audio = np.zeros((f, self.A), np.float32)
             cols = []
-            for i, s in enumerate(batch):
+            for i, s in enumerate(padded):
                 (total_p, trim_start, valid_feats, n_sub, post_total,
                  bn, y_emit) = meta[s]
                 audio[i, :len(items[s])] = items[s]
@@ -1210,16 +1309,12 @@ class StreamingEngine:
             _assert_fits("enc_out", cols[14], cols[10], self.ECAP)
             self._final_encode(cb, torch.from_numpy(audio).to(self.device),
                                self._ints(cols), maxb)
-            buf_f = buf_f + np.array([meta[s][6] for s in batch], np.int64)
+            buf_f = buf_f + np.array([meta[s][6] for s in padded], np.int64)
 
         # Drain: each stream runs its remaining full blocks, then its final
         # block (block_final set, visibility extends to every emitted
         # frame). Rounds are lockstep across streams; each stream's own
         # sequence is that of the single-stream loop.
-        st = BlockDecodeState(arrays=carr, prev_arrays=cprev,
-                              dec_cache=ccache, prev_valid=cpv,
-                              process_idx=cpi, output_index=coi,
-                              stepping=cpv)
         vis, pb = vis_f.copy(), pb_f.copy()
         fdone = np.zeros(f, bool)
         max_start = -1
@@ -1235,14 +1330,14 @@ class StreamingEngine:
             ext = new_vis - vis
             assert ext.max() <= self.EXTCAP, (ext.max(), self.EXTCAP)
             max_start = max(max_start, int(vis[step].max()))
-            st = self._round(cb.enc_out, st, vis, new_vis, step, final)
+            self._round(loop, vis, new_vis, step, final)
             vis = new_vis
             pb = np.where(ready, pb + 1, pb)
             fdone = fdone | final
         self._last_drain_max_start = max_start
 
-        packed = _gather_final_rows(st.arrays)
-        lcap = st.arrays.yseq.shape[2]
+        packed = _gather_final_rows(cst.arrays)
+        lcap = cst.arrays.yseq.shape[2]
         out = {}
         for i, s in enumerate(batch):
             n = int(packed[i, 0])
@@ -1253,6 +1348,26 @@ class StreamingEngine:
         for s in batch:
             c.active[s] = False
         return out
+
+    def _compact_width(self, n: int) -> int:
+        """The compact width that finalizes n slots: n rounded up to a power
+        of two, at most S. An engine so holds at most log2(S) + 2 compact
+        sets, fewer than 3S rows, whatever widths its finals take."""
+        return min(1 << (n - 1).bit_length(), self.S)
+
+    def _compact_widths(self) -> List[int]:
+        return sorted({self._compact_width(n) for n in range(1, self.S + 1)})
+
+    def _compact_set(self, f: int) -> Tuple[EngineBuffers, BlockLoop]:
+        """The buffers and block loop of a compact width f, at fixed
+        addresses (made at the first finalize_batch of that width or by
+        ``capture_graphs``)."""
+        if f not in self._compact:
+            buffers = self._new_buffers(f)
+            block = fresh_block_state(self.cfg, f, self.beam, self.device)
+            self._compact[f] = (buffers,
+                                self._block_loop(block, buffers.enc_out))
+        return self._compact[f]
 
     def _final_encode(self, cb: EngineBuffers, audio: torch.Tensor,
                       ints: torch.Tensor, maxb: int):

@@ -4,7 +4,10 @@
 Raw-PCM chunks (or feature chunks) in; (text, tokens, token_ids, token_pos)
 tuples out, with waveform buffering, STFT-boundary frame trimming, streaming
 partials and a reset between utterances. The session runs on the model's
-device; the card unless the model was built with device="cpu".
+device; the card unless the model was built with device="cpu". On the card
+each block's beam loop runs as CUDA graphs over the session's state, which
+stays at fixed addresses between utterances (``decode.graphs``); the
+encoder step runs eagerly.
 """
 
 from __future__ import annotations

@@ -10,6 +10,12 @@ between the two best expansions in the port's CPU replay is at least 1e-3.
 ``chip_smoke.py`` replays it on the card; the tier-1 tests here check its
 config and weights checksum.
 
+``python tests/test_torch_conformer_fixture.py tokens`` blesses the
+token-rich ``fixtures/torch_port_conformer_tokens.json`` the same way with
+EOS +2 / blank +8, keeping the first seed whose decode has at least 20
+tokens: the long decode through kernel E. It is replayed here on the CPU
+and by ``chip_smoke.py`` on the card.
+
 The JAX package's own self-blessed conformer golden
 (``fixtures/flagship_conformer_golden.json``, written by
 ``scripts/bless_conformer_golden.py``) is replayed through the port here on
@@ -38,6 +44,9 @@ from test_torch_flagship_fixture import BEAM, MIN_GAP, bless
 
 FIXTURE = (Path(__file__).parent / "fixtures"
            / "torch_port_conformer_flagship.json")
+TOKENS_FIXTURE = FIXTURE.with_name("torch_port_conformer_tokens.json")
+TOKENS_EOS_BIAS, TOKENS_BLANK_BIAS = 2.0, 8.0
+MIN_TOKENS = 20
 GOLDEN = Path(__file__).parent / "fixtures" / "flagship_conformer_golden.json"
 REPLAY_LIMIT_S = 300
 
@@ -64,6 +73,44 @@ def test_fixture_weights_checksum_still_matches():
     fx = _load()
     tree = random_params(conformer_flagship(), fx["seed"])
     assert params_checksum(tree) == fx["weights_sha256"]
+
+
+def test_tokens_fixture_is_a_token_rich_conformer_decode():
+    fx = json.loads(TOKENS_FIXTURE.read_text())
+    assert ModelConfig(**fx["cfg"]) == conformer_flagship()
+    assert fx["beam_size"] == BEAM and fx["min_gap"] >= MIN_GAP
+    assert (fx["eos_bias"], fx["blank_bias"]) == (TOKENS_EOS_BIAS,
+                                                  TOKENS_BLANK_BIAS)
+    assert len(fx["yseq"]) == len(fx["xpos"]) >= MIN_TOKENS
+    tree = random_params(conformer_flagship(), fx["seed"])
+    assert params_checksum(tree) == fx["weights_sha256"]
+
+
+def test_port_replays_tokens_fixture():
+    """The JAX-blessed token-rich conformer decode, replayed through the
+    port's session on the CPU: tokens and positions exact, score within
+    rel. 1e-4 (the bless's own rule)."""
+    from test_torch_common import bias_outputs, synth_audio
+    from test_torch_flagship_fixture import _chunks, _decode
+
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+
+    fx = json.loads(TOKENS_FIXTURE.read_text())
+    cfg = conformer_flagship()
+    with _time_limit(REPLAY_LIMIT_S):
+        tree = bias_outputs(random_params(cfg, fx["seed"]), cfg,
+                            fx["eos_bias"], fx["blank_bias"])
+        model = ASRModel.from_numpy(cfg, tree, device="cpu")
+        session = Speech2TextStreaming(model=model, beam_size=BEAM,
+                                       device="cpu")
+        audio = synth_audio(fx["audio_seconds"], fx["audio_seed"],
+                            rate=cfg.sample_rate)
+        yseq, xpos, score = _decode(session, _chunks(audio,
+                                                     cfg.sample_rate))
+    assert [int(x) for x in yseq] == fx["yseq"]
+    assert [int(x) for x in xpos] == fx["xpos"]
+    np.testing.assert_allclose(score, fx["score"], rtol=1e-4)
 
 
 @contextlib.contextmanager
@@ -120,4 +167,9 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    bless(conformer_flagship(), FIXTURE)
+    if sys.argv[1:] == ["tokens"]:
+        bless(conformer_flagship(), TOKENS_FIXTURE,
+              eos_bias=TOKENS_EOS_BIAS, blank_bias=TOKENS_BLANK_BIAS,
+              min_tokens=MIN_TOKENS)
+    else:
+        bless(conformer_flagship(), FIXTURE)

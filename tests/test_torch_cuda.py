@@ -843,3 +843,94 @@ def test_replica_threads_count_launches_exactly(dev):
     finals, threaded = _dp_engine_run(dev, 2)
     assert threaded == serial and min(serial) > 0
     assert [f[:2] for f in finals] == [f[:2] for f in serial_finals]
+
+
+@pytest.mark.parametrize("owner", ["engine", "session"])
+def test_block_loop_graphs_replay_the_eager_loop(dev, owner):
+    """At tiny width, a block loop captured as CUDA graphs (prologue, K
+    unrolled beam steps, rewind) and replayed on its state equals the eager
+    loop on a copy of the same state on every leaf, to the last bit; B
+    launches K times a replay of the step graph."""
+    import copy
+
+    from speechcatcher_tpu_torch.config import tiny_config
+    from speechcatcher_tpu_torch.decode import graphs
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    model = ASRModel.random_init(tiny_config(), seed=1, device=dev)
+    audio = [synth_audio(2.0, 30 + k) for k in range(3)]
+    if owner == "engine":
+        engine = StreamingEngine(model, n_slots=3, beam_size=3,
+                                 chunk_samples=8192, device=dev)
+        slots = [engine.acquire_slot() for _ in audio]
+        for i in range(2):
+            engine.tick({s: audio[k][i * 8192:(i + 1) * 8192]
+                         for k, s in enumerate(slots)})
+        loop, vis = engine._loop, engine.c.vis_len
+        ints = np.stack([vis, np.full(3, 4), vis + 4, np.ones(3),
+                         np.array([0, 1, 0])])
+    else:
+        s2t = Speech2TextStreaming(model=model, beam_size=3, device=dev)
+        s2t(audio[0][:16000])
+        loop = s2t.beam_search.loop
+        vis = s2t.beam_search.state.vis_len
+        ints = np.array([[vis], [0], [vis], [1], [1]])
+    assert loop.graphed and loop._graphs is not None
+    loop.ints.put(ints.astype(np.int32))
+    start = graphs.clone_tree(loop.state)
+    before = ctc_forward_recursion.launches
+    replays = loop._graphs[1].replays
+    loop._run_graphs()
+    torch.cuda.synchronize()
+    assert (ctc_forward_recursion.launches - before
+            == graphs.STEPS_PER_REPLAY * (loop._graphs[1].replays - replays))
+    ref = copy.copy(loop)
+    ref.state, ref.stepping0 = start, torch.zeros_like(loop.stepping0)
+    ref._run_eager()
+    for got, want in zip(graphs.tree_leaves(loop.state),
+                         graphs.tree_leaves(start)):
+        assert torch.equal(got.contiguous().view(torch.uint8),
+                           want.contiguous().view(torch.uint8))
+
+
+def test_finals_of_every_width_hold_bounded_memory(dev):
+    """At tiny width and 8 slots, finals of every batch width 1 to 8 run
+    on the compact sets that capture_graphs made (widths 1, 2, 4, 8): no
+    capture after it, and a second sweep of every width leaves the card's
+    allocated memory where the first left it."""
+    import gc
+
+    from speechcatcher_tpu_torch.config import tiny_config
+    from speechcatcher_tpu_torch.decode import graphs
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    model = ASRModel.random_init(tiny_config(), seed=1, device=dev)
+    engine = StreamingEngine(model, n_slots=8, beam_size=3,
+                             chunk_samples=8192, device=dev)
+    engine.capture_graphs()
+    captured = len(graphs.CAPTURED)
+
+    def sweep(seed):
+        for width in range(1, 9):
+            audio = [synth_audio(2.0, seed + 10 * width + k)
+                     for k in range(width)]
+            slots = [engine.acquire_slot() for _ in audio]
+            for i in range(3):
+                engine.tick({s: audio[k][i * 8192:(i + 1) * 8192]
+                             for k, s in enumerate(slots)})
+            out = engine.finalize_batch({s: audio[k][24576:]
+                                         for k, s in enumerate(slots)})
+            assert sorted(out) == sorted(slots)
+        torch.cuda.synchronize()
+        gc.collect()
+        return torch.cuda.memory_allocated(dev)
+
+    first = sweep(100)
+    assert sweep(200) == first
+    assert sorted(engine._compact) == [1, 2, 4, 8]
+    assert len(graphs.CAPTURED) == captured
