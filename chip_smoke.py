@@ -29,16 +29,20 @@ the engine in the serving default); a model directory written from seed 0
 and loaded through ``Speech2TextStreaming(model_dir=...)``; and warm RTF and
 tick p50 of float32 and the serving default taken in turns.
 
-The device-resident beam loop (``graph_path``, for the transformer and
-the conformer): every block loop and engine encode runs as CUDA graphs on
-the card; here each graphed block and encode of a 6 s utterance and of the
-engine path's ten streams is run again through the eager loop on a copy of
-the same state, and every leaf must be bit-equal. It prints beam steps and
-host syncs per block, the graphs captured and their memory, the runtime
-calls the host makes and the device's idle share under torch.profiler,
-tick p50/p95 and RTF graphed against eager in three interleaved pairs, and
-the dp = 2 tick against the unsharded engine. Every other path runs through
-the graphs too, with the launch counts of the eager loop.
+The device-resident beam loop and chunk step (``graph_path``, for the
+transformer and the conformer): every block loop, session chunk step and
+engine encode runs as CUDA graphs on the card; here each graphed block,
+chunk step and encode of a 6 s utterance and of the engine path's ten
+streams is run again through the eager loop or ``StreamingEncoder.step``
+on a copy of the same state, and every leaf must be bit-equal. It prints
+beam steps and host syncs per block, the graphs captured and their memory,
+the runtime calls the host makes and the device's idle share under
+torch.profiler (an utterance and ticks, graphed and eager), tick p50/p95
+and RTF graphed against eager in three interleaved pairs, the dp = 2 tick
+against the unsharded engine, and, after the session's
+``capture_graphs(8000)``, three more utterances that must capture nothing
+and hold no more memory. Every other path runs through the graphs too,
+with the launch counts of the eager loop and step.
 
 The app and serving layer, on a flagship that emits tokens (the token-rich
 fixture's weights and biases): ``recognize_file`` on a 70 s WAV serially
@@ -74,6 +78,7 @@ Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import math
@@ -756,6 +761,102 @@ def check_ring_append_rows(dev, cfg, n_slots: int):
     }
 
 
+def check_ring_append_rows_session(dev, cfg, chunk_samples: int):
+    """Kernel D at the session's one slot into its three float32 buffers:
+    the carried features ``carry.raw`` (RCAP, n_mels), the carried
+    subsampled frames ``carry.post`` (PCAP, d) and the emitted-frame ring
+    (max_enc_frames, d), with every row count a stream of
+    `chunk_samples`-sample chunks appends there (``chunk_signatures``:
+    feature frames, subsampled frames, frames emitted, finals included).
+    Each count at the start, mid-buffer, flush with the end and hanging
+    off it, with count = rows (as the session appends), rows - 1 and 0,
+    for a contiguous and a strided `new`; exact over the whole buffer.
+    Timed at the ring append of one block's hop_size frames."""
+    import numpy as np
+    import torch
+
+    from speechcatcher_tpu_torch.models.encoder import carry_capacity
+    from speechcatcher_tpu_torch.ops.kernels.ring_append import (
+        ring_append_rows,
+        ring_append_rows_plain,
+    )
+    from speechcatcher_tpu_torch.streaming import chunk_signatures
+
+    rcap, pcap = carry_capacity(cfg)
+    d = cfg.encoder_dim
+    rows = {"raw": set(), "post": set(), "ring": set()}
+    for key in chunk_signatures(cfg, chunk_samples):
+        if key[0] == "frontend":
+            rows["raw"].add(key[1] - key[2] - key[3])
+        elif key[0] == "subsample":
+            rows["post"].add(key[1].n_sub)
+        else:
+            rows["ring"].add(key[1].y_length)
+    buffers = {"raw": (rcap, cfg.n_mels), "post": (pcap, d),
+               "ring": (cfg.max_enc_frames, d)}
+    rng = np.random.default_rng(5)
+    errs, cases = [], 0
+    for name, (t_cap, width) in buffers.items():
+        cache0 = torch.from_numpy(rng.standard_normal(
+            (1, 1, t_cap, width), dtype=np.float32)).to(dev)
+        for n in sorted(rows[name] - {0}):
+            big = torch.from_numpy(rng.standard_normal(
+                (1, 1, n + 7, width), dtype=np.float32)).to(dev)
+            forms = {"contiguous": big[:, :, :n].contiguous(),
+                     "strided": big[:, :, 3:n + 3]}
+            starts = {0, int(rng.integers(0, t_cap - n + 1)), t_cap - n,
+                      t_cap - (n + 1) // 2}
+            for start in sorted(starts):
+                for count in sorted({n, n - 1, 0}):
+                    start_t = torch.tensor([start], dtype=torch.int32,
+                                           device=dev)
+                    count_t = torch.tensor([count], dtype=torch.int32,
+                                           device=dev)
+                    for form, new in forms.items():
+                        got = ring_append_rows(cache0.clone(), new, start_t,
+                                               count_t)
+                        ref = ring_append_rows_plain(cache0.clone(), new,
+                                                     start_t, count_t)
+                        if not torch.equal(got, ref):
+                            fail(f"ring_append_rows differs at the "
+                                 f"session's {name} buffer ({n} rows, "
+                                 f"start {start}, count {count}, {form} "
+                                 "new)")
+                        errs.append(float((got - ref).abs().max()))
+                        cases += 1
+    # Timing: one block's frames into the emitted-frame ring.
+    t_cap, tn = cfg.max_enc_frames, cfg.hop_size
+    cache = torch.zeros((1, 1, t_cap, d), device=dev)
+    new = torch.randn((1, 1, tn, d), device=dev)
+    start = torch.full((1,), t_cap // 2, dtype=torch.int32, device=dev)
+    count = torch.full((1,), tn, dtype=torch.int32, device=dev)
+    t_idx = t_cap // 2 + torch.arange(tn, device=dev)
+    vals = new[0, 0]
+
+    def kernel():
+        ring_append_rows(cache, new, start, count)
+
+    def library():
+        cache[0, 0].index_put_((t_idx,), vals)
+
+    ms, lib_ms, k_all, l_all = timed_pairs(kernel, library)
+    b_ms, b_by = bound(2 * tn * d * 4 + 2 * 4, 0)
+    return {
+        "name": "ring_append_rows", "route": "cuda", "where": "session",
+        "shapes": {name: [1, 1, t, w] for name, (t, w) in buffers.items()},
+        "rows": {name: sorted(r) for name, r in rows.items()},
+        "chunk_samples": chunk_samples, "cases": cases,
+        "max_abs_err": max(errs), "tol": 0.0,
+        "timed_shape": [1, 1, t_cap, d, tn], "ms": ms, "ms_runs": k_all,
+        "device_us": device_us(kernel, "ring_append_rows_kernel"),
+        "plain_ms": cuda_ms(
+            lambda: ring_append_rows_plain(cache, new, start, count), 50),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "library_ms_runs": l_all,
+        "library": "Tensor.index_put_ (precomputed indices)",
+    }
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -818,9 +919,7 @@ def decode_chunked(s2t, audio, rate: int):
         t0 = time.perf_counter()
         if final:
             # Read the beam before the session resets itself.
-            s2t.beam_search.process_block(
-                s2t.apply_frontend(chunk, s2t.frontend_states, True)[0],
-                is_final=True)
+            s2t.feed(chunk, is_final=True)
             nbest = s2t.beam_search.nbest_hypotheses()
             results = s2t._assemble(is_final=True)
             s2t.reset()
@@ -1829,8 +1928,7 @@ def recognize_path(dev, counters, model, smi: str) -> dict:
         wav = tmp / "recording.wav"
         write_wav(wav, pcm, rate)
         for n, phase, zero in (
-                (1, "recognize_serial", ("rel_block_attention",
-                                         "ring_append_rows")),
+                (1, "recognize_serial", ("rel_block_attention",)),
                 (4, "recognize_batched", ("rel_block_attention",))):
             for c in counters:
                 c.launches = 0
@@ -3077,12 +3175,16 @@ class GraphCheck:
     second time through the eager reference (``BlockLoop._run_eager``, the
     eager ``_encode_into``) on a copy of the state it started from, and
     every leaf of the graphs' result must equal the eager one to the last
-    bit. The eager runs' launches are not counted; their beam steps are
+    bit. So is every graphed chunk step of a session (``ChunkStep.step``),
+    against the eager ``StreamingEncoder.step`` on a copy of its state and
+    the chunk's features from the eager frontend: the emitted frames and
+    every leaf of the next state, and the step's launches of A and E. The
+    eager runs' launches are not counted; their beam steps are
     (``eager_steps``: the eager loop makes steps + 1 host syncs a
     block)."""
 
     def __init__(self):
-        self.blocks = self.encodes = self.eager_steps = 0
+        self.blocks = self.encodes = self.eager_steps = self.chunks = 0
 
     def __enter__(self):
         import copy
@@ -3127,10 +3229,58 @@ class GraphCheck:
             bit_equal(f"encode {check.encodes}", engine.buffers, start)
             check.encodes += 1
 
+        step_chunk = graphs.ChunkStep.step
+        attention = kernel_counters()[0][:2]  # A and E
+
+        def checked_chunk(chunk, source, is_final):
+            if not chunk.graphed:
+                return step_chunk(chunk, source, is_final)
+            start = chunk.state()
+            start = dataclasses.replace(start, **{
+                name: getattr(start, name).clone() for name in CARRIED
+                if getattr(start, name) is not None})
+            enc0 = chunk.enc_len
+            before = [f.launches for f in attention]
+            plan = step_chunk(chunk, source, is_final)
+            graphed = [f.launches - b for f, b in zip(attention, before)]
+            fe = chunk.frontend
+            with _plan.recording() as rec:
+                if source.kind == "wave":
+                    feats = fe(source.data)
+                    feats = feats[:, source.lo:feats.shape[1] - source.hi]
+                elif source.kind == "features":
+                    feats = fe.normalize_only(source.data)
+                else:
+                    feats = source.data
+                ys, nxt = chunk.encoder.step(feats, start, is_final)
+            eager = [rec.get((f, "launches"), 0) for f in attention]
+            what = f"chunk step {check.chunks} ({plan.kind})"
+            if graphed != eager:
+                fail(f"{what}: A and E launched {graphed} times in the "
+                     f"graphs, {eager} in the eager step")
+            bit_equal(what + " frames", chunk.ring[:, enc0:chunk.enc_len],
+                      ys)
+            if (nxt is None) != is_final:
+                fail(f"{what}: the eager step's state after it")
+            if nxt is not None:
+                got = chunk.state()
+                for name in CARRIED:
+                    a, b = getattr(got, name), getattr(nxt, name)
+                    if (a is None) != (b is None):
+                        fail(f"{what}: {name} carried in one step only")
+                    if a is not None:
+                        bit_equal(f"{what} {name}", a, b)
+                if got.n_processed_blocks != nxt.n_processed_blocks:
+                    fail(f"{what}: blocks processed")
+            check.chunks += 1
+            return plan
+
         self._restore = [(graphs.BlockLoop, "_run_graphs", run_graphs),
-                         (StreamingEngine, "_encode", encode)]
+                         (StreamingEngine, "_encode", encode),
+                         (graphs.ChunkStep, "step", step_chunk)]
         graphs.BlockLoop._run_graphs = checked_run
         StreamingEngine._encode = checked_encode
+        graphs.ChunkStep.step = checked_chunk
         return self
 
     def __exit__(self, *exc):
@@ -3138,14 +3288,21 @@ class GraphCheck:
             setattr(owner, name, fn)
 
 
+# The leaves of an EncoderState a chunk step carries to the next.
+CARRIED = ("buf_before", "buf_after", "prev_addin", "past_ctx")
+
+
 def make_eager(obj):
-    """Run a session's or an engine's block loops, and an engine's encode,
-    through the eager reference: the comparison's other side. No entry
-    point reaches it; on the card they all run the graphs."""
+    """Run a session's or an engine's block loops and chunk steps, and an
+    engine's encode, without graphs: the same programs eagerly, the
+    comparison's other side (an engine's finalize runs its chunk step
+    eagerly anyway). No entry point reaches it; on the card they all run
+    the graphs."""
     from speechcatcher_tpu_torch.serve.engine import StreamingEngine
 
     if not isinstance(obj, StreamingEngine):
         obj.beam_search.loop.graphed = False
+        obj.beam_search.chunk.graphed = False
         return obj
     obj.graphed = False
     obj._loop.graphed = False
@@ -3301,7 +3458,7 @@ def device_share(averages, wall: float) -> dict:
 
 
 def graph_profiles(runs: dict, smi: str, encoder_type: str,
-                   utterance_modes=("graphed",),
+                   utterance_modes=("graphed", "eager"),
                    tick_modes=("graphed", "eager")) -> None:
     """One warm 6 s utterance (for each of `utterance_modes`) and 10 warm
     ticks of 8 slots (`tick_modes`) under torch.profiler, on the warm
@@ -3470,17 +3627,19 @@ HELD_GROWTH_LIMIT = 1 << 20
 
 def graph_path(dev, counters, smi: str, encoder_type: str,
                dp_mesh=None, full_profile: bool = True) -> dict:
-    """The block loop and the engine's encode as CUDA graphs at flagship
-    width: a 6 s session utterance and the engine path's ten streams (their
-    finals through finalize_batch and finalize) with every block and
-    encode held against the eager loop on the same inputs, bit-equal on
-    every leaf; launch counts (B once per replayed step: K a replay); steps
-    and host syncs per block; the graphs captured and their memory; the
-    price of K; then profiles (graphed ticks; with `full_profile` also
-    eager ticks and a graphed utterance), timings, and (with `dp_mesh`)
-    the dp = 2 tick ratio. Once
-    ``capture_graphs`` ran, serving captures nothing more and holds no
-    more memory."""
+    """The block loop, the session's chunk step and the engine's encode as
+    CUDA graphs at flagship width: a 6 s session utterance and the engine
+    path's ten streams (their finals through finalize_batch and finalize)
+    with every block, chunk step and encode held against the eager
+    reference on the same inputs, bit-equal on every leaf; launch counts
+    (B once per replayed step: K a replay); steps and host syncs per
+    block; the graphs captured and their memory; the price of K; then
+    profiles (an utterance graphed and eager; ticks graphed and, with
+    `full_profile`, eager), timings, and (with `dp_mesh`)
+    the dp = 2 tick ratio. Once ``capture_graphs`` ran, serving and
+    decoding capture nothing more and hold no more memory; the session's
+    graphs and pool bytes for 0.5 s chunks (and with `full_profile` for
+    8192-sample chunks)."""
     import torch
 
     from speechcatcher_tpu_torch.decode import graphs
@@ -3531,7 +3690,8 @@ def graph_path(dev, counters, smi: str, encoder_type: str,
         n_, b_ = by_name.get(key, (0, 0))
         by_name[key] = (n_ + 1, b_ + g.pool_bytes)
     emit({"phase": phase, "card": smi, "blocks_checked": check.blocks,
-          "encodes_checked": check.encodes, "bit_equal": True,
+          "encodes_checked": check.encodes,
+          "chunk_steps_checked": check.chunks, "bit_equal": True,
           "session": session | {"eager_steps": session_eager_steps},
           "engine": eng | {"eager_steps":
                            check.eager_steps - session_eager_steps},
@@ -3540,7 +3700,7 @@ def graph_path(dev, counters, smi: str, encoder_type: str,
           "graph_pool_bytes": sum(g.pool_bytes for g in new),
           "graphs_by_kind": {key: {"count": v[0], "pool_bytes": v[1]}
                              for key, v in by_name.items()}})
-    if check.blocks == 0 or check.encodes == 0:
+    if check.blocks == 0 or check.encodes == 0 or check.chunks == 0:
         fail(f"{phase}: nothing went through the graphs")
     k_choice(s2t, engine, smi, encoder_type)
     # The same session and engine (warm, graphs captured: every encode and
@@ -3562,7 +3722,6 @@ def graph_path(dev, counters, smi: str, encoder_type: str,
     drive_engine(eager[1], engine_path_streams(rate), 8192, sync=_sync(dev))
     runs = {"graphed": (s2t, engine), "eager": eager}
     graph_profiles(runs, smi, encoder_type,
-                   utterance_modes=("graphed",) if full_profile else (),
                    tick_modes=("graphed", "eager") if full_profile
                    else ("graphed",))
     torch.cuda.synchronize()
@@ -3577,9 +3736,111 @@ def graph_path(dev, counters, smi: str, encoder_type: str,
         fail(f"{phase}: serving after capture_graphs captured "
              f"{len(graphs.CAPTURED) - captured} graphs and grew the "
              f"allocated memory by {grown} bytes")
+    engine_finals_held(engine, smi, phase)
+    session_graphs(dev, s2t, smi, phase, also=(8192,) if full_profile else ())
     if dp_mesh is not None:
         dp_tick_ratio(engine, smi, dp_mesh)
     return launches
+
+
+def engine_finals_held(engine, smi: str, phase: str) -> None:
+    """finalize() at many carried fills on the warm `engine` after its
+    capture_graphs: twelve streams of 0.4 to 6.3 s, each finalized alone
+    with its own tail (the short-segment final included), capture nothing
+    and hold no more memory."""
+    import torch
+
+    from speechcatcher_tpu_torch.decode import graphs
+
+    dev = engine.device
+    n = 12
+    seconds = [round(0.4 + 0.537 * k, 3) for k in range(n)]
+    streams = engine_streams(n, seconds, starts=[k // 4 for k in range(n)],
+                             int16_every=3, seed0=330, single=range(n),
+                             rate=engine.cfg.sample_rate)
+    captured = len(graphs.CAPTURED)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    finals, _, _ = drive_engine(engine, streams, engine.A, sync=_sync(dev))
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - held
+    emit({"phase": phase + "_finals_held", "streams_s": seconds,
+          "tails": [len(st["audio"]) - (len(st["audio"]) - 1)
+                    // engine.A * engine.A for st in streams],
+          "captured_while_serving": len(graphs.CAPTURED) - captured,
+          "allocated_growth_bytes": grown, "limit_bytes": HELD_GROWTH_LIMIT,
+          "card": smi})
+    if len(finals) != n:
+        fail(f"{phase}: {len(finals)} of {n} streams finalized")
+    if len(graphs.CAPTURED) != captured or grown > HELD_GROWTH_LIMIT:
+        fail(f"{phase}: finalize after capture_graphs captured "
+             f"{len(graphs.CAPTURED) - captured} graphs and grew the "
+             f"allocated memory by {grown} bytes")
+
+
+def session_graph_sizes(s2t) -> dict:
+    """The graphs a session holds (chunk steps and block loop) and what
+    their captures reserved, in all and by kind."""
+    bs = s2t.beam_search
+    held = list(bs.chunk._graphs.values()) + list(bs.loop._graphs or ())
+    kinds: dict = {}
+    for g in held:
+        kind = kinds.setdefault(g.name.split("(")[0] + g.name[
+            g.name.index(")") + 1:], {"count": 0, "pool_bytes": 0})
+        kind["count"] += 1
+        kind["pool_bytes"] += g.pool_bytes
+    return {"graphs": len(held),
+            "pool_bytes": sum(g.pool_bytes for g in held),
+            "graphs_by_kind": kinds}
+
+
+def session_graphs(dev, s2t, smi: str, phase: str, also=()) -> None:
+    """``capture_graphs`` of the session's chunk size (0.5 s) on the warm
+    graphed session `s2t`; then three utterances of other lengths capture
+    nothing and hold no more memory. The graphs and pool bytes of a
+    session of that chunk size, and of fresh sessions of the chunk sizes
+    `also`, captured up front."""
+    import torch
+
+    from speechcatcher_tpu_torch.decode import graphs
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    model = s2t.model
+    rate = model.cfg.sample_rate
+    chunk = int(CHUNK_SECONDS * rate)
+    t0 = time.perf_counter()
+    signatures = s2t.capture_graphs(chunk)
+    sizes = {chunk: {"signatures": signatures,
+                     "capture_s": time.perf_counter() - t0}
+             | session_graph_sizes(s2t)}
+    captured = len(graphs.CAPTURED)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    for i, seconds in enumerate((2.7, 4.35, 7.9)):
+        decode_chunked(s2t, synth_audio(seconds, seed=310 + i, rate=rate),
+                       rate)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - held
+    emit({"phase": phase + "_session_held", "chunk_samples": chunk,
+          "utterances_s": [2.7, 4.35, 7.9],
+          "captured_while_decoding": len(graphs.CAPTURED) - captured,
+          "allocated_growth_bytes": grown, "limit_bytes": HELD_GROWTH_LIMIT,
+          "card": smi})
+    if len(graphs.CAPTURED) != captured or grown > HELD_GROWTH_LIMIT:
+        fail(f"{phase}: decoding after capture_graphs({chunk}) captured "
+             f"{len(graphs.CAPTURED) - captured} graphs and grew the "
+             f"allocated memory by {grown} bytes")
+    for samples in also:
+        fresh = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+        t0 = time.perf_counter()
+        signatures = fresh.capture_graphs(samples)
+        sizes[samples] = ({"signatures": signatures,
+                           "capture_s": time.perf_counter() - t0}
+                          | session_graph_sizes(fresh))
+        del fresh
+    emit({"phase": phase + "_session_graphs", "card": smi,
+          "by_chunk_samples": sizes})
 
 
 def main() -> int:
@@ -3677,6 +3938,9 @@ def main() -> int:
                                TP_STREAMS * ENGINE_MAXB, rel)
                for rel in (False, True)]
     checks.append(check_ring_append_rows(dev, cfg, n_slots=8 // TP))
+    # The session's D appends: one slot into its carries and its ring.
+    checks.append(check_ring_append_rows_session(
+        dev, cfg, int(CHUNK_SECONDS * cfg.sample_rate)))
     kernels = [
         check_attention(dev, cfg, n_blocks=1, rel=False),
         check_attention(dev, cfg, n_blocks=1, rel=True),
@@ -3692,12 +3956,12 @@ def main() -> int:
         worst[k["name"]] = max(worst.get(k["name"], 0.0), k["max_abs_err"])
     # dp=2: two engine replicas of 4 slots on this one card.
     dp_mesh = make_mesh(TP, devices=[dev] * TP)
-    # Each path runs every kernel but those it must not: the session never
-    # appends engine rows (D), the transformer never runs E, the conformer
-    # never A.
+    # Each path runs every kernel but those it must not: the transformer
+    # never runs E, the conformer never A. The session appends its encoder
+    # frames and carries with D, at one slot.
     model = flagship_model(dev, seed=0)
     by_path = {"utterance": main_path(
-        dev, counters, model, zero=(rel_block_attention, ring_append_rows))}
+        dev, counters, model, zero=(rel_block_attention,))}
     fixture_replay(dev)
     fixture_replay(dev, TOKENS_FIXTURE)
     small_reference(dev)
@@ -3733,7 +3997,7 @@ def main() -> int:
         by_path["utterance_" + key] = main_path(
             dev, counters, flagship_model(dev, seed=0),
             phase="precision_path_" + key, dtype=dtype, lengths=(5.0, 6.0),
-            zero=(rel_block_attention, ring_append_rows))
+            zero=(rel_block_attention,))
     serving = flagship_model(dev, seed=0, precision="serving_default")
     by_path["engine_serving_default"] = engine_path(
         dev, counters, serving, phase="precision_engine_path",
@@ -3746,11 +4010,11 @@ def main() -> int:
     conformer = flagship_model(dev, seed=0, encoder_type="conformer")
     by_path["conformer_utterance"] = main_path(
         dev, counters, conformer, phase="conformer_path",
-        zero=(block_attention, ring_append_rows))
+        zero=(block_attention,))
     by_path["conformer_utterance_bfloat16"] = main_path(
         dev, counters, flagship_model(dev, seed=0, encoder_type="conformer"),
         phase="precision_conformer_path_bfloat16", dtype="bfloat16",
-        lengths=(5.0, 6.0), zero=(block_attention, ring_append_rows))
+        lengths=(5.0, 6.0), zero=(block_attention,))
     fixture_replay(dev, CONFORMER_FIXTURE, encoder_type="conformer",
                    tol=1e-5)
     fixture_replay(dev, CONFORMER_TOKENS_FIXTURE, encoder_type="conformer")

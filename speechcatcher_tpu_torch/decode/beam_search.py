@@ -56,10 +56,6 @@ from speechcatcher_tpu_torch.models.decoder import (
     init_decoder_cache,
     project_cross_kv,
 )
-from speechcatcher_tpu_torch.models.encoder import (
-    EncoderState,
-    StreamingEncoder,
-)
 
 NEG_INF = -1.0e30
 
@@ -427,12 +423,11 @@ def fresh_block_state(cfg: ModelConfig, n_streams: int, beam: int,
 
 @dataclasses.dataclass
 class BSBSState:
-    """One decoding session (one stream, S=1): host-side encoder handles
-    and counters, and the device state of the block loop at fixed addresses
-    (``block`` and the raw frame ring ``memory``), written in place."""
+    """One decoding session (one stream, S=1): host-side counters and the
+    device state of the block loop at fixed addresses (``block`` and the
+    raw frame ring ``memory``), written in place. The encoder's carry and
+    its emitted frames live in the session's ``graphs.ChunkStep``."""
 
-    enc_state: Optional[EncoderState]
-    enc_buf: Optional[torch.Tensor]      # (1, L, d) accumulated encoder out
     vis_len: int                         # frames visible to the scorers
     processed_block: int
     block: BlockDecodeState              # beam, snapshot, cache, counters
@@ -448,9 +443,11 @@ class BSBSState:
 
 
 class BlockwiseSynchronousBeamSearch:
-    """Streaming BSBS over one session's chunks. On the card each block's
-    loop runs as CUDA graphs (``decode.graphs``), eagerly on the CPU and
-    under a tp group (whose collectives cannot be captured)."""
+    """Streaming BSBS over one session's chunks. On the card each chunk's
+    encoder step (``graphs.ChunkStep``) and each block's loop
+    (``graphs.BlockLoop``) run as CUDA graphs in one memory pool, eagerly
+    on the CPU and under a tp group (whose collectives cannot be
+    captured)."""
 
     def __init__(
         self,
@@ -477,11 +474,10 @@ class BlockwiseSynchronousBeamSearch:
         self.coverage_weight = coverage_weight
         self.pre_beam = pre_beam_size or self.cfg.pre_beam_size
         self.max_length = max_length or self.cfg.max_tokens - 1
-        self.encoder = StreamingEncoder(model.params["encoder"], self.cfg,
-                                        model.enc_pe)
         d = self.cfg.encoder_dim
+        self.chunk = graphs.ChunkStep(model)
         self.state = BSBSState(
-            enc_state=None, enc_buf=None, vis_len=0, processed_block=0,
+            vis_len=0, processed_block=0,
             block=fresh_block_state(self.cfg, 1, beam_size, self.device),
             memory=torch.zeros((1, self.cfg.max_enc_frames, d),
                                dtype=memory_dtype, device=self.device))
@@ -491,7 +487,8 @@ class BlockwiseSynchronousBeamSearch:
                                            device=self.device)
         self.loop = graphs.BlockLoop(
             model, self.state.block, self.state.memory, self._settings(),
-            frames=lambda ints: frames, extcap=self.cfg.block_size)
+            frames=lambda ints: frames, extcap=self.cfg.block_size,
+            pool=self.chunk.pool)
         self.reset()
 
     def _settings(self) -> LoopSettings:
@@ -507,8 +504,7 @@ class BlockwiseSynchronousBeamSearch:
         """Reset streaming state between utterances; the device state is
         rewritten in place."""
         st = self.state
-        st.enc_state = self.encoder.init_state()
-        st.enc_buf = None
+        self.chunk.reset()
         st.vis_len = 0
         st.processed_block = 0
         graphs.write_tree(st.block, fresh_block_state(
@@ -516,28 +512,37 @@ class BlockwiseSynchronousBeamSearch:
         st.memory.zero_()
         self.frames.zero_()
 
+    @staticmethod
+    def encodes(n_frames: int, is_final: bool) -> bool:
+        """Whether a chunk of `n_frames` feature frames runs the encoder: a
+        final chunk always does (it flushes the carried buffers, whatever
+        its own length); a shorter one than 3 frames is dropped."""
+        return n_frames >= 3 or is_final
+
     def process_block(self, feats: torch.Tensor, is_final: bool = False
                       ) -> BeamArrays:
-        """Feed a feature chunk (1, T, n_mels); run the encoder and every
-        beam block that is ready."""
+        """Feed a normalised feature chunk (1, T, n_mels); run the encoder
+        and every beam block that is ready."""
+        return self.process_input(graphs.ChunkInput("normalized", feats),
+                                  is_final)
+
+    def process_input(self, source: "graphs.ChunkInput",
+                      is_final: bool = False) -> BeamArrays:
+        """Feed a chunk (waveform, features or normalised features, see
+        ``graphs.ChunkInput``); run the encoder and every beam block that
+        is ready."""
         st = self.state
         cfg = self.cfg
-        # A final chunk always runs the encoder: it flushes the carried
-        # buffers, whatever its own length.
-        if feats.shape[1] >= 3 or is_final:
-            enc_out, st.enc_state = self.encoder.step(feats, st.enc_state,
-                                                      is_final)
-            if enc_out.shape[1] > 0:
-                st.enc_buf = (enc_out if st.enc_buf is None
-                              else torch.cat([st.enc_buf, enc_out], dim=1))
+        if self.encodes(source.n_frames(cfg.hop_length), is_final):
+            self.chunk.step(source, is_final)
         while True:
             cur_end = (cfg.block_size - cfg.look_ahead
                        + cfg.hop_size * st.processed_block)
-            buf_len = 0 if st.enc_buf is None else st.enc_buf.shape[1]
-            if st.enc_buf is not None and cur_end < buf_len:
+            buf_len = self.chunk.enc_len
+            if cur_end < buf_len:
                 self._decode_one_block(cur_end, block_is_final=False)
                 st.processed_block += 1
-            elif is_final and st.enc_buf is not None and buf_len > 0:
+            elif is_final and buf_len > 0:
                 self._decode_one_block(buf_len, block_is_final=True)
                 break
             else:
@@ -545,26 +550,19 @@ class BlockwiseSynchronousBeamSearch:
         return st.arrays
 
     def _extend_memory(self, cur_end: int) -> int:
-        """Copy frames [vis_len, cur_end) into the raw-frame ring (in place:
-        the ring is append-only and no snapshot holds it) and into the new
-        frames' buffer; returns how many frames were added."""
+        """Copy the encoder's frames [vis_len, cur_end) into the raw-frame
+        ring (in place: the ring is append-only and no snapshot holds it)
+        and into the new frames' buffer; returns how many frames were
+        added. The chunk step holds at most max_enc_frames frames, so they
+        fit."""
         st = self.state
         if cur_end <= st.vis_len:
             return 0
-        if cur_end > self.cfg.max_enc_frames:
-            frame_sec = (self.cfg.hop_length * self.cfg.subsample
-                         / self.cfg.sample_rate)
-            raise RuntimeError(
-                f"utterance too long for decode state: {cur_end} encoder "
-                f"frames > capacity {self.cfg.max_enc_frames} "
-                f"(~{self.cfg.max_enc_frames * frame_sec:.0f} s). Split the "
-                "audio into shorter segments or raise cfg.max_enc_frames."
-            )
         n_new = cur_end - st.vis_len
         if n_new > self.loop.extcap:
             raise RuntimeError(f"a block adds {n_new} frames, more than "
                                f"{self.loop.extcap}")
-        new_frames = st.enc_buf[:, st.vis_len:cur_end]
+        new_frames = self.chunk.ring[:, st.vis_len:cur_end]
         st.memory[:, st.vis_len:cur_end] = new_frames.to(st.memory.dtype)
         self.frames[:, :n_new] = new_frames
         return n_new

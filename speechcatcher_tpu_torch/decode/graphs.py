@@ -1,4 +1,10 @@
-"""The block beam loop as CUDA graphs, and what it needs to capture work.
+"""The block beam loop and the session's chunk step as CUDA graphs, and what
+they need to capture work.
+
+The session's chunk step (``ChunkStep``, at the end) is the counterpart of
+the JAX package's jit-compiled ``logmel_frontend``, ``_subsample_jit`` and
+``_infer_core`` / ``_infer_short``: a graph per static signature over an
+encoder carry at fixed addresses.
 
 Counterpart of the JAX package's device-resident loops: its
 ``decode_block_device`` runs a block's beam loop as one ``lax.while_loop``,
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import gc
 import threading
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -49,7 +56,12 @@ import numpy as np
 import torch
 
 from speechcatcher_tpu_torch.decode import beam_search as bs
+from speechcatcher_tpu_torch.models import encoder as enc
 from speechcatcher_tpu_torch.models.decoder import project_cross_kv
+from speechcatcher_tpu_torch.ops.frontend import (
+    logmel_of_frames,
+    reflect_frames,
+)
 from speechcatcher_tpu_torch.ops.kernels import _plan
 from speechcatcher_tpu_torch.parallel.tp import tp_group
 
@@ -191,13 +203,15 @@ def _no_cyclic_gc():
 
 
 class Graph:
-    """One captured program; ``replay`` adds its launches to the counters."""
+    """One captured program; ``replay`` adds its launches to the counters.
+    ``pool_bytes`` is what its capture reserved on the card."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, launches: dict,
-                 name: str):
+                 name: str, pool_bytes: int = 0):
         self.graph = graph
         self.launches = launches
         self.name = name
+        self.pool_bytes = pool_bytes
         self.replays = 0
 
     def replay(self) -> None:
@@ -236,9 +250,9 @@ def capture_graphs(programs: Sequence, warmup: Callable,
                                       capture_error_mode="thread_local"):
                     fn()
             launches = {f.__name__: n for (f, attr), n in rec.items()}
-            CAPTURED.append(GraphRecord(name, _reserved() - before,
-                                        launches))
-            out.append(Graph(graph, rec, name))
+            reserved = _reserved() - before
+            CAPTURED.append(GraphRecord(name, reserved, launches))
+            out.append(Graph(graph, rec, name, reserved))
         return out
 
 
@@ -388,3 +402,265 @@ class BlockLoop:
         while bool(self.state.stepping.any()):
             self._step(self.state, held["cross_kv"], flag, steps=1)
         self._epilogue(self.state, self.stepping0)
+
+
+# ---------------------------------------------------------------------------
+# The session's chunk step
+# ---------------------------------------------------------------------------
+
+class ChunkInput(NamedTuple):
+    """A chunk's input to ``ChunkStep.step``:
+
+    - "wave": float32 samples (numpy) through the frontend, `lo` frames cut
+      at the start and `hi` at the end of their 1 + len // hop frames;
+    - "features": (T, n_mels) numpy features through the normalisation;
+    - "normalized": a (1, T, n_mels) float32 tensor, taken as it is."""
+
+    kind: str
+    data: object
+    lo: int = 0
+    hi: int = 0
+
+    def n_frames(self, hop: int) -> int:
+        """The chunk's feature frames."""
+        if self.kind == "wave":
+            return 1 + len(self.data) // hop - self.lo - self.hi
+        return self.data.shape[-2]
+
+    def key(self, hop: int) -> Optional[tuple]:
+        """The static signature of the input's program (None: no program,
+        the tensor is copied in)."""
+        if self.kind == "wave":
+            return ("frontend", 1 + len(self.data) // hop, self.lo, self.hi)
+        if self.kind == "features":
+            return ("normalize", self.data.shape[0])
+        return None
+
+
+def chunk_graph_keys(input_key: Optional[tuple], plan: "enc.ChunkPlan"
+                     ) -> List[tuple]:
+    """The static signatures of a chunk's programs, in order: its input's,
+    the subsampling's (the plan's feature lengths; none while buffering or
+    when no frame is left to subsample) and the blocks' (the plan's block
+    geometry; none unless blocks run). Each is one graph."""
+    keys = [] if input_key is None else [input_key]
+    if plan.n_sub > 0 and plan.kind != "buffer":
+        keys.append(("subsample", plan._replace(
+            kind="", first_chunk=False, total=0, n_blocks_in=0, block_num=0,
+            y_length=0, n_after=0, npb=0)))
+    if plan.kind in ("short", "blocks"):
+        keys.append(("blocks", plan._replace(
+            n_in=0, n_conv_in=0, n_sub=0, n_before=0, npb=0)))
+    return keys
+
+
+def graph_name(key: tuple) -> str:
+    if key[0] == "frontend":
+        return f"chunk.frontend(T={key[1]}, lo={key[2]}, hi={key[3]})"
+    if key[0] == "normalize":
+        return f"chunk.normalize(T={key[1]})"
+    p = key[1]
+    if key[0] == "subsample":
+        return f"chunk.subsample(n_in={p.n_in}, final={p.is_final})"
+    return (f"chunk.blocks({p.kind}, total={p.total}, first={p.first_chunk}"
+            f", final={p.is_final})")
+
+
+class ChunkStep:
+    """The session's chunk step over an encoder carry at fixed addresses:
+    the chunk's input into ``carry.raw`` (the frontend of a waveform or the
+    normalisation of features, each read from a pinned upload into a
+    static buffer of the input's length), the conv subsampling into
+    ``carry.post`` and the blocks, whose emitted frames kernel D appends
+    to ``ring`` (1, max_enc_frames, d) float32 at the host's fill
+    ``enc_len``.
+
+    Counterpart of the JAX package's jit-compiled ``logmel_frontend``,
+    ``_subsample_jit`` and ``_infer_core`` / ``_infer_short``: each of the
+    three is one CUDA graph per static signature (``chunk_graph_keys``),
+    captured at first use or ahead (``capture``) into the session's pool.
+    The host keeps every length (``plan_chunk``) and uploads the stream's
+    offsets as device integers (``CHUNK_INTS``), once a chunk, so the
+    stream's position is no part of a signature. The frontend's signature
+    is its frame count: a final tail's sample count is a device integer
+    (``reflect_frames``). No switch and no fallback: on a CUDA device a
+    capture or replay that fails raises. On the CPU and under a tp group
+    the same programs run eagerly."""
+
+    def __init__(self, model):
+        cfg = self.cfg = model.cfg
+        self.frontend = model.frontend
+        self.encoder = enc.StreamingEncoder(model.params["encoder"], cfg,
+                                            model.enc_pe)
+        dev = self.encoder.device
+        self.carry = enc.init_carry(cfg, dev)
+        self.ring = torch.zeros((1, cfg.max_enc_frames, cfg.encoder_dim),
+                                device=dev)
+        self.ints = Upload((len(enc.CHUNK_INTS),), torch.int32, dev)
+        self.graphed = dev.type == "cuda" and tp_group() is None
+        # The session's memory pool, shared with its block loop's graphs.
+        self.pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        self._graphs: Dict[tuple, Graph] = {}
+        self._inputs: Dict[tuple, Upload] = {}
+        self.reset()
+
+    def reset(self) -> None:
+        """A fresh stream: lengths to 0, the carry and the ring zeroed in
+        place (graphs and input buffers stay)."""
+        self._new_stream()
+        self.enc_len = 0
+        for t in self.carry:
+            t.zero_()
+        self.ring.zero_()
+
+    def _new_stream(self) -> None:
+        self.n_before = self.n_after = self.npb = 0
+        self.has_prev = self.has_past = False
+
+    def load(self, state: "enc.EncoderState",
+             frames: Optional[torch.Tensor]) -> None:
+        """Take over a stream: its encoder state and the (1, L, d) frames it
+        emitted so far (the engine's finalize)."""
+        self.reset()
+        c = self.carry
+        if state.buf_before is not None:
+            self.n_before = state.buf_before.shape[1]
+            c.raw[:, :self.n_before] = state.buf_before
+        if state.buf_after is not None:
+            self.n_after = state.buf_after.shape[1]
+            c.post[:, :self.n_after] = state.buf_after
+        if state.prev_addin is not None:
+            c.prev_addin.copy_(state.prev_addin)
+            self.has_prev = True
+        if state.past_ctx is not None:
+            c.past_ctx.copy_(state.past_ctx)
+            self.has_past = True
+        self.npb = state.n_processed_blocks
+        if frames is not None and frames.shape[1]:
+            if frames.shape[1] > self.cfg.max_enc_frames:
+                raise_too_long(self.cfg, frames.shape[1])
+            self.enc_len = frames.shape[1]
+            self.ring[:, :self.enc_len] = frames
+
+    def state(self) -> "enc.EncoderState":
+        """The carry as the ``EncoderState`` of ``StreamingEncoder.step``
+        (views of the buffers)."""
+        c = self.carry
+        return enc.EncoderState(
+            prev_addin=c.prev_addin if self.has_prev else None,
+            buf_before=c.raw[:, :self.n_before] if self.n_before else None,
+            buf_after=c.post[:, :self.n_after] if self.n_after else None,
+            n_processed_blocks=self.npb,
+            past_ctx=c.past_ctx if self.has_past else None)
+
+    def plan(self, source: ChunkInput, is_final: bool) -> "enc.ChunkPlan":
+        return enc.plan_chunk(self.cfg, self.n_before,
+                              source.n_frames(self.cfg.hop_length),
+                              self.n_after, self.npb, is_final)
+
+    def step(self, source: ChunkInput, is_final: bool) -> "enc.ChunkPlan":
+        """One chunk: its frames through the programs, the emitted ones
+        appended to the ring. Returns the chunk's plan."""
+        cfg = self.cfg
+        plan = self.plan(source, is_final)
+        rcap, pcap = enc.carry_capacity(cfg)
+        if (plan.n_in > rcap or plan.total > pcap
+                or self.enc_len + plan.y_length > cfg.max_enc_frames):
+            raise_too_long(cfg, self.enc_len + max(plan.y_length,
+                                                   plan.total))
+        self.ints.put(np.array(
+            [self.n_before, self.n_after, self.npb, self.has_prev,
+             self.has_past, self.enc_len,
+             len(source.data) if source.kind == "wave" else 0], np.int32))
+        input_key = source.key(cfg.hop_length)
+        if input_key is None:
+            self.carry.raw[:, self.n_before:plan.n_in] = source.data
+        else:
+            self._input(input_key).put(self._padded(input_key, source.data))
+        for key in chunk_graph_keys(input_key, plan):
+            if self.graphed:
+                (self._graphs.get(key) or self.capture([key])[0]).replay()
+            else:
+                self._program(key)(self.carry, self.ring)
+        self.enc_len += plan.y_length
+        if is_final:
+            self._new_stream()
+            return plan
+        self.n_before, self.n_after, self.npb = (plan.n_before, plan.n_after,
+                                                 plan.npb)
+        if plan.kind == "blocks":
+            self.has_prev = self.has_past = True
+        return plan
+
+    # -- programs -------------------------------------------------------------
+    def _input(self, key: tuple) -> Upload:
+        """The static input buffer of an input signature."""
+        if key not in self._inputs:
+            shape = ((key[1] * self.cfg.hop_length,) if key[0] == "frontend"
+                     else (key[1], self.cfg.n_mels))
+            self._inputs[key] = Upload(shape, torch.float32,
+                                       self.encoder.device)
+        return self._inputs[key]
+
+    def _padded(self, key: tuple, data: np.ndarray) -> np.ndarray:
+        if key[0] != "frontend":
+            return data
+        out = np.zeros(key[1] * self.cfg.hop_length, np.float32)
+        out[:len(data)] = data
+        return out
+
+    def _program(self, key: tuple) -> Callable:
+        """The program of a signature, over any (carry, ring)."""
+        ints = self.ints.dev
+        if key[0] in ("frontend", "normalize"):
+            fe = self.frontend
+            x = self._input(key).dev
+
+            def program(carry, ring):
+                if key[0] == "normalize":
+                    feats = (x[None] - fe.mean) * fe.inv_std
+                else:
+                    _, t, lo, hi = key
+                    feats = logmel_of_frames(
+                        reflect_frames(x[None], ints[6], t, fe.n_fft,
+                                       fe.hop_length),
+                        fe.window, fe.mel_fb, fe.mean, fe.inv_std,
+                        fe.n_fft)[:, lo:t - hi]
+                enc.append_rows(carry.raw, feats, ints[0:1])
+            return program
+        plan = key[1]
+        if key[0] == "subsample":
+            return lambda carry, ring: self.encoder.subsample_program(
+                plan, carry, ints)
+        return lambda carry, ring: self.encoder.blocks_program(
+            plan, carry, ints, ring)
+
+    def capture(self, keys) -> List[Graph]:
+        """The graphs of `keys` (those not captured yet are captured now, in
+        one pass: a warm-up of their programs on copies of the carry and
+        the ring, then the captures). None where the programs run
+        eagerly."""
+        if not self.graphed:
+            return []
+        new = [k for k in dict.fromkeys(keys) if k not in self._graphs]
+        if new:
+            def warmup():
+                carry, ring = clone_tree(self.carry), self.ring.clone()
+                for key in new:
+                    self._program(key)(carry, ring)
+
+            graphs = capture_graphs(
+                [(graph_name(key), functools.partial(
+                    self._program(key), self.carry, self.ring))
+                 for key in new], warmup, self.pool)
+            self._graphs.update(zip(new, graphs))
+        return [self._graphs[k] for k in keys]
+
+
+def raise_too_long(cfg, n_frames: int) -> None:
+    frame_sec = cfg.hop_length * cfg.subsample / cfg.sample_rate
+    raise RuntimeError(
+        f"utterance too long for decode state: {n_frames} encoder frames > "
+        f"capacity {cfg.max_enc_frames} "
+        f"(~{cfg.max_enc_frames * frame_sec:.0f} s). Split the audio into "
+        "shorter segments or raise cfg.max_enc_frames.")

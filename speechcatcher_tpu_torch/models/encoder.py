@@ -4,7 +4,11 @@ whole-utterance (training-mode) forward.
 Port of ``speechcatcher_tpu/models/encoder.py``: conv2d subsampling, block
 assembly with context ("addin") vectors, the layer stack with the per-layer
 context carry, emit-window extraction, and the host-side chunk buffering of
-``StreamingEncoder.step``. Transformer layers attend inside the
+``StreamingEncoder.step`` (its arithmetic in ``plan_chunk``). The same
+device work over a carry at fixed addresses (``EncoderCarry``), with the
+stream's offsets as device integers, is what ``decode.graphs.ChunkStep``
+captures per static signature (``StreamingEncoder.subsample_program``,
+``blocks_program``). Transformer layers attend inside the
 (block_size+2)-wide windows through the ``block_attention`` kernel
 (``ops.layers.multi_head_attention``); conformer layers through the
 ``rel_block_attention`` kernel (``ops.conformer.rel_position_attention``),
@@ -25,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +40,7 @@ from speechcatcher_tpu_torch.ops.conformer import (
     conv_module,
     rel_position_attention,
 )
+from speechcatcher_tpu_torch.ops.kernels.ring_append import ring_append_rows
 from speechcatcher_tpu_torch.ops.layers import (
     Params,
     add_positional_encoding,
@@ -192,11 +197,12 @@ def block_attention_mask(block_size: int) -> np.ndarray:
 
 
 def _build_blocks(xs: torch.Tensor, pe: torch.Tensor, prev_addin: torch.Tensor,
-                  has_prev: torch.Tensor, npb: int, total_frame_num: int,
-                  block_num: int, cfg: ModelConfig
+                  has_prev: torch.Tensor, npb: Union[int, torch.Tensor],
+                  total_frame_num: int, block_num: int, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Assemble (B, block_num, bs+2, d) chunks; returns (xs_chunk,
-    new_prev_addin)."""
+    new_prev_addin). `npb`, the blocks processed before, is a host int or a
+    0-d device integer (the stream offset of the positional encodings)."""
     bs, hop = cfg.block_size, cfg.hop_size
     chunks: List[torch.Tensor] = []
     addins: List[torch.Tensor] = []
@@ -256,7 +262,8 @@ def _extract_infer(ys_chunk: torch.Tensor, cfg: ModelConfig,
 def _infer_core(params: Params, pe: torch.Tensor, mask: torch.Tensor,
                 xs: torch.Tensor, prev_addin: torch.Tensor,
                 has_prev: torch.Tensor, past_ctx: torch.Tensor,
-                has_past_ctx: torch.Tensor, npb: int, cfg: ModelConfig,
+                has_past_ctx: torch.Tensor, npb: Union[int, torch.Tensor],
+                cfg: ModelConfig,
                 total_frame_num: int, block_num: int, first_chunk: bool,
                 is_final: bool, y_length: int):
     """One streaming encoder step over assembled blocks."""
@@ -298,8 +305,146 @@ class EncoderState:
     past_ctx: Optional[torch.Tensor] = None     # (B, L, d)
 
 
+class ChunkPlan(NamedTuple):
+    """The host arithmetic of one chunk step (``plan_chunk``): every length
+    and count, as Python ints, from the lengths of the carried buffers and
+    of the chunk. ``kind`` says what the step does:
+
+    - "buffer": too few feature frames to subsample; they are carried;
+    - "hold": subsampled, but no block is full; the frames are carried;
+    - "empty": a final with no frame at all;
+    - "short": a final of the first chunk no longer than a block
+      (``_infer_short``);
+    - "blocks": ``block_num`` blocks through ``_infer_core``."""
+
+    kind: str
+    is_final: bool
+    first_chunk: bool   # no block processed before (npb == 0)
+    n_in: int           # carried + new feature frames
+    n_conv_in: int      # of them through the conv subsampling
+    n_sub: int          # subsampled frames that gives (0: no conv)
+    n_before: int       # feature frames carried to the next chunk
+    total: int          # carried + new subsampled frames (total_frame_num)
+    n_blocks_in: int    # of them read by the blocks
+    block_num: int
+    y_length: int       # frames emitted
+    n_after: int        # subsampled frames carried to the next chunk
+    npb: int            # blocks processed after this chunk
+
+
+def plan_chunk(cfg: ModelConfig, n_before: int, n_feats: int, n_after: int,
+               npb: int, is_final: bool) -> ChunkPlan:
+    """The chunk step's host arithmetic (the JAX package's
+    ``StreamingEncoder.step`` outside its jit-compiled functions): carried
+    feature frames `n_before`, the chunk's `n_feats`, carried subsampled
+    frames `n_after`, blocks processed `npb`."""
+    sub = cfg.subsample
+    bs, hop, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
+    n_in = n_before + n_feats
+    n_conv_in, new_before = n_in, 0
+    first = npb == 0
+
+    def plan(kind, n_sub=0, total=0, n_blocks_in=0, block_num=0,
+             y_length=0, new_after=n_after, npb_next=npb):
+        return ChunkPlan(kind, is_final, first, n_in, n_conv_in, n_sub,
+                         new_before, total, n_blocks_in, block_num, y_length,
+                         new_after, npb_next)
+
+    if not is_final:
+        n_samples = n_in // sub - 1
+        if n_samples < 2:
+            new_before = n_in
+            return plan("buffer")
+        new_before = n_in % sub + sub * 2
+        n_conv_in = n_samples * sub
+    n_sub = max(subsampled_len(n_conv_in, cfg.input_layer), 0)
+    total = n_after + n_sub
+    if is_final:
+        if total == 0:
+            return plan("empty", new_after=0)
+        past_size = bs - hop - la
+        block_num = math.ceil(float(total - past_size - la) / float(hop))
+        n_blocks_in, new_after = total, 0
+    else:
+        if total <= bs:
+            return plan("hold", n_sub, total, new_after=total)
+        overlap = bs - hop
+        block_num = max(0, total - overlap) // hop
+        new_after = total - hop * block_num
+        n_blocks_in = block_num * hop + overlap
+    if first and total <= bs and is_final:
+        return plan("short", n_sub, total, total, 0, total, 0)
+    block_num = max(block_num, 1)
+    offset = bs - la - hop
+    if is_final:
+        y_length = n_blocks_in if first else n_blocks_in - offset
+    else:
+        y_length = block_num * hop + (offset if first else 0)
+    return plan("blocks", n_sub, total, n_blocks_in, block_num, y_length,
+                new_after, npb + block_num)
+
+
+class EncoderCarry(NamedTuple):
+    """The streaming carry of one stream at fixed addresses, for the chunk
+    programs (``StreamingEncoder.subsample_program`` and
+    ``blocks_program``): the lengths are the host's (``ChunkPlan``), the
+    buffers the card's. ``raw`` holds the carried feature frames at the
+    front and the chunk's after them, ``post`` the carried subsampled
+    frames and then the new ones."""
+
+    raw: torch.Tensor         # (1, RCAP, n_mels)
+    post: torch.Tensor        # (1, PCAP, d)
+    prev_addin: torch.Tensor  # (1, 1, d)
+    past_ctx: torch.Tensor    # (1, L, d)
+
+
+def carry_capacity(cfg: ModelConfig) -> Tuple[int, int]:
+    """(RCAP, PCAP): the most feature and subsampled frames a chunk step of
+    a decodable utterance holds. Past PCAP = max_enc_frames + block_size
+    subsampled frames the utterance has more encoder frames than the decode
+    state holds; RCAP feature frames subsample to more than PCAP even after
+    the carried residue is cut off."""
+    pcap = cfg.max_enc_frames + cfg.block_size
+    return cfg.subsample * (pcap + 4), pcap
+
+
+def init_carry(cfg: ModelConfig, device: torch.device) -> EncoderCarry:
+    rcap, pcap = carry_capacity(cfg)
+    d = cfg.encoder_dim
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return EncoderCarry(zeros(1, rcap, cfg.n_mels), zeros(1, pcap, d),
+                        zeros(1, 1, d), zeros(1, cfg.encoder_layers, d))
+
+
+# The chunk programs' device integers, one int32 upload a chunk.
+CHUNK_INTS = ("n_before", "n_after", "npb", "has_prev", "has_past",
+              "enc_len", "n_samples")
+
+
+def append_rows(buf: torch.Tensor, new: torch.Tensor,
+                start: torch.Tensor) -> None:
+    """buf[0, start : start + n] = new[0] for a (1, CAP, w) buffer, new
+    (1, n, w) and a device start (1,) int32: kernel D at one slot and one
+    layer."""
+    n_new = torch.full((1,), new.shape[1], dtype=torch.int32,
+                       device=buf.device)
+    ring_append_rows(buf[None], new[None], start, n_new)
+
+
 class StreamingEncoder:
-    """Runs the encoder chunk by chunk (host arithmetic, device math)."""
+    """Runs the encoder chunk by chunk (host arithmetic, device math).
+
+    ``step`` is the eager form over an ``EncoderState``, the counterpart of
+    the JAX package's ``StreamingEncoder.step``. ``subsample_program`` and
+    ``blocks_program`` do the same device work over an ``EncoderCarry`` at
+    fixed addresses, reading the stream's offsets from device integers
+    (``CHUNK_INTS``) and appending the emitted frames to a ring with kernel
+    D: the programs ``decode.graphs.ChunkStep`` captures, one per static
+    signature, as the JAX package jit-compiles ``_subsample_jit`` and
+    ``_infer_core`` / ``_infer_short``."""
 
     def __init__(self, params: Params, cfg: ModelConfig,
                  pe_table: Optional[torch.Tensor] = None):
@@ -326,65 +471,40 @@ class StreamingEncoder:
         cfg = self.cfg
         b = feats.shape[0]
         d = cfg.encoder_dim
-        sub = cfg.subsample
+        plan = plan_chunk(
+            cfg, 0 if state.buf_before is None else state.buf_before.shape[1],
+            feats.shape[1],
+            0 if state.buf_after is None else state.buf_after.shape[1],
+            state.n_processed_blocks, is_final)
 
         xs = feats
         if state.buf_before is not None:
             xs = torch.cat([state.buf_before, xs], dim=1)
+        if plan.kind == "buffer":
+            return self._zeros(b, 0, d), dataclasses.replace(
+                state, buf_before=xs)
+        buf_before = None if is_final else xs[:, plan.n_in - plan.n_before:]
 
-        buf_before = None
-        if not is_final:
-            n_samples = xs.shape[1] // sub - 1
-            if n_samples < 2:
-                return self._zeros(b, 0, d), dataclasses.replace(
-                    state, buf_before=xs)
-            n_res = xs.shape[1] % sub + sub * 2
-            buf_before = xs[:, xs.shape[1] - n_res :, :]
-            xs = xs[:, : n_samples * sub, :]
-
-        if subsampled_len(xs.shape[1], cfg.input_layer) > 0:
-            xs = conv2d_subsample(self.params["embed"], xs, cfg.input_layer)
+        if plan.n_sub > 0:
+            xs = conv2d_subsample(self.params["embed"],
+                                  xs[:, :plan.n_conv_in], cfg.input_layer)
         else:
             # Final flush with a tail shorter than the conv kernel.
             xs = self._zeros(b, 0, d)
-
         if state.buf_after is not None:
             xs = torch.cat([state.buf_after, xs], dim=1)
 
-        total_frame_num = xs.shape[1]
-        past_size = cfg.block_size - cfg.hop_size - cfg.look_ahead
-
-        buf_after = None
-        if is_final:
-            if total_frame_num == 0:
-                return self._zeros(b, 0, d), None
-            block_num = math.ceil(
-                float(total_frame_num - past_size - cfg.look_ahead)
-                / float(cfg.hop_size)
-            )
-        else:
-            if total_frame_num <= cfg.block_size:
-                return self._zeros(b, 0, d), dataclasses.replace(
-                    state, buf_before=buf_before, buf_after=xs)
-            overlap = cfg.block_size - cfg.hop_size
-            block_num = max(0, xs.shape[1] - overlap) // cfg.hop_size
-            res = xs.shape[1] - cfg.hop_size * block_num
-            buf_after = xs[:, xs.shape[1] - res :, :]
-            xs = xs[:, : block_num * cfg.hop_size + overlap, :]
-
-        npb = state.n_processed_blocks
-        if npb == 0 and total_frame_num <= cfg.block_size and is_final:
+        if plan.kind == "empty":
+            return self._zeros(b, 0, d), None
+        if plan.kind == "hold":
+            return self._zeros(b, 0, d), dataclasses.replace(
+                state, buf_before=buf_before, buf_after=xs)
+        buf_after = None if is_final else xs[:, plan.total - plan.n_after:]
+        xs = xs[:, :plan.n_blocks_in]
+        if plan.kind == "short":
             return _infer_short(self.params, self.pe, xs, cfg), None
 
-        block_num = max(block_num, 1)
-        offset = cfg.block_size - cfg.look_ahead - cfg.hop_size
-        if is_final:
-            y_length = xs.shape[1] if npb == 0 else xs.shape[1] - offset
-        else:
-            y_length = block_num * cfg.hop_size
-            if npb == 0:
-                y_length += offset
-
+        npb = state.n_processed_blocks
         prev_addin = (state.prev_addin if state.prev_addin is not None
                       else self._zeros(b, 1, d))
         has_prev = torch.full((b,), state.prev_addin is not None,
@@ -396,8 +516,8 @@ class StreamingEncoder:
 
         ys, new_prev_addin, next_ctx = _infer_core(
             self.params, self.pe, self.mask, xs, prev_addin, has_prev,
-            past_ctx, has_past, npb, cfg, total_frame_num, block_num,
-            npb == 0, is_final, y_length,
+            past_ctx, has_past, npb, cfg, plan.total, plan.block_num,
+            plan.first_chunk, is_final, plan.y_length,
         )
         if is_final:
             return ys, None
@@ -405,9 +525,46 @@ class StreamingEncoder:
             prev_addin=new_prev_addin,
             buf_before=buf_before,
             buf_after=buf_after,
-            n_processed_blocks=npb + block_num,
+            n_processed_blocks=plan.npb,
             past_ctx=next_ctx,
         )
+
+    # -- the chunk programs over a carry at fixed addresses ------------------
+    def subsample_program(self, plan: ChunkPlan, carry: EncoderCarry,
+                          ints: torch.Tensor) -> None:
+        """The conv subsampling of the chunk's feature frames (in
+        ``carry.raw[:, :n_in]``), appended to ``carry.post`` after the
+        carried frames; the residue moves to the front of ``raw``."""
+        raw = carry.raw
+        sub = conv2d_subsample(self.params["embed"], raw[:, :plan.n_conv_in],
+                               self.cfg.input_layer)
+        if not plan.is_final:
+            raw[:, :plan.n_before] = raw[
+                :, plan.n_in - plan.n_before:plan.n_in].clone()
+        append_rows(carry.post, sub, ints[1:2])
+
+    def blocks_program(self, plan: ChunkPlan, carry: EncoderCarry,
+                       ints: torch.Tensor, ring: torch.Tensor) -> None:
+        """The blocks of ``carry.post[:, :total]`` (``_infer_core``, or
+        ``_infer_short`` for a short first final): the emitted frames are
+        appended to `ring` (1, Tcap, d) at the stream's fill, the carries
+        written in place."""
+        xs = carry.post[:, :plan.n_blocks_in]
+        if plan.kind == "short":
+            ys = _infer_short(self.params, self.pe, xs, self.cfg)
+        else:
+            ys, new_prev_addin, next_ctx = _infer_core(
+                self.params, self.pe, self.mask, xs, carry.prev_addin,
+                ints[3:4].bool(), carry.past_ctx, ints[4:5].bool(), ints[2],
+                self.cfg, plan.total, plan.block_num, plan.first_chunk,
+                plan.is_final, plan.y_length)
+            if not plan.is_final:
+                carry.prev_addin.copy_(new_prev_addin)
+                carry.past_ctx.copy_(next_ctx)
+                post = carry.post
+                post[:, :plan.n_after] = post[
+                    :, plan.total - plan.n_after:plan.total].clone()
+        append_rows(ring, ys, ints[5:6])
 
 
 @functools.lru_cache(maxsize=8)

@@ -50,6 +50,21 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return x.unfold(1, n_fft, hop)
 
 
+def reflect_frames(x: torch.Tensor, n: torch.Tensor, n_frames: int,
+                   n_fft: int, hop: int) -> torch.Tensor:
+    """``frame_signal`` of ``x[:, :n]`` for a device sample count `n` (0-d
+    integer, n_fft//2 < n <= x.shape[1]) and its ``n_frames`` = 1 + n //
+    hop: the reflect padding is an index map, read without the host, so one
+    program serves every length of a frame count (a captured chunk step's
+    final tail). The same frames as ``frame_signal``, to the last bit."""
+    pad = n_fft // 2
+    j = (torch.arange((n_frames - 1) * hop + n_fft, device=x.device)
+         - pad).abs()
+    last = n.long() - 1
+    j = torch.where(j > last, 2 * last - j, j).clamp(0, x.shape[1] - 1)
+    return x[:, j].unfold(1, n_fft, hop)
+
+
 def logmel_frontend(waveform: torch.Tensor, window: torch.Tensor,
                     mel_fb: torch.Tensor, mean: torch.Tensor,
                     inv_std: torch.Tensor, n_fft: int = 512,

@@ -24,7 +24,7 @@ group every function here runs what it runs on one card.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -267,9 +267,19 @@ def sinusoidal_pe_table(d_model: int, max_len: int = 5000) -> np.ndarray:
 
 
 def add_positional_encoding(x: torch.Tensor, pe_table: torch.Tensor,
-                            offset: int) -> torch.Tensor:
+                            offset: Union[int, torch.Tensor]) -> torch.Tensor:
     """x * sqrt(d) + pe[offset : offset+T]. The start clamps so the window
-    stays inside the table, as the JAX package's dynamic slice does."""
+    stays inside the table, as the JAX package's dynamic slice does.
+
+    `offset` is a host int or a 0-d integer tensor on the table's device;
+    the tensor form gathers the rows without reading the offset on the host
+    (a captured chunk step's stream offset changes between replays), with
+    the same values as the slice."""
     t = x.shape[-2]
-    start = max(0, min(int(offset), pe_table.shape[0] - t))
-    return x * math.sqrt(x.shape[-1]) + pe_table[start:start + t]
+    if isinstance(offset, torch.Tensor):
+        start = offset.long().clamp(0, pe_table.shape[0] - t)
+        pe = pe_table[start + torch.arange(t, device=pe_table.device)]
+    else:
+        start = max(0, min(int(offset), pe_table.shape[0] - t))
+        pe = pe_table[start:start + t]
+    return x * math.sqrt(x.shape[-1]) + pe

@@ -581,6 +581,11 @@ class StreamingEngine:
             use_bbd=use_bbd, penalty=penalty, max_length=self.max_length,
             eos_commit=eos_commit, memory_dtype=cfg.enc_ring_torch_dtype,
         )
+        # Its chunk step runs eagerly: a final's signature follows the
+        # slot's carried fills and the tail's length, more than
+        # capture_graphs can enumerate, and after capture_graphs serving
+        # captures nothing.
+        self._finalizer.chunk.graphed = False
 
         # On the card the encode and each round's block loop run as CUDA
         # graphs over the state above, in one memory pool (decode.graphs);
@@ -649,13 +654,17 @@ class StreamingEngine:
 
     def capture_graphs(self) -> None:
         """Capture the engine's graphs now rather than at first use: the
-        block loop, the encode for every block count and wire format, and
-        finalize_batch's block loop at every compact width.
-        ``parallel.serve_sharding`` captures its replicas one after the
-        other this way. A no-op where the engine runs eagerly."""
+        block loop, the encode for every block count and wire format,
+        finalize_batch's block loop at every compact width and finalize's
+        (whose chunk step runs eagerly). ``parallel.serve_sharding``
+        captures its replicas one after the other this way. A no-op where
+        the engine runs eagerly."""
         if not self.graphed:
             return
         self._loop.capture()
+        fin = self._finalizer
+        fin.loop.settings = fin._settings()
+        fin.loop.capture()
         for wire in (np.float32, np.int16, np.uint8):
             audio = self._audio_upload(np.dtype(wire)).dev
             for maxb in range(self.MAXB + 1):
@@ -1099,25 +1108,23 @@ class StreamingEngine:
         fin.reset()
         st = fin.state
 
-        # Encoder state: exact-length views of the capacity buffers (the
-        # encoder only reads them).
+        # Encoder state: exact-length views of the capacity buffers, and
+        # the frames emitted so far, copied into the finalizer's chunk step
+        # (float32, as JAX's concatenation with the final frames makes
+        # them).
         raw = (buf.raw[s:s + 1, :int(c.raw_len[s])]
                if c.raw_len[s] > 0 else None)
         post = (buf.post[s:s + 1, :int(c.post_len[s])]
                 if c.post_len[s] > 0 else None)
-        if (c.npb[s] > 0 or c.has_prev[s] or raw is not None
-                or post is not None):
-            st.enc_state = EncoderState(
+        fin.chunk.load(
+            EncoderState(
                 prev_addin=(buf.prev_addin[s:s + 1] if c.has_prev[s]
                             else None),
                 buf_before=raw,
                 buf_after=post,
                 n_processed_blocks=int(c.npb[s]),
-                past_ctx=buf.past_ctx[s:s + 1] if c.has_past[s] else None,
-            )
-        if c.buf_len[s] > 0:
-            # float32, as JAX's concatenation with the final frames makes it.
-            st.enc_buf = buf.enc_out[s:s + 1, :int(c.buf_len[s])].float()
+                past_ctx=buf.past_ctx[s:s + 1] if c.has_past[s] else None),
+            buf.enc_out[s:s + 1, :int(c.buf_len[s])])
         st.vis_len = int(c.vis_len[s])
         st.processed_block = int(c.processed_block[s])
 

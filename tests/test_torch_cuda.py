@@ -934,3 +934,100 @@ def test_finals_of_every_width_hold_bounded_memory(dev):
     assert sweep(200) == first
     assert sorted(engine._compact) == [1, 2, 4, 8]
     assert len(graphs.CAPTURED) == captured
+
+
+def test_single_finals_after_capture_capture_nothing(dev):
+    """At tiny width, finalize() of streams of twelve lengths (so many
+    carried fills and tails, the short-segment final included) after
+    capture_graphs captures nothing: the finalizer's chunk step runs
+    eagerly, its block loop on the graphs capture_graphs made."""
+    from speechcatcher_tpu_torch.config import tiny_config
+    from speechcatcher_tpu_torch.decode import graphs
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    model = ASRModel.random_init(tiny_config(), seed=1, device=dev)
+    engine = StreamingEngine(model, n_slots=4, beam_size=3,
+                             chunk_samples=8192, device=dev)
+    engine.capture_graphs()
+    captured = len(graphs.CAPTURED)
+    for k in range(12):
+        audio = synth_audio(0.3 + 0.41 * k, 400 + k)
+        s = engine.acquire_slot()
+        n_full = (len(audio) - 1) // 8192
+        for i in range(n_full):
+            engine.tick({s: audio[i * 8192:(i + 1) * 8192]})
+        yseq, _, _ = engine.finalize(s, audio[n_full * 8192:])
+        assert len(yseq) >= 1
+    assert len(graphs.CAPTURED) == captured
+
+
+@pytest.mark.parametrize("encoder_type", ["transformer", "conformer"])
+def test_session_chunk_graphs_replay_the_eager_step(dev, encoder_type):
+    """At tiny width on the card, every chunk of a session runs as graph
+    replays (frontend, subsampling, blocks), each bit-equal to the eager
+    ``StreamingEncoder.step`` on a copy of its state; after
+    ``capture_graphs(8000)`` decoding utterances of other lengths captures
+    nothing and leaves the allocated memory where it was."""
+    import gc
+
+    from speechcatcher_tpu_torch.config import tiny_config
+    from speechcatcher_tpu_torch.decode import graphs
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    model = ASRModel.random_init(tiny_config(encoder_type=encoder_type),
+                                 seed=1, device=dev)
+    s2t = Speech2TextStreaming(model=model, beam_size=3, device=dev)
+    chunk = s2t.beam_search.chunk
+    assert chunk.graphed
+    step = graphs.ChunkStep.step
+    checked = []
+
+    def checked_step(self, source, is_final):
+        start = self.state()
+        start = type(start)(**{
+            k: (v.clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in vars(start).items()})
+        enc0 = self.enc_len
+        plan = step(self, source, is_final)
+        feats = source.data
+        if source.kind == "wave":
+            feats = self.frontend(feats)
+            feats = feats[:, source.lo:feats.shape[1] - source.hi]
+        ys, nxt = self.encoder.step(feats, start, is_final)
+        assert torch.equal(self.ring[:, enc0:self.enc_len], ys)
+        if nxt is not None:
+            got = self.state()
+            for name in ("buf_before", "buf_after", "prev_addin",
+                         "past_ctx"):
+                a, b = getattr(got, name), getattr(nxt, name)
+                assert (a is None) == (b is None)
+                assert a is None or torch.equal(a, b)
+        checked.append(plan.kind)
+        return plan
+
+    graphs.ChunkStep.step = checked_step
+    try:
+        audio = synth_audio(2.3, 7)
+        for i in range(0, len(audio), 8000):
+            s2t(audio[i:i + 8000], is_final=i + 8000 >= len(audio))
+    finally:
+        graphs.ChunkStep.step = step
+    assert "blocks" in checked and chunk._graphs
+    assert s2t.capture_graphs(8000) == len(s2t.graph_keys(8000))
+    captured = len(graphs.CAPTURED)
+
+    def decode(seconds, seed):
+        audio = synth_audio(seconds, seed)
+        for i in range(0, len(audio), 8000):
+            s2t(audio[i:i + 8000], is_final=i + 8000 >= len(audio))
+        torch.cuda.synchronize()
+        gc.collect()
+        return torch.cuda.memory_allocated(dev)
+
+    first = decode(1.3, 8)
+    assert decode(3.1, 9) == first and decode(0.4, 10) == first
+    assert len(graphs.CAPTURED) == captured
