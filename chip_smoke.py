@@ -55,12 +55,17 @@ refused as busy, and nothing caught, quarantined or logged as an error.
 Training and offline greedy decode: kernels A and E through their autograd
 Functions at the training shapes (16, 40 and 392 windows), each gradient
 equal to plain autograd's, and B, C and D refusing operands that require
-grad; five flagship train steps and ``evaluate`` (greedy WER), with A's
-forward and backward counted per step; one small-width train step on the
-card against the CPU; three flagship conformer steps (E); a batch of eight
-waveforms of 2-30 s through ``greedy_decode_batch`` (RTF; at small width
-equal to the CPU's tokens); and the trainer's command line as a process,
-resumed from its checkpoint.
+grad; for the flagship transformer and conformer, the train step as CUDA
+graphs (one per batch signature, two buckets in one pool, then a 16 s
+signature) against the eager step under WarmupLR and a binding clip,
+bit-equal under deterministic algorithms, with A's (E's) forward and
+backward counted per graphed step, every loss finite and falling on a
+repeated batch, the CTC loop's graph nodes and share, profiles and
+timing pairs, and ``evaluate`` (greedy WER) graphed against eager; one
+small-width train step on the card against the CPU; a batch
+of eight waveforms of 2-30 s through ``greedy_decode_batch`` (RTF; at
+small width equal to the CPU's tokens); and the trainer's command line
+as a process, resumed from its checkpoint.
 
     python3 chip_smoke.py                       # everything
     python3 chip_smoke.py --profile             # device time of one utterance
@@ -70,7 +75,10 @@ resumed from its checkpoint.
     python3 chip_smoke.py --profile tiling      # attention kernels, 1-32 windows
     python3 chip_smoke.py --profile recursion   # CTC recursion, 5-160 hypotheses
     python3 chip_smoke.py --profile recognize   # recognize() on 70 s, 1 and 4
-    python3 chip_smoke.py --profile train       # one flagship train step
+    python3 chip_smoke.py --profile train       # a train step, graphed and eager
+    python3 chip_smoke.py --profile train-memory       # step and eval memory
+    python3 chip_smoke.py --profile train-in-process   # train paths, profiles
+    python3 chip_smoke.py --profile mesh-step   # the eager step a mesh runs
 
 Imports neither JAX nor the JAX package.
 """
@@ -79,6 +87,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
+import functools
 import json
 import logging
 import math
@@ -2415,46 +2425,6 @@ def add_counts(a: dict, b: dict) -> dict:
     return {k: a[k] + b[k] for k in a}
 
 
-def run_train_steps(phase: str, counters, fns, model, n_steps: int, batch,
-                    smi: str):
-    """`n_steps` train_steps on one batch, counts from 0: (losses, launch
-    counts, forward counts of the encoder). Every loss finite and the last
-    below the first."""
-    import statistics
-
-    import torch
-
-    from speechcatcher_tpu_torch.training import make_optimizer, train_step
-
-    cfg = model.cfg
-    opt = make_optimizer(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
-    state = opt.init(model.params)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(counters, fns)
-    losses, step_ms = [], []
-    for i in range(n_steps):
-        t0 = time.perf_counter()
-        _, _, m = train_step(model.params, state, batch, cfg, opt)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append({k: float(v) for k, v in m.items()})
-        emit({"phase": phase, "step": i + 1, **losses[-1],
-              "step_ms": step_ms[-1]})
-    launches = counts(counters, fns)
-    totals = [x["loss"] for x in losses]
-    if not all(math.isfinite(x) for x in totals) or totals[-1] >= totals[0]:
-        fail(f"{phase}: losses {totals} are not finite or do not fall")
-    emit({"phase": phase + "_summary", "steps": n_steps,
-          "batch": list(batch.feats.shape), "tokens": list(
-              batch.tokens.shape), "windows_per_layer": batch.feats.shape[0]
-          * train_blocks(cfg, batch.feats.shape[1]),
-          "first_loss": totals[0], "last_loss": totals[-1],
-          "median_step_ms": statistics.median(step_ms),
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "nvidia_smi": smi, **launches})
-    return totals, launches
-
-
 def train_blocks(cfg, n_frames: int) -> int:
     """Blocks per utterance of encoder_forward_train for `n_frames`
     feature frames (0: the plain path of one block or less)."""
@@ -2474,62 +2444,549 @@ def expect_counts(phase: str, launches: dict, want: dict) -> None:
         fail(f"{phase}: launch counts (got, expected) {bad}")
 
 
-def train_path(dev, counters, fns, smi: str) -> dict:
-    """The flagship transformer: 5 train_steps on one batch of 8 from
-    synthetic_dataset(32), then evaluate on the eval split with the
-    tokenizer (loss, greedy WER and CER). A launches 18 times per encoder
-    forward and its backward 18 times per step; E never."""
-    from speechcatcher_tpu_torch.config import flagship_config
+# The train paths' schedule: WarmupLR over TRAIN_WARMUP steps and a
+# global-norm clip that binds in some of the steps, so that the learning
+# rate, the bias corrections and the clip factor change from replay to
+# replay (on the card the first step's gradient norm is about 2,000 for
+# the transformer and 11,000 for the conformer, the later ones 13 to 640);
+# the batches of synthetic_dataset(32)'s train split by index, the 4 s and
+# the 2 s sample bucket in turns (the two signatures of one pool).
+TRAIN_WARMUP, TRAIN_GRAPH_CLIP = 3, 40.0
+TRAIN_ORDER = (0, 2, 1, 3, 4, 2)
+# The long signature: 8 utterances of 12-16 s (the 16 s sample bucket);
+# the longest (``--profile train-memory``): 28-32 s, the 32 s bucket.
+LONG_SECONDS = (12.0, 16.0)
+LONGEST_SECONDS = (28.0, 32.0)
+
+
+def train_schedule(model):
+    """(optimizer, the steps' batches in TRAIN_ORDER, eval batches with
+    their refs) of the train paths, as the trainer's command line makes
+    them: synthetic_dataset(32) split 9:1, batched by BucketBatcher (batch
+    8); the train split in its first epoch's order."""
+    from speechcatcher_tpu_torch.data import (
+        synthetic_dataset,
+        train_eval_split,
+    )
+    from speechcatcher_tpu_torch.training import make_optimizer
+
+    _, eval_utts, batcher = train_batch(model)
+    train_utts, _ = train_eval_split(
+        synthetic_dataset(32, model.cfg, model.tokenizer), 0.1)
+    batches = list(batcher.batches(train_utts, shuffle_seed=0))
+    steps = [batches[i] for i in TRAIN_ORDER]
+    if {b.feats.shape for b in steps[0::2]} == {b.feats.shape
+                                                for b in steps[1::2]}:
+        fail("train_schedule: the steps do not alternate two buckets")
+    opt = make_optimizer(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         grad_clip=TRAIN_GRAPH_CLIP)
+    return opt, steps, list(batcher.batches(eval_utts, with_refs=True))
+
+
+def long_batch(model, seconds=LONG_SECONDS, with_refs: bool = False):
+    """A batch of 8 utterances of `seconds` (least, most), one signature;
+    with `with_refs`, (batch, reference texts)."""
+    from speechcatcher_tpu_torch.data import BucketBatcher, synthetic_dataset
+
+    utts = synthetic_dataset(8, model.cfg, model.tokenizer, seed=1,
+                             min_sec=seconds[0], max_sec=seconds[1])
+    batcher = BucketBatcher(model.frontend, model.tokenizer, batch_size=8,
+                            input_layer=model.cfg.input_layer)
+    return next(iter(batcher.batches(utts, with_refs=with_refs)))
+
+
+class eager_training:
+    """While active, ``train_step`` and ``evaluate`` run their programs
+    without graphs: the reference the graphs are held against (no entry
+    point can select it). With `norms`, each eager step appends its global
+    gradient norm (a host read)."""
+
+    def __init__(self, norms=None):
+        self.norms = norms
+
+    def __enter__(self):
+        from speechcatcher_tpu_torch import training
+
+        self._saved = (training.graphed, training._global_norm_sq)
+        training.graphed = lambda device: False
+        if self.norms is not None:
+            norm_sq, norms = training._global_norm_sq, self.norms
+
+            def recorded(grads, state):
+                sq = norm_sq(grads, state)
+                norms.append(float(sq.sqrt()))
+                return sq
+            training._global_norm_sq = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from speechcatcher_tpu_torch import training
+
+        training.graphed, training._global_norm_sq = self._saved
+
+
+class timed_captures:
+    """While active, the seconds of each ``capture_graphs`` call (warm-up
+    and captures) by its first graph's name."""
+
+    def __init__(self):
+        self.seconds = []
+
+    def __enter__(self):
+        import torch
+
+        from speechcatcher_tpu_torch.decode import graphs
+
+        self._saved = capture = graphs.capture_graphs
+
+        def timed(programs, warmup, pool):
+            t0 = time.perf_counter()
+            out = capture(programs, warmup, pool)
+            torch.cuda.synchronize()
+            self.seconds.append((programs[0][0], time.perf_counter() - t0))
+            return out
+        graphs.capture_graphs = timed
+        return self
+
+    def __exit__(self, *exc):
+        from speechcatcher_tpu_torch.decode import graphs
+
+        graphs.capture_graphs = self._saved
+
+
+def worst(values) -> float:
+    """The largest of `values`, NaN if any is NaN (Python's ``max`` drops a
+    NaN that is not the first element)."""
+    values = [float(v) for v in values]
+    return math.nan if any(map(math.isnan, values)) else max(values)
+
+
+def tree_max_diff(a, b) -> float:
+    """Largest absolute difference between two lists of tensors, NaN where
+    any element of either is NaN or both are infinite."""
+    return worst(float((x - y).detach().abs().max()) for x, y in zip(a, b))
+
+
+class deterministic_algorithms:
+    """While active, ``torch.use_deterministic_algorithms(True)`` (warnings
+    only where an operator has no deterministic form): the atomic-add
+    backwards (cuDNN's weight gradients, scatters) sum in a fixed order,
+    so the eager step repeats itself to the last bit."""
+
+    def __enter__(self):
+        import torch
+
+        self._saved = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.use_deterministic_algorithms(self._saved)
+
+
+def train_runs(dev, counters, fns, cfg, tree, steps, opt) -> dict:
+    """The steps on three models from `tree`: eager twice (the yardstick of
+    the eager step against itself; the first records the gradient norms)
+    and graphed, each to its end before the next starts. The graphed run's
+    launch counts start from 0 just before it. {name: (losses per step
+    [loss, ctc, att], state, model, step ms)}, the norms and the graphed
+    run's launches and capture seconds."""
+    import torch
+
+    from speechcatcher_tpu_torch import training
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
+
+    out: dict = {"norms": []}
+    for name in ("eager", "eager_again", "graphed"):
+        model = ASRModel.from_numpy(cfg, tree, dev)
+        state = opt.init(model.params)
+        if name == "graphed":
+            ctx = timed_captures()
+        else:
+            ctx = eager_training(out["norms"] if name == "eager" else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters, fns)
+        losses, step_ms = [], []
+        with ctx:
+            for b in steps:
+                t0 = time.perf_counter()
+                _, _, m = training.train_step(model.params, state, b, cfg,
+                                              opt)
+                losses.append([float(m[k]) for k in training.METRICS])
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        if name == "graphed":
+            out["launches"] = counts(counters, fns)
+            out["capture_s"] = ctx.seconds
+        out[name] = (losses, state, model, step_ms)
+    return out
+
+
+def held_to_eager(phase: str, runs: dict, within: bool = True) -> dict:
+    """The graphed run against the eager one: each step's three losses and
+    the parameters, mu and nu after the last step, against the eager run's
+    difference from itself (the yardstick: 0 where the eager step repeats
+    to the last bit). With `within`, every difference must lie within its
+    yardstick; without, only the first step's losses must be equal (the
+    forward repeats itself; the atomic-add backwards of the default
+    algorithms move the later steps by chance). Every loss, and every
+    difference of parameters and moments, must be finite (a NaN fails
+    every comparison), and the graphed run's loss must fall on the batch
+    that TRAIN_ORDER repeats. Returns the row it prints."""
+    (le, se, _, _), (l2, s2, _, _), (lg, sg, _, _) = (
+        runs["eager"], runs["eager_again"], runs["graphed"])
+    loss_yard = worst(abs(a - b) for x, y in zip(le, l2) for a, b in zip(x, y))
+    loss_diff = worst(abs(a - b) for x, y in zip(le, lg) for a, b in zip(x, y))
+    row = {"phase": phase + "_vs_eager", "steps": len(le),
+           "losses_graphed": lg, "losses_eager": le,
+           "loss_max_diff": loss_diff, "loss_yardstick": loss_yard}
+    bad = not loss_diff <= loss_yard
+    sane = all(math.isfinite(v) for run in (le, l2, lg) for x in run
+               for v in x) and math.isfinite(loss_yard)
+    for key in ("leaves", "mu", "nu"):
+        yard = tree_max_diff(getattr(se, key), getattr(s2, key))
+        diff = tree_max_diff(getattr(se, key), getattr(sg, key))
+        row[key + "_max_diff"], row[key + "_yardstick"] = diff, yard
+        bad = bad or not diff <= yard
+        sane = sane and math.isfinite(diff) and math.isfinite(yard)
+    row["count"] = [int(se.count), int(sg.count)]
+    # TRAIN_ORDER's last batch is also an earlier step's: the second time
+    # its loss is lower.
+    again = [i for i, b in enumerate(TRAIN_ORDER) if b == TRAIN_ORDER[-1]]
+    row["repeated_batch_losses"] = [lg[i][0] for i in again]
+    emit(row)
+    if not sane or not lg[again[-1]][0] < lg[again[0]][0]:
+        fail(f"{phase}: a loss, parameter or moment is not finite, or the "
+             f"loss on the batch of steps {[i + 1 for i in again]} did not "
+             f"fall: {row}")
+    if not within:
+        bad = not le[0] == l2[0] == lg[0]
+    if bad or row["count"] != [len(le)] * 2:
+        fail(f"{phase}: the graphed steps differ from the eager ones beyond "
+             f"the eager steps' own spread: {row}")
+    return row
+
+
+def graph_nodes(graph) -> int:
+    """Nodes of a captured graph kept with ``keep_graph=True``, through the
+    ``libcuda``'s ``cuGraphGetNodes``."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        fail(f"cuGraphGetNodes returned {err}")
+    return n.value
+
+
+def measured_graph(fn, reps: int = 5):
+    """(nodes, replay ms by CUDA events) of fn captured alone (warm-up on
+    a side stream, its own pool; launches recorded, not counted)."""
+    import torch
+
+    from speechcatcher_tpu_torch.ops.kernels import _plan
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), _plan.recording(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    capture = torch.cuda.graph(graph, capture_error_mode="thread_local")
+    with _plan.recording(capture.capture_stream), capture:
+        fn()
+    graph.instantiate()
+    with _plan.recording(torch.cuda.current_stream()):
+        ms = cuda_ms(graph.replay, reps, warmup=1)
+    return graph_nodes(graph), ms
+
+
+def ctc_share(phase: str, model, state, opt, batch, smi: str) -> dict:
+    """At a captured signature: the nodes and replay ms of the whole step
+    (on a copy of the state) and of the CTC loss with its backward alone
+    (the unrolled loop over the encoder frames), and the CTC's share."""
+    import dataclasses as dc
+
+    import torch
+
+    from speechcatcher_tpu_torch import training
+    from speechcatcher_tpu_torch.models.ctc import ctc_loss
+    from speechcatcher_tpu_torch.models.encoder import encoder_forward_train
+
+    cfg = model.cfg
+    copy = dc.replace(state, count=state.count.clone(),
+                      leaves=[x.detach().clone() for x in state.leaves],
+                      mu=[x.clone() for x in state.mu],
+                      nu=[x.clone() for x in state.nu], graphs=None)
+    step_nodes, step_ms = measured_graph(lambda: training._step(
+        model.params, state, batch, cfg, opt, update=copy))
+    del copy
+    with torch.no_grad():
+        hs, hlens = encoder_forward_train(model.params["encoder"],
+                                          batch.feats, batch.feat_lens, cfg)
+    hs = hs.detach().requires_grad_()
+    ctc = model.params["ctc"]
+    wrt = [hs, ctc["ctc_lo"]["weight"], ctc["ctc_lo"]["bias"]]
+
+    def ctc_step():
+        loss = ctc_loss(ctc, hs, hlens, batch.tokens, batch.token_lens,
+                        blank=cfg.blank_id)
+        return torch.autograd.grad(loss, wrt)
+
+    ctc_nodes, ctc_ms = measured_graph(ctc_step)
+    row = {"phase": phase + "_ctc_share", "batch": list(batch.feats.shape),
+           "encoder_frames": hs.shape[1], "step_graph_nodes": step_nodes,
+           "step_replay_ms": step_ms, "ctc_graph_nodes": ctc_nodes,
+           "ctc_replay_ms": ctc_ms, "ctc_node_share": ctc_nodes / step_nodes,
+           "ctc_time_share": ctc_ms / step_ms, "card": smi}
+    emit(row)
+    return row
+
+
+def step_profile(model, state, opt, batch, mode: str) -> dict:
+    """One warm train step (graphed, or eager under ``eager_training``)
+    under torch.profiler: host-issued kernels, graph launches, device busy
+    time and idle share, GEMM share; of the eager step also the device
+    time of A's (E's) forward kernel and of its backward (the plain
+    recompute and its VJP, the range ``*_plain_backward``)."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechcatcher_tpu_torch import training
+
+    ctx = eager_training() if mode == "eager" else contextlib.nullcontext()
+    with ctx:
+        training.train_step(model.params, state, batch, model.cfg, opt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            training.train_step(model.params, state, batch, model.cfg, opt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in averages if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    gemm_us = sum(e.self_device_time_total for e in rows
+                  if any(k in e.key.lower() for k in (
+                      "gemm", "gemv", "cutlass", "cublas", "nvjet")))
+    rel = model.cfg.encoder_type == "conformer"
+    kernel = "rel_block_attention" if rel else "block_attention"
+    fwd_us = sum(e.self_device_time_total for e in rows
+                 if kernel + "_kernel" in e.key
+                 and (rel or "rel_block_attention_kernel" not in e.key))
+    bwd_us = sum(e.device_time_total for e in averages
+                 if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.key == kernel + "_plain_backward")
+    return {"mode": mode, "encoder_type": model.cfg.encoder_type,
+            "batch": list(batch.feats.shape)} | device_share(
+        averages, wall) | runtime_calls(averages) | {
+        "device_kernels": sum(e.count for e in rows),
+        "gemm_share": gemm_us / busy_us,
+        "attention_forward_ms": fwd_us / 1e3,
+        "attention_forward_share": fwd_us / busy_us,
+        "attention_backward_ms": bwd_us / 1e3,
+        "attention_backward_share": bwd_us / busy_us}
+
+
+def step_timing(runs: dict, batch, opt, pairs: int = 3, steps: int = 3):
+    """Mean wall ms of `steps` train steps on `batch`, graphed and eager,
+    in `pairs` interleaved pairs (the order alternates) on the warm models
+    of `runs`."""
+    import contextlib
+
+    import torch
+
+    from speechcatcher_tpu_torch import training
+
+    out = {"graphed": [], "eager": []}
+    for p in range(pairs):
+        for mode in (("graphed", "eager") if p % 2 == 0
+                     else ("eager", "graphed")):
+            _, state, model, _ = runs[mode]
+            ctx = (eager_training() if mode == "eager"
+                   else contextlib.nullcontext())
+            with ctx:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    training.train_step(model.params, state, batch,
+                                        model.cfg, opt)
+                torch.cuda.synchronize()
+            out[mode].append((time.perf_counter() - t0) * 1e3 / steps)
+    return out
+
+
+def graphed_train_path(dev, counters, fns, smi: str,
+                       encoder_type: str) -> dict:
+    """The flagship's train step as CUDA graphs against the eager step: six
+    steps alternating the 4 s and 2 s buckets (two signatures, one pool)
+    under WarmupLR with a binding clip, with the default algorithms (the
+    first step's losses equal; the eager step's spread against itself
+    printed) and with deterministic ones (every loss, parameter and moment
+    equal), then two more on the 16 s signature (deterministic); A (E for
+    the conformer) forward and backward L times a graphed step; the CTC
+    loop's nodes and share; timing pairs, graphed against eager;
+    ``evaluate`` graphed against eager (transformer). Returns the
+    launches of the graphed steps and evaluation."""
+    import torch
+
+    from speechcatcher_tpu_torch import training
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.decode import graphs
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.params import random_params
+
+    rel = encoder_type == "conformer"
+    phase = "conformer_train_path" if rel else "train_path"
+    cfg = flagship_config(encoder_type=encoder_type)
+    L = cfg.encoder_layers
+    tree = random_params(cfg, 0)
+    opt, steps, eval_batches = train_schedule(ASRModel.from_numpy(
+        cfg, tree, dev))
+    n = len(steps)
+    want = {"block_attention": 0 if rel else L * n,
+            "rel_block_attention": L * n if rel else 0,
+            "BlockAttentionFn.backward_launches": 0 if rel else L * n,
+            "RelBlockAttentionFn.backward_launches": L * n if rel else 0,
+            "ctc_forward_recursion": 0, "ring_append_cols": 0,
+            "ring_append_rows": 0}
+    captured0 = len(graphs.CAPTURED)
+    runs = train_runs(dev, counters, fns, cfg, tree, steps, opt)
+    TRAIN_LOSSES[encoder_type] = [x[0] for x in runs["graphed"][0]]
+    norms = runs["norms"]
+    clipped = sum(x >= TRAIN_GRAPH_CLIP for x in norms)
+    held_to_eager(phase + "_default_algorithms", runs, within=False)
+    launches = runs["launches"]
+    expect_counts(phase, launches, want)
+    state = runs["graphed"][1]
+    new = graphs.CAPTURED[captured0:]
+    emit({"phase": phase, "card": smi, "steps": n,
+          "batches": [list(b.feats.shape) for b in steps],
+          "windows_per_layer": [b.feats.shape[0] * train_blocks(
+              cfg, b.feats.shape[1]) for b in steps],
+          "grad_norms": norms, "clip": TRAIN_GRAPH_CLIP,
+          "clipped_steps": clipped, "warmup_steps": TRAIN_WARMUP,
+          "step_ms": {k: runs[k][3] for k in ("eager", "graphed")},
+          "graphs": [{"name": g.name, "pool_bytes": g.pool_bytes}
+                     for g in new],
+          "capture_s": runs["capture_s"],
+          "pool_bytes": state.graphs.pool_bytes(),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    if not 0 < clipped < n:
+        fail(f"{phase}: the clip {TRAIN_GRAPH_CLIP} binds in {clipped} of "
+             f"{n} steps (norms {norms}): it must bind in some, not all")
+    if len(state.graphs.entries) != 2:
+        fail(f"{phase}: {len(state.graphs.entries)} signatures captured")
+    model = runs["graphed"][2]
+    long = long_batch(model)
+    shares = [ctc_share(phase, model, state, opt, b, smi)
+              for b in (steps[1], steps[0], long)]
+    emit({"phase": phase + "_timing", "card": smi,
+          "batch": list(steps[0].feats.shape),
+          "step_ms_pairs": step_timing(runs, steps[0], opt),
+          "ctc_time_share": {str(r["encoder_frames"]): r["ctc_time_share"]
+                             for r in shares}})
+    if not rel:
+        launches = add_counts(launches, graphed_evaluate(
+            phase, counters, fns, runs, eval_batches, smi))
+    del runs, state, model
+    torch.cuda.empty_cache()
+    # Deterministic algorithms: the same six steps, every leaf equal; then
+    # the 16 s signature in the same pool: one capture, two replays, on
+    # the three states as they are.
+    with deterministic_algorithms():
+        runs = train_runs(dev, counters, fns, cfg, tree, steps, opt)
+        held_to_eager(phase, runs)
+        more = {}
+        for name in ("eager", "eager_again", "graphed"):
+            losses, st, model, ms = runs[name]
+            ctx = (timed_captures() if name == "graphed"
+                   else eager_training())
+            torch.cuda.synchronize()
+            reset_counts(counters, fns)
+            with ctx:
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    _, _, m = training.train_step(model.params, st, long,
+                                                  cfg, opt)
+                    losses.append([float(m[k]) for k in training.METRICS])
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            if name == "graphed":
+                more = {"launches": counts(counters, fns),
+                        "capture_s": ctx.seconds}
+        held_to_eager(phase + "_long", runs)
+    expect_counts(phase + "_long", more["launches"],
+                  {k: v // n * 2 for k, v in want.items()})
+    state = runs["graphed"][1]
+    emit({"phase": phase + "_long", "card": smi,
+          "batch": list(long.feats.shape), "windows_per_layer":
+          long.feats.shape[0] * train_blocks(cfg, long.feats.shape[1]),
+          "step_ms": {k: runs[k][3][-2:] for k in ("eager", "graphed")},
+          "capture_s": more["capture_s"], "graph": graphs.CAPTURED[-1].name,
+          "signature_pool_bytes": graphs.CAPTURED[-1].pool_bytes,
+          "pool_bytes": state.graphs.pool_bytes(),
+          "signatures": len(state.graphs.entries),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del runs, state
+    torch.cuda.empty_cache()
+    return add_counts(launches, more["launches"])
+
+
+def graphed_evaluate(phase: str, counters, fns, runs: dict, eval_batches,
+                     smi: str) -> dict:
+    """``evaluate`` of the graphed model on the eval split with the
+    tokenizer, graphed (launch counts from 0: two encoder passes a batch
+    with more than one block) against eager on the same tree: the three
+    losses to the last bit, WER and CER equal."""
+    import torch
+
+    from speechcatcher_tpu_torch.decode import graphs
     from speechcatcher_tpu_torch.training import evaluate
 
-    model = ASRModel.random_init(flagship_config(), seed=0, device=dev)
+    model = runs["graphed"][2]
     cfg = model.cfg
-    batch, eval_utts, batcher = train_batch(model)
-    n_steps = 5
-    TRAIN_LOSSES["transformer"], launches = run_train_steps(
-        "train_path", counters, fns, model, n_steps, batch, smi)
     L = cfg.encoder_layers
-    expect_counts("train_path", launches, {
-        "block_attention": L * n_steps, "rel_block_attention": 0,
-        "BlockAttentionFn.backward_launches": L * n_steps,
-        "RelBlockAttentionFn.backward_launches": 0})
-    eval_batches = list(batcher.batches(eval_utts, with_refs=True))
+    captured0 = len(graphs.CAPTURED)
+    torch.cuda.synchronize()
     reset_counts(counters, fns)
     t0 = time.perf_counter()
-    m = evaluate(model.params, cfg, eval_batches, model.tokenizer)
+    got = evaluate(model.params, cfg, eval_batches, model.tokenizer)
     wall = time.perf_counter() - t0
-    if not all(math.isfinite(m[k]) for k in ("loss", "ctc", "att", "wer")):
-        fail(f"train_path eval: {m}")
-    eval_launches = counts(counters, fns)
+    launches = counts(counters, fns)
+    t0 = time.perf_counter()
+    again = evaluate(model.params, cfg, eval_batches, model.tokenizer)
+    replay_wall = time.perf_counter() - t0
+    with eager_training():
+        t0 = time.perf_counter()
+        want = evaluate(model.params, cfg, eval_batches, model.tokenizer)
+        eager_wall = time.perf_counter() - t0
     blocked = sum(train_blocks(cfg, b.feats.shape[1]) > 0
                   for b, _ in eval_batches)
-    emit({"phase": "train_path_eval", **m, "eval_batches": len(eval_batches),
-          "eval_utterances": len(eval_utts), "wall_ms": wall * 1e3})
+    new = graphs.CAPTURED[captured0:]
+    emit({"phase": phase + "_eval", **got, "eager": want,
+          "eval_batches": len(eval_batches), "graphs": [
+              {"name": g.name, "pool_bytes": g.pool_bytes} for g in new],
+          "wall_ms": {"first": wall * 1e3, "graphed": replay_wall * 1e3,
+                      "eager": eager_wall * 1e3}, "card": smi})
+    if not all(math.isfinite(got[k]) for k in ("loss", "ctc", "att", "wer")):
+        fail(f"{phase} eval: {got}")
+    if got != want or again != got:
+        fail(f"{phase} eval: graphed {got} (again {again}), eager {want}")
+    if len(new) != 2 * len({b.feats.shape for b, _ in eval_batches}):
+        fail(f"{phase} eval: {len(new)} graphs captured")
     # Each eval batch runs the encoder twice: the loss and the greedy WER.
-    expect_counts("train_path_eval", eval_launches, {
+    expect_counts(phase + "_eval", launches, {
         "block_attention": 2 * L * blocked, "rel_block_attention": 0,
         "BlockAttentionFn.backward_launches": 0})
-    return add_counts(launches, eval_launches)
-
-
-def conformer_train_path(dev, counters, fns, smi: str) -> dict:
-    """The flagship conformer at flagship widths and depth: 3 train_steps
-    on one batch; E launches in every layer of every step, A never."""
-    from speechcatcher_tpu_torch.config import flagship_config
-    from speechcatcher_tpu_torch.models.asr_model import ASRModel
-
-    model = ASRModel.random_init(flagship_config(encoder_type="conformer"),
-                                 seed=0, device=dev)
-    batch, _, _ = train_batch(model)
-    n_steps = 3
-    TRAIN_LOSSES["conformer"], launches = run_train_steps(
-        "conformer_train_path", counters, fns, model, n_steps, batch, smi)
-    L = model.cfg.encoder_layers
-    expect_counts("conformer_train_path", launches, {
-        "block_attention": 0, "rel_block_attention": L * n_steps,
-        "BlockAttentionFn.backward_launches": 0,
-        "RelBlockAttentionFn.backward_launches": L * n_steps})
     return launches
 
 
@@ -2547,9 +3004,9 @@ def small_train_config():
 
 # Card against CPU for one train_step at small width. Loss: float32 sums in
 # another order. Gradients: per leaf within 1e-3 relative plus 5e-4 of the
-# leaf's largest magnitude (at least 1e-8): CUDA's ctc_loss backward and the
-# embedding's index backward add with atomics, in no fixed order, and
-# cuBLAS and cuDNN sum in other orders and forms than the CPU; the worst
+# leaf's largest magnitude (at least 1e-8): atomic-add backwards (cuDNN's
+# weight gradients among them) sum in no fixed order, and cuBLAS and cuDNN
+# sum in other orders and forms than the CPU; the worst
 # leaf, the second subsampling conv's weight (each element a sum of 15,048
 # products, through the algorithm cuDNN's heuristics pick), read 1.4e-4 of
 # its scale beyond the relative part on the first run. Parameters after the
@@ -2610,7 +3067,7 @@ def train_vs_cpu(dev) -> None:
         atol = max(TRAIN_VS_CPU_GRAD_SCALE * float(np.abs(gc).max()), 1e-8)
         excess = float((np.abs(gg - gc) - TRAIN_VS_CPU_GRAD_RTOL
                         * np.abs(gc)).max()) / atol
-        if excess > worst_grad:
+        if math.isnan(excess) or excess > worst_grad:
             worst_grad, worst_leaf = excess, path
     diffs = np.concatenate([np.abs(pg - pc).ravel() for (_, pc), (_, pg) in
                             zip(tree_leaves(p_cpu), tree_leaves(p_gpu))])
@@ -2627,8 +3084,8 @@ def train_vs_cpu(dev) -> None:
            "param_share_beyond_1e-6": far,
            "step_loss_cpu": s_cpu, "step_loss_card": s_gpu}
     emit(row)
-    if (not loss_rel <= TRAIN_VS_CPU_LOSS_RTOL or worst_grad > 1.0
-            or float(diffs.max()) > 2 * TRAIN_LR
+    if (not loss_rel <= TRAIN_VS_CPU_LOSS_RTOL or not worst_grad <= 1.0
+            or not float(diffs.max()) <= 2 * TRAIN_LR
             or far > TRAIN_VS_CPU_PARAM_FAR_SHARE):
         fail(f"train_vs_cpu: the card's train step differs from the CPU's: "
              f"{row}")
@@ -2752,7 +3209,8 @@ def train_cli(dev) -> list:
            "num_processes_2_exit": res3.returncode}
     emit(row)
     if (len(losses) != 3 or len(evals) != 1 or len(resumed) != 1
-            or abs(float(resumed[0]) - loss) > 1e-4 or step != 3
+            or not all(math.isfinite(float(x)) for x in losses)
+            or not abs(float(resumed[0]) - loss) <= 1e-4 or step != 3
             or saved != ["params_3.pt", "params_4.pt"]):
         fail(f"train_cli: {row}")
     if (res3.returncode == 0
@@ -2763,55 +3221,290 @@ def train_cli(dev) -> list:
 
 
 def profile_train(dev) -> None:
-    """torch.profiler over one warm flagship train_step (batch 8 of the 4 s
-    bucket, 40 windows per layer): device kernels, busy time, idle share,
-    GEMM share, and the shares of A's forward kernel and of its backward
-    (the plain recompute and its VJP, the range
-    ``block_attention_plain_backward``)."""
+    """torch.profiler over one warm flagship train step of the 4 s bucket
+    (batch 8, 40 windows per layer) in the train paths' schedule, graphed
+    and eager (``step_profile``), for the transformer and the conformer:
+    host-issued kernels, graph launches, device busy time, idle share,
+    GEMM share, A's (E's) forward and backward. The whole run takes these
+    from this mode in a process of its own (``train_profiles``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from speechcatcher_tpu_torch.config import flagship_config
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
-    from speechcatcher_tpu_torch.training import make_optimizer, train_step
 
-    model = ASRModel.random_init(flagship_config(), seed=0, device=dev)
-    batch, _, _ = train_batch(model, bucket_s=4)
-    opt = make_optimizer(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
-    state = opt.init(model.params)
-    for _ in range(2):  # warm-up
-        train_step(model.params, state, batch, model.cfg, opt)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(model.params, state, batch, model.cfg, opt)
+    for encoder_type in ("transformer", "conformer"):
+        model = ASRModel.random_init(
+            flagship_config(encoder_type=encoder_type), seed=0, device=dev)
+        opt, steps, _ = train_schedule(model)
+        state = opt.init(model.params)
+        for mode in ("graphed", "eager"):
+            emit({"phase": "profile_train"} | step_profile(
+                model, state, opt, steps[0], mode))
+        del model, state
+        torch.cuda.empty_cache()
+
+
+def profile_train_memory(dev, smi: str) -> None:
+    """Device memory of the flagship's train step and ``evaluate``, per
+    encoder, at the 4 s bucket of the train paths and then at the 32 s
+    signature (8 utterances of LONGEST_SECONDS) in the same state: two
+    steps eager, then two graphed (capture and a replay); of each, the
+    peak allocated above what the model and state hold and the reserved
+    memory left after it; of the graphed, its signature's pool. Then
+    ``evaluate`` on the 32 s batch, graphed and eager: the tree's eval
+    pool (two programs) and the peaks."""
+    import contextlib
+
+    import torch
+
+    from speechcatcher_tpu_torch import training
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.decode import graphs
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+
+    def measured(fn) -> dict:
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    averages = prof.key_averages()
-    cpu, cuda = (torch.autograd.DeviceType.CPU,
-                 torch.autograd.DeviceType.CUDA)
-    busy_us = sum(e.self_device_time_total for e in averages
-                  if e.device_type == cuda
-                  and not getattr(e, "is_user_annotation", False))
-    # The backward's range on the host: its row sums the device time of
-    # the kernels launched inside it.
-    ranges = {e.key: e.device_time_total for e in averages
-              if e.device_type == cpu and e.key.endswith("_plain_backward")}
-    fwd_us = sum(e.self_device_time_total for e in averages
-                 if e.device_type == cuda
-                 and "block_attention_kernel" in e.key
-                 and "rel_block_attention_kernel" not in e.key)
-    bwd_us = ranges.get("block_attention_plain_backward", 0.0)
-    report_profile(prof, {"phase": "profile_train", "batch": list(
-        batch.feats.shape), "windows_per_layer": batch.feats.shape[0]
-        * train_blocks(model.cfg, batch.feats.shape[1])}, wall)
-    emit({"phase": "profile_train_attention", "busy_ms": busy_us / 1e3,
-          "block_attention_forward_ms": fwd_us / 1e3,
-          "block_attention_forward_share": fwd_us / busy_us,
-          "block_attention_backward_ms": bwd_us / 1e3,
-          "block_attention_backward_share": bwd_us / busy_us,
-          "backward_ranges_ms": {k: v / 1e3 for k, v in ranges.items()}})
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return {"peak_above_bytes": torch.cuda.max_memory_allocated() - base,
+                "reserved_growth_bytes": torch.cuda.memory_reserved()
+                - reserved}
+
+    for encoder_type in ("transformer", "conformer"):
+        model = ASRModel.random_init(
+            flagship_config(encoder_type=encoder_type), seed=0, device=dev)
+        cfg = model.cfg
+        opt, steps, _ = train_schedule(model)
+        state = opt.init(model.params)
+        longest, refs = long_batch(model, LONGEST_SECONDS, with_refs=True)
+        torch.cuda.synchronize()
+        row = {"phase": "profile_train_memory", "encoder_type": encoder_type,
+               "card": smi, "model_and_state_bytes":
+               torch.cuda.memory_allocated()}
+        for name, batch in (("4s", steps[0]), ("32s", longest)):
+            for mode in ("eager", "graphed"):
+                ctx = (eager_training() if mode == "eager"
+                       else contextlib.nullcontext())
+
+                def two_steps():
+                    with ctx:
+                        for _ in range(2):
+                            training.train_step(model.params, state, batch,
+                                                cfg, opt)
+                row[f"{name}_{mode}"] = measured(two_steps)
+            row[f"{name}_batch"] = list(batch.feats.shape)
+            row[f"{name}_signature_pool_bytes"] = (
+                graphs.CAPTURED[-1].pool_bytes)
+        row["train_pool_bytes"] = state.graphs.pool_bytes()
+        for mode in ("eager", "graphed"):
+            ctx = (eager_training() if mode == "eager"
+                   else contextlib.nullcontext())
+
+            def evaluate():
+                with ctx:
+                    training.evaluate(model.params, cfg, [(longest, refs)],
+                                      model.tokenizer)
+            row[f"eval_32s_{mode}"] = measured(evaluate)
+        row["eval_pool_bytes"] = training._eval_graphs(
+            model.params).pool_bytes()
+        emit(row)
+        del model, state
+        torch.cuda.empty_cache()
+
+
+# Capture-and-teardown cycles of ``--profile train-in-process``, each
+# encoder in turn.
+TRAIN_CYCLES = 10
+
+
+def profile_train_in_process(dev, smi: str) -> None:
+    """The graphed train paths and their profiles in one process, per
+    encoder ``graphed_train_path`` then ``step_profile`` graphed and eager
+    at the 4 s bucket: the order of an earlier whole run, one process of
+    which ended in a segmentation fault in the conformer's profile (the
+    whole run now profiles in a process of its own, ``train_profiles``).
+    Then TRAIN_CYCLES cycles of each encoder in turn, in the same process:
+    a fresh model and state, three graphed steps over two signatures,
+    ``evaluate`` graphed, a graphed step under torch.profiler, and the
+    teardown of all of it (train and eval graphs, pools). faulthandler
+    prints every thread's Python stack on such a fault."""
+    import gc
+
+    import torch
+
+    from speechcatcher_tpu_torch import training
+
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+
+    counters, fns = kernel_counters()
+    for encoder_type in ("transformer", "conformer"):
+        graphed_train_path(dev, counters, fns, smi, encoder_type)
+        model = ASRModel.random_init(
+            flagship_config(encoder_type=encoder_type), seed=0, device=dev)
+        opt, steps, _ = train_schedule(model)
+        state = opt.init(model.params)
+        for mode in ("graphed", "eager"):
+            emit({"phase": "profile_train"} | step_profile(
+                model, state, opt, steps[0], mode) | {"card": smi})
+        del model, state
+        torch.cuda.empty_cache()
+    for cycle in range(TRAIN_CYCLES):
+        for encoder_type in ("transformer", "conformer"):
+            model = ASRModel.random_init(
+                flagship_config(encoder_type=encoder_type), seed=cycle,
+                device=dev)
+            opt, steps, eval_batches = train_schedule(model)
+            state = opt.init(model.params)
+            losses = [float(training.train_step(
+                model.params, state, b, model.cfg, opt)[2]["loss"])
+                for b in steps[:3]]
+            got = training.evaluate(model.params, model.cfg, eval_batches,
+                                    model.tokenizer)
+            prof = step_profile(model, state, opt, steps[0], "graphed")
+            emit({"phase": "train_cycle", "cycle": cycle,
+                  "encoder_type": encoder_type, "losses": losses,
+                  "eval_loss": got["loss"],
+                  "signatures": len(state.graphs.entries),
+                  "pool_bytes": state.graphs.pool_bytes(),
+                  "graph_launches": prof["graph_launches"]})
+            if not all(map(math.isfinite, losses + [got["loss"]])):
+                fail(f"train_cycle {cycle} {encoder_type}: {losses}, {got}")
+            del model, state, opt, steps, eval_batches
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+
+MESH_STEPS = 5
+
+
+def _eager_steps(params, state, batch, cfg, opt, mesh=None) -> dict:
+    """One warm train step, then MESH_STEPS timed one by one."""
+    import statistics
+
+    import torch
+
+    from speechcatcher_tpu_torch.training import train_step
+
+    train_step(params, state, batch, cfg, opt, mesh)
+    torch.cuda.synchronize()
+    losses, step_ms = [], []
+    for _ in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        _, _, m = train_step(params, state, batch, cfg, opt, mesh)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "step_ms": step_ms,
+            "median_step_ms": statistics.median(step_ms)}
+
+
+def _mesh_step_rank(devices):
+    """One tp rank of ``profile_mesh_step``: both encoders' eager steps on
+    its shards."""
+    import torch
+
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from speechcatcher_tpu_torch.parallel.tp import set_tp_group
+
+    mesh = make_mesh(TP, tp=TP, devices=devices)
+    set_tp_group(mesh.tp_group)
+    out = {}
+    for encoder_type in ("transformer", "conformer"):
+        model = ASRModel.random_init(
+            flagship_config(encoder_type=encoder_type), seed=0,
+            device=mesh.device)
+        opt, steps, _ = train_schedule(model)
+        params = shard_params(model.params, mesh)
+        state = opt.init(params, mesh)
+        out[encoder_type] = _eager_steps(params, state, steps[0], model.cfg,
+                                         opt, mesh)
+        del model, params, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_mesh_step(dev, smi: str) -> None:
+    """The eager train step, the program a mesh runs (``train_step`` takes
+    no graph under a mesh or a tp group), at the train paths' first batch
+    (8 x 4 s), each encoder: on the card with the graphs off, then at tp
+    = 2 on two gloo ranks of the card; one warm step, then MESH_STEPS
+    timed. Then the trainer's command line, 4 steps of batch 8, as one
+    NCCL process (``--coordinator``) and as one plain process: wall
+    seconds. It measures the package beside the script: a copy of the
+    script in the root of another checkout (a parent commit's) measures
+    that one, so two commits compare in one call on one card."""
+    import re
+    import socket
+
+    import torch
+
+    from speechcatcher_tpu_torch import training
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+
+    row = {"phase": "profile_mesh_step", "card": smi,
+           "package": str(Path(training.__file__).parent)}
+    if hasattr(training, "graphed"):
+        training.graphed = lambda device: False
+    for encoder_type in ("transformer", "conformer"):
+        model = ASRModel.random_init(
+            flagship_config(encoder_type=encoder_type), seed=0, device=dev)
+        opt, steps, _ = train_schedule(model)
+        state = opt.init(model.params)
+        row[encoder_type + "_one_card"] = _eager_steps(
+            model.params, state, steps[0], model.cfg, opt)
+        del model, state
+        torch.cuda.empty_cache()
+    for r, got in enumerate(on_ranks(_mesh_step_rank, dev, timeout=900)):
+        for encoder_type, res in got.items():
+            row[f"{encoder_type}_tp{TP}_rank{r}"] = res
+
+    def trainer(*flags) -> dict:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "speechcatcher_tpu_torch.training",
+             "--steps", "4", "--batch", "8", *flags], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"--profile mesh-step: the trainer {flags} exited "
+                 f"{res.returncode}: {res.stderr[-2000:]}")
+        return {"wall_s": time.perf_counter() - t0, "losses": re.findall(
+            r"^step \d+: loss (\S+)", res.stdout, re.M)}
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    row["nccl_trainer"] = trainer("--coordinator", f"127.0.0.1:{port}",
+                                  "--num-processes", "1", "--process-id",
+                                  "0")
+    row["one_process_trainer"] = trainer()
+    emit(row)
+
+
+def train_profiles(smi: str) -> list:
+    """``python3 chip_smoke.py --profile train`` in a process of its own
+    (torch.profiler's state stays out of this long run): its rows, each
+    printed here with the card."""
+    res = subprocess.run([sys.executable, "-X", "faulthandler",
+                          str(ROOT / "chip_smoke.py"), "--profile", "train"],
+                         cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    rows = [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith('{"phase": "profile_train"')]
+    if res.returncode != 0 or len(rows) != 4:
+        fail(f"--profile train: exit {res.returncode}, {len(rows)} rows: "
+             f"{res.stderr[-2000:]}")
+    for row in rows:
+        emit(row | {"card": smi})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2905,16 +3598,17 @@ def gloo_collectives(out: list) -> None:
 
 def _tp_train_rank(devices, smi):
     """One tp rank of tp_train_path: A (or E) at the rank's 4 heads against
-    its plain version, forward and gradients, at the batch's windows; then
-    3 flagship transformer steps and 1 conformer step on train_path's
-    batch, counts from 0 after the check."""
+    its plain version, forward and gradients, at the first batch's windows;
+    then the first 3 flagship transformer steps and the first conformer
+    step of the train paths' schedule (``train_schedule``), counts from 0
+    after the check."""
     import torch
 
     from speechcatcher_tpu_torch.config import flagship_config
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
     from speechcatcher_tpu_torch.parallel.mesh import make_mesh, shard_params
     from speechcatcher_tpu_torch.parallel.tp import set_tp_group
-    from speechcatcher_tpu_torch.training import make_optimizer, train_step
+    from speechcatcher_tpu_torch.training import train_step
 
     counters, fns = kernel_counters()
     mesh = make_mesh(TP, tp=TP, devices=devices)
@@ -2925,18 +3619,17 @@ def _tp_train_rank(devices, smi):
         model = ASRModel.random_init(
             flagship_config(encoder_type=encoder_type), seed=0, device=dev)
         cfg = model.cfg
-        batch, _, _ = train_batch(model)
-        windows = batch.feats.shape[0] * train_blocks(cfg,
-                                                      batch.feats.shape[1])
+        opt, steps, _ = train_schedule(model)
+        windows = steps[0].feats.shape[0] * train_blocks(
+            cfg, steps[0].feats.shape[1])
         row = attention_grad(dev, tp_attention_config(cfg), windows,
                              rel=encoder_type == "conformer")
         params = model.params = shard_params(model.params, mesh)
-        opt = make_optimizer(lr=TRAIN_LR, grad_clip=TRAIN_CLIP)
         state = opt.init(params, mesh)
         torch.cuda.synchronize()
         reset_counts(counters, fns)
         losses, step_ms = [], []
-        for _ in range(n_steps):
+        for batch in steps[:n_steps]:
             t0 = time.perf_counter()
             _, _, m = train_step(params, state, batch, cfg, opt, mesh)
             torch.cuda.synchronize()
@@ -2955,9 +3648,10 @@ def _tp_train_rank(devices, smi):
 
 def tp_train_path(out: list, smi: str) -> dict:
     """Two gloo ranks on the card at tp=2 (`out`: each rank's
-    ``_tp_train_rank``), each with its shards of the flagship: 3
-    transformer steps and 1 conformer step on train_path's batch. Losses
-    equal the single-card steps' (TRAIN_LOSSES) to rel. TP_TRAIN_LOSS_RTOL
+    ``_tp_train_rank``), each with its shards of the flagship: the first
+    3 transformer steps and the first conformer step of the train paths'
+    schedule, eager by configuration under the mesh. Losses equal the
+    single-card graphed steps' (TRAIN_LOSSES) to rel. TP_TRAIN_LOSS_RTOL
     on both ranks; each rank launches A (E for the conformer) and its
     backward once per layer and step, at 4 heads. Returns the launches and
     backwards summed over the ranks."""
@@ -2967,8 +3661,8 @@ def tp_train_path(out: list, smi: str) -> dict:
     for coord, res in out:
         for encoder_type, got in res.items():
             want = TRAIN_LOSSES[encoder_type][:len(got["losses"])]
-            rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
-                                                            want))
+            rel = worst(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                              want))
             emit({"phase": "tp_train_path", "encoder": encoder_type,
                   "rank_coord": coord, "losses": got["losses"],
                   "single_card_losses": want, "max_loss_rel_err": rel,
@@ -3143,7 +3837,8 @@ def nccl_trainer(dev, want_losses) -> None:
     emit({"phase": "nccl_trainer", "exit": res.returncode, "losses": losses,
           "one_process_losses": want_losses[:2], "wall_s": wall})
     if (res.returncode != 0 or len(losses) != 2
-            or any(abs(a - b) > 1e-4 for a, b in zip(losses, want_losses))):
+            or not all(abs(a - b) <= 1e-4
+                       for a, b in zip(losses, want_losses))):
         fail(f"nccl_trainer: exit {res.returncode}, losses {losses} vs "
              f"{want_losses[:2]}: {res.stderr[-2000:]}")
 
@@ -3847,14 +4542,20 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", nargs="?", const="utterance",
                     choices=("utterance", "engine", "conformer", "tiling",
-                             "recursion", "recognize", "train"),
+                             "recursion", "recognize", "train",
+                             "train-memory", "train-in-process",
+                             "mesh-step"),
                     help="profile one main-path utterance (default), "
                     "engine ticks at S=8, one conformer utterance, or the "
                     "attention kernels' device time under either tiling "
                     "at 1 to 32 windows, or the CTC recursion kernel's time "
                     "at 5 to 160 hypotheses, or recognize() on 70 s, "
-                    "serial and batched, or one flagship train step, then "
-                    "stop")
+                    "serial and batched, or a flagship train step of "
+                    "either encoder, graphed and eager, or the train "
+                    "step's and evaluate's memory at 4 s and 32 s, or the "
+                    "graphed train paths with their profiles in one "
+                    "process, or the eager step a mesh runs (one card, tp "
+                    "= 2, the NCCL trainer), then stop")
     ap.add_argument("--precision", choices=PRECISIONS, default="float32",
                     help="the model of --profile, --profile engine and "
                     "--profile conformer: float32, that with only the CTC "
@@ -3863,6 +4564,7 @@ def main() -> int:
                     "frame ring), or that with int8 encoder linears (int8) "
                     "or every eligible linear in int8 (int8_all)")
     args = ap.parse_args()
+    faulthandler.enable()
 
     import torch
 
@@ -3901,6 +4603,15 @@ def main() -> int:
         return 0
     if args.profile == "train":
         profile_train(dev)
+        return 0
+    if args.profile == "train-memory":
+        profile_train_memory(dev, smi)
+        return 0
+    if args.profile == "train-in-process":
+        profile_train_in_process(dev, smi)
+        return 0
+    if args.profile == "mesh-step":
+        profile_mesh_step(dev, smi)
         return 0
     if args.profile == "conformer":
         profile_utterance(dev, encoder_type="conformer",
@@ -4040,14 +4751,17 @@ def main() -> int:
                                  row["forward_max_abs_err"])
     refuse_grad_on_card(dev)
     backward = {}
-    for path, run in (("train", train_path),
-                      ("conformer_train", conformer_train_path),
+    for path, run in (("train", functools.partial(
+            graphed_train_path, encoder_type="transformer")),
+                      ("conformer_train", functools.partial(
+                          graphed_train_path, encoder_type="conformer")),
                       ("greedy", greedy_path)):
         got = run(dev, counters, fns, smi)
         by_path[path] = {c.__name__: got[c.__name__] for c in counters}
         for f in fns:
             key = f.__name__ + ".backward_launches"
             backward[key] = backward.get(key, 0) + got[key]
+    train_profiles(smi)
     # tp=2 on two gloo ranks of this card: the collectives, the train step
     # and the engine.
     got, by_path["tp_engine"] = tp_paths(dev, counters, smi)

@@ -1,10 +1,14 @@
-"""The block beam loop and the session's chunk step as CUDA graphs, and what
-they need to capture work.
+"""The block beam loop, the session's chunk step and programs of a batch
+as CUDA graphs, and what they need to capture work.
 
 The session's chunk step (``ChunkStep``, at the end) is the counterpart of
 the JAX package's jit-compiled ``logmel_frontend``, ``_subsample_jit`` and
 ``_infer_core`` / ``_infer_short``: a graph per static signature over an
-encoder carry at fixed addresses.
+encoder carry at fixed addresses. ``SignatureGraphs`` captures a program
+of tensors once per signature of its inputs over static buffers: the
+trainer's step and its eval programs (``training.py``), the counterparts
+of the JAX package's jitted ``train_step``, ``_eval_metrics`` and
+``_encode_and_collapse``.
 
 Counterpart of the JAX package's device-resident loops: its
 ``decode_block_device`` runs a block's beam loop as one ``lax.while_loop``,
@@ -38,7 +42,8 @@ be captured (that loop is eager by configuration): one beam step at a time
 behind a host read of ``any(stepping)``, as ``decode_block_device`` does.
 
 Launch counters: a kernel wrapper that launches during a capture counts
-into the capture's record (``ops.kernels._plan.recording``), and every
+into the capture's record (``ops.kernels._plan.recording``), launches on
+the capture stream from autograd's backward thread included, and every
 replay adds its graph's record, so the counts are the launches the card
 runs.
 """
@@ -234,7 +239,7 @@ def capture_graphs(programs: Sequence, warmup: Callable,
     with _CAPTURE_LOCK, _no_cyclic_gc():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), _plan.recording():
+        with torch.cuda.stream(side), _plan.recording(side):
             warmup()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
@@ -245,15 +250,83 @@ def capture_graphs(programs: Sequence, warmup: Callable,
         for name, fn in programs:
             graph = torch.cuda.CUDAGraph()
             before = _reserved()
-            with _plan.recording() as rec:
-                with torch.cuda.graph(graph, pool=pool,
-                                      capture_error_mode="thread_local"):
-                    fn()
+            capture = torch.cuda.graph(graph, pool=pool,
+                                       capture_error_mode="thread_local")
+            with _plan.recording(capture.capture_stream) as rec, capture:
+                fn()
             launches = {f.__name__: n for (f, attr), n in rec.items()}
             reserved = _reserved() - before
             CAPTURED.append(GraphRecord(name, reserved, launches))
             out.append(Graph(graph, rec, name, reserved))
         return out
+
+
+class _Signature(NamedTuple):
+    graph: Graph
+    inputs: List[torch.Tensor]
+    outputs: List[torch.Tensor]
+    keep: tuple
+
+
+class SignatureGraphs:
+    """A program of tensors as one CUDA graph per static signature (the
+    inputs' shapes and dtypes and a caller's key), over static input and
+    output buffers: the counterpart of a jit-compiled function, whose cache
+    holds one executable per signature. The train step and the eval
+    programs run through it (``training.py``).
+
+    ``run`` copies the inputs into their signature's buffers, replays its
+    graph and returns copies of the outputs. A signature is captured at
+    first use: its buffers are allocated outside the memory pool, the
+    program runs once eagerly on them (``warmup``, the program itself
+    unless given: it must then change nothing it does not return), which
+    also gives the outputs' shapes, and the capture ends by copying the
+    program's results into the output buffers. All signatures share one
+    pool: each graph's results go to buffers outside it, so no graph holds
+    pool memory that another's replay overwrites, and the pool is about
+    the largest signature's. No fallback: a capture or replay that fails
+    raises."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.entries: Dict[tuple, _Signature] = {}
+
+    def run(self, key, name: str, inputs: Sequence[torch.Tensor],
+            program: Callable, warmup: Optional[Callable] = None,
+            keep: tuple = (), device=None) -> List[torch.Tensor]:
+        """Outputs of ``program(*inputs)`` on static copies of `inputs` (on
+        `device`, by default the inputs'). `keep` holds what the graph
+        reads that nothing else may (cached constants)."""
+        sig = (key, *((tuple(x.shape), x.dtype) for x in inputs))
+        entry = self.entries.get(sig)
+        if entry is None:
+            entry = self.entries[sig] = self._capture(
+                name, inputs, program, warmup or program, keep, device)
+        for dst, src in zip(entry.inputs, inputs):
+            dst.copy_(src)
+        entry.graph.replay()
+        return [x.clone() for x in entry.outputs]
+
+    def _capture(self, name, inputs, program, warmup, keep, device):
+        static = [torch.empty(x.shape, dtype=x.dtype,
+                              device=device or x.device) for x in inputs]
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        outputs: List[torch.Tensor] = []
+
+        def warm():
+            outputs.extend(torch.empty_like(r) for r in warmup(*static))
+
+        def capture():
+            for dst, src in zip(outputs, program(*static)):
+                dst.copy_(src)
+
+        graph, = capture_graphs([(name, capture)], warm, self.pool)
+        return _Signature(graph, static, outputs, keep)
+
+    def pool_bytes(self) -> int:
+        """What the captures reserved on the card, all signatures."""
+        return sum(e.graph.pool_bytes for e in self.entries.values())
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,9 @@ BAD_PLAN = -1  # kBadPlan in csrc/*.cu
 
 _COUNT_LOCK = threading.Lock()
 _RECORD = threading.local()
+# Records that also take the launches made on a CUDA stream, by any thread:
+# {raw stream: record}.
+_STREAM_RECORDS: dict = {}
 
 
 def count(fn, attr: str = "launches") -> None:
@@ -33,25 +36,38 @@ def count(fn, attr: str = "launches") -> None:
     several threads at once (``parallel.serve_sharding``), where ``+=`` on
     an attribute could lose a count. Inside ``recording()`` the launch goes
     to the record instead: a launch captured into a CUDA graph runs when
-    the graph replays."""
+    the graph replays. Only a launch on the card counts."""
     record = getattr(_RECORD, "launches", None)
-    if record is not None:
-        record[(fn, attr)] = record.get((fn, attr), 0) + 1
-        return
+    if record is None and _STREAM_RECORDS:
+        record = _STREAM_RECORDS.get(torch.cuda.current_stream().cuda_stream)
     with _COUNT_LOCK:
-        setattr(fn, attr, getattr(fn, attr) + 1)
+        if record is not None:
+            record[(fn, attr)] = record.get((fn, attr), 0) + 1
+        else:
+            setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 @contextlib.contextmanager
-def recording():
+def recording(stream=None):
     """Count this thread's launches into a fresh dict {(fn, attr): n}
-    instead of the counters (a graph's capture, work not to be counted)."""
+    instead of the counters (a graph's capture, work not to be counted).
+    With `stream`, a CUDA stream that only this work uses (a capture's or
+    a warm-up's), also the launches any other thread makes on it: on the
+    card the autograd engine runs a backward on a thread of its own, on
+    the stream of its forward."""
     outer = getattr(_RECORD, "launches", None)
-    _RECORD.launches = {}
+    record = _RECORD.launches = {}
+    key = None if stream is None else stream.cuda_stream
+    if key is not None:
+        with _COUNT_LOCK:
+            _STREAM_RECORDS[key] = record
     try:
-        yield _RECORD.launches
+        yield record
     finally:
         _RECORD.launches = outer
+        if key is not None:
+            with _COUNT_LOCK:
+                del _STREAM_RECORDS[key]
 
 
 def add_counts(record: dict) -> None:

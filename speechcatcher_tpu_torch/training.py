@@ -18,7 +18,12 @@ BatchNorm running statistics included: they are leaves of the JAX tree, and
 ``jax.value_and_grad`` differentiates the eval-mode affine through them.
 
 Parameters update in place; ``train_step`` returns the same tree and state
-objects, as the JAX function returns their successors.
+objects, as the JAX function returns their successors. On a card, outside
+a mesh and a tp group, the step is a CUDA graph per batch signature and
+``evaluate`` two per eval bucket (``decode.graphs.SignatureGraphs``): the
+counterparts of the JAX package's jit-compiled ``train_step``,
+``_eval_metrics`` and ``_encode_and_collapse``. The CPU, and a step under
+a mesh, run the same programs eagerly.
 
 Over a mesh (``parallel.mesh``, one process per card) ``train_step`` equals
 the JAX package's GSPMD step on the global batch: each dp rank takes its
@@ -35,19 +40,25 @@ cpu`` for the CPU) or, with ``--coordinator``, as one process per card.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from speechcatcher_tpu_torch.config import ModelConfig
 from speechcatcher_tpu_torch.models.ctc import ctc_loss
 from speechcatcher_tpu_torch.models.decoder import decoder_forward_train
 from speechcatcher_tpu_torch.models.encoder import encoder_forward_train
 from speechcatcher_tpu_torch.parallel.mesh import Mesh, is_tp_sharded
-from speechcatcher_tpu_torch.params import trainable_leaves, tree_leaves
+from speechcatcher_tpu_torch.parallel.tp import tp_group
+from speechcatcher_tpu_torch.params import (
+    trainable_leaves,
+    tree_leaves,
+    tree_map,
+)
 
 # adamw's constants in optax (its defaults, which the JAX trainer keeps).
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -63,6 +74,13 @@ class TrainBatch(NamedTuple):
     token_lens: torch.Tensor  # (B,)
 
 
+def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 one-hot rows of `ids` over n classes. ``F.one_hot`` reads the
+    ids' range on the host on the CPU; this reads nothing."""
+    return (ids.long()[..., None]
+            == torch.arange(n, device=ids.device)).long()
+
+
 def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor,
                        lengths: torch.Tensor, smoothing: float = 0.1,
                        count: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -72,7 +90,7 @@ def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor,
     (the global count of a dp rank's share)."""
     vocab = logits.shape[-1]
     logp = torch.log_softmax(logits, dim=-1)
-    onehot = F.one_hot(targets.long(), vocab).to(logp.dtype)
+    onehot = _one_hot(targets, vocab).to(logp.dtype)
     smoothed = onehot * (1.0 - smoothing) + smoothing / vocab
     nll = -(smoothed * logp).sum(dim=-1)
     mask = (torch.arange(targets.shape[1], device=targets.device)[None, :]
@@ -116,7 +134,7 @@ def joint_loss(params: Dict[str, Any], batch: TrainBatch, cfg: ModelConfig,
     b, u = tokens.shape
     ys_in = torch.cat([torch.full((b, 1), cfg.sos_id, dtype=tokens.dtype,
                                   device=tokens.device), tokens], dim=1)
-    eos = F.one_hot(batch.token_lens.long(), u + 1) * cfg.eos_id
+    eos = _one_hot(batch.token_lens, u + 1) * cfg.eos_id
     ys_out = torch.cat([tokens, tokens.new_zeros((b, 1))], dim=1) + eos
     logits = decoder_forward_train(params["decoder"], enc_out, enc_lens,
                                    ys_in, batch.token_lens + 1, cfg)
@@ -134,21 +152,27 @@ def joint_loss(params: Dict[str, Any], batch: TrainBatch, cfg: ModelConfig,
 
 def warmup_lr_schedule(peak_lr: float, warmup_steps: int):
     """ESPnet's WarmupLR: lr · warmup^0.5 · min(step^-0.5, step ·
-    warmup^-1.5), the step raised to at least 1; computed in float32."""
-    def schedule(step) -> float:
+    warmup^-1.5), the step raised to at least 1; computed in float32, of a
+    host int or of a device tensor (the step a graphed update reads)."""
+    scale = np.float32(peak_lr * warmup_steps ** 0.5)
+    ramp = np.float32(warmup_steps ** -1.5)
+
+    def schedule(step):
+        if isinstance(step, torch.Tensor):
+            s = step.float().clamp(min=1.0)
+            return torch.minimum(s.pow(-0.5), s * float(ramp)) * float(scale)
         s = np.maximum(np.float32(step), np.float32(1.0))
-        return float(np.float32(peak_lr * warmup_steps ** 0.5)
-                     * np.minimum(s ** np.float32(-0.5),
-                                  s * np.float32(warmup_steps ** -1.5)))
+        return float(scale * np.minimum(s ** np.float32(-0.5), s * ramp))
     return schedule
 
 
 @dataclasses.dataclass
 class AdamState:
-    """The optimizer's state: updates made, the trained leaves and their
-    first and second moments."""
+    """The optimizer's state: updates made (an int32 tensor on the leaves'
+    device, so that a captured update reads it), the trained leaves and
+    their first and second moments."""
 
-    count: int
+    count: torch.Tensor
     leaves: List[torch.Tensor]
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
@@ -157,13 +181,20 @@ class AdamState:
     tp_group: Optional[Any] = None
     sharded: Optional[List[bool]] = None
     tp_summed: Optional[List[bool]] = None
+    # The train step's CUDA graphs (``train_step``): they hold the
+    # addresses of the leaves, moments and count, so they live and die
+    # with this state.
+    graphs: Optional[Any] = dataclasses.field(default=None, repr=False,
+                                              compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """optax's ``chain(clip_by_global_norm(grad_clip), adamw(lr,
     weight_decay=...))`` on the parameter tree's floating-point leaves,
-    updated in place."""
+    updated in place. Everything that changes from step to step (the
+    count, the bias corrections, the learning rate, the clip factor) is a
+    device tensor, as in optax's jitted update: the host reads nothing."""
 
     lr: float = 1e-3
     weight_decay: float = 1e-6
@@ -175,8 +206,10 @@ class AdamW:
         Under a mesh with tp > 1 the state records which leaves are tp
         shards (``parallel.mesh.shard_params``)."""
         leaves = trainable_leaves(params)
+        device = leaves[0].device if leaves else torch.device("cpu")
         state = AdamState(
-            count=0, leaves=leaves,
+            count=torch.zeros((), dtype=torch.int32, device=device),
+            leaves=leaves,
             mu=[torch.zeros_like(x, requires_grad=False) for x in leaves],
             nu=[torch.zeros_like(x, requires_grad=False) for x in leaves])
         if mesh is not None and mesh.shape["tp"] > 1:
@@ -187,7 +220,9 @@ class AdamW:
             state.tp_summed = [p.endswith(TP_SUMMED) for p in paths]
         return state
 
-    def learning_rate(self, count: int) -> float:
+    def learning_rate(self, count):
+        """The rate after `count` updates: of a host int a float, of a
+        device tensor a float32 tensor."""
         if self.warmup_steps > 0:
             return warmup_lr_schedule(self.lr, self.warmup_steps)(count)
         return self.lr
@@ -200,23 +235,22 @@ class AdamW:
             keep = norm < self.grad_clip
             torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
             torch._foreach_mul_(grads, torch.where(keep, 1.0, self.grad_clip))
-        state.count += 1
+        state.count.add_(1)
         # mu = (1 - b1)·g + b1·mu, nu = (1 - b2)·g² + b2·nu.
         torch._foreach_mul_(state.mu, B1)
         torch._foreach_add_(state.mu, grads, alpha=1.0 - B1)
         torch._foreach_mul_(state.nu, B2)
         torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - B2)
-        c1 = float(1.0 - np.float32(B1) ** np.float32(state.count))
-        c2 = float(1.0 - np.float32(B2) ** np.float32(state.count))
-        mu_hat = torch._foreach_div(state.mu, c1)
-        denom = torch._foreach_div(state.nu, c2)
+        step = state.count.float()
+        mu_hat = torch._foreach_div(state.mu, 1.0 - torch.pow(B1, step))
+        denom = torch._foreach_div(state.nu, 1.0 - torch.pow(B2, step))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, EPS)
         upd = torch._foreach_div(mu_hat, denom)
         if self.weight_decay:
             torch._foreach_add_(upd, state.leaves, alpha=self.weight_decay)
-        lr = self.learning_rate(state.count - 1)
-        torch._foreach_add_(state.leaves, upd, alpha=-lr)
+        torch._foreach_mul_(upd, self.learning_rate(state.count - 1))
+        torch._foreach_sub_(state.leaves, upd)
 
 
 def _global_norm_sq(grads: List[torch.Tensor], state: AdamState
@@ -252,6 +286,82 @@ def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-6,
                  grad_clip=grad_clip)
 
 
+# The metrics of a step, in the order of the stacked tensor its program
+# returns.
+METRICS = ("loss", "ctc", "att")
+
+
+def graphed(device: torch.device) -> bool:
+    """Whether ``train_step`` (without a mesh) and ``evaluate`` run as CUDA
+    graphs: on a card, outside a tp group, whose collectives (gloo through
+    host memory) a graph cannot hold."""
+    return device.type == "cuda" and tp_group() is None
+
+
+def _step(params, state: AdamState, batch: TrainBatch, cfg: ModelConfig,
+          optimizer: AdamW, mesh: Optional[Mesh] = None,
+          update: Optional[AdamState] = None) -> torch.Tensor:
+    """The train step's program: loss, gradients of ``state.leaves``, the
+    optimizer step in place on `update` (by default `state`); returns the
+    metrics stacked in ``METRICS`` order.
+
+    The loss reads a view of each trained leaf and the gradients are taken
+    at the views: the leaves' own gradient accumulators, which a caller's
+    live autograd graph may keep tied to the stream it ran on, take no
+    part (a capture would wait on that stream, and fail)."""
+    views = {id(x): x.view_as(x) for x in state.leaves}
+    tree = tree_map(lambda x: views.get(id(x), x), params)
+    loss, metrics = joint_loss(tree, batch, cfg, mesh=mesh)
+    # A leaf the loss does not use gets zeros, as under jax.grad.
+    grads = list(torch.autograd.grad(
+        loss, [views[id(x)] for x in state.leaves], allow_unused=True,
+        materialize_grads=True))
+    if mesh is not None and mesh.dp_group is not None:
+        _all_reduce_flat(grads, mesh.dp_group)
+    if state.tp_group is not None:
+        _all_reduce_flat([g for g, s in zip(grads, state.tp_summed) if s],
+                         state.tp_group)
+    optimizer.update(grads, update or state)
+    return torch.stack([metrics[k] for k in METRICS]).detach()
+
+
+def _graph_constants(cfg: ModelConfig, device: torch.device) -> tuple:
+    """The cached constant tensors the programs read (the encoder's and
+    decoder's position tables, the block mask): a graph holds them, so
+    that a cache eviction cannot free what it reads."""
+    from speechcatcher_tpu_torch.models import decoder, encoder
+
+    return encoder._constants(cfg, device), decoder._pe_table(cfg, device)
+
+
+def _graphed_step(params, state: AdamState, batch: TrainBatch,
+                  cfg: ModelConfig, optimizer: AdamW) -> torch.Tensor:
+    """``_step`` as a CUDA graph of the batch's signature, captured at first
+    use into the state's graphs (``graphs.SignatureGraphs``); the warm-up
+    updates a copy of the state."""
+    from speechcatcher_tpu_torch.decode.graphs import SignatureGraphs
+
+    if state.graphs is None:
+        state.graphs = SignatureGraphs()
+    device = state.count.device
+
+    def program(*static):
+        return [_step(params, state, TrainBatch(*static), cfg, optimizer)]
+
+    def warmup(*static):
+        copy = dataclasses.replace(
+            state, count=state.count.clone(),
+            leaves=[x.detach().clone() for x in state.leaves],
+            mu=[x.clone() for x in state.mu],
+            nu=[x.clone() for x in state.nu], graphs=None)
+        return [_step(params, state, TrainBatch(*static), cfg, optimizer,
+                      update=copy)]
+
+    return state.graphs.run(
+        (cfg, optimizer), "train_step", batch, program, warmup,
+        keep=_graph_constants(cfg, device), device=device)[0]
+
+
 def train_step(params: Dict[str, Any], opt_state: AdamState,
                batch: TrainBatch, cfg: ModelConfig, optimizer: AdamW,
                mesh: Optional[Mesh] = None):
@@ -259,19 +369,41 @@ def train_step(params: Dict[str, Any], opt_state: AdamState,
     step in place. Returns (params, opt_state, metrics) with detached
     metric tensors. Under a mesh, `params` are this rank's shards
     (``shard_params``), `opt_state` comes from ``optimizer.init(params,
-    mesh)`` and `batch` holds this dp rank's rows (``shard_batch``)."""
-    loss, metrics = joint_loss(params, batch, cfg, mesh=mesh)
-    # A leaf the loss does not use gets zeros, as under jax.grad.
-    grads = list(torch.autograd.grad(loss, opt_state.leaves,
-                                     allow_unused=True,
-                                     materialize_grads=True))
-    if mesh is not None and mesh.dp_group is not None:
-        _all_reduce_flat(grads, mesh.dp_group)
-    if opt_state.tp_group is not None:
-        _all_reduce_flat([g for g, s in zip(grads, opt_state.tp_summed) if s],
-                         opt_state.tp_group)
-    optimizer.update(grads, opt_state)
-    return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+    mesh)`` and `batch` holds this dp rank's rows (``shard_batch``).
+
+    The counterpart of the JAX package's jit-compiled ``train_step``: on a
+    card without a mesh, one CUDA graph per signature (batch shapes and
+    dtypes, config, optimizer), captured at first use over the state's
+    leaves, moments and count and static batch buffers, all of a state's
+    signatures in one memory pool (``graphs.SignatureGraphs``). The CPU
+    runs the same program eagerly. Under a mesh the step is eager by
+    configuration: its dp and tp all-reduces (gloo or NCCL) and the global
+    batch size the host reads are no part of a graph here."""
+    if mesh is None and graphed(opt_state.count.device):
+        stacked = _graphed_step(params, opt_state, batch, cfg, optimizer)
+    else:
+        stacked = _step(params, opt_state, batch, cfg, optimizer, mesh)
+    return params, opt_state, dict(zip(METRICS, stacked.unbind()))
+
+
+# Eval graphs of each parameter tree, weakly keyed on its first leaf:
+# (weak references to every leaf at capture, SignatureGraphs).
+_EVAL_GRAPHS = WeakIdKeyDictionary()
+
+
+def _eval_graphs(params):
+    """The eval graphs of a parameter tree; new ones when any leaf was
+    replaced since they were captured (two trees never share a graph, and
+    a tree's graphs die with it)."""
+    from speechcatcher_tpu_torch.decode.graphs import SignatureGraphs
+
+    leaves = [x for _, x in tree_leaves(params)]
+    entry = _EVAL_GRAPHS.get(leaves[0])
+    if (entry is None or len(entry[0]) != len(leaves)
+            or any(ref() is not x for ref, x in zip(entry[0], leaves))):
+        entry = _EVAL_GRAPHS[leaves[0]] = (
+            [weakref.ref(x) for x in leaves], SignatureGraphs())
+    return entry[1]
 
 
 def evaluate(params, cfg: ModelConfig, batches, tokenizer=None
@@ -281,23 +413,44 @@ def evaluate(params, cfg: ModelConfig, batches, tokenizer=None
 
     `batches` yields (TrainBatch, ref_texts) pairs (``BucketBatcher``
     with_refs=True); a flush-padded batch carries fewer refs than rows and
-    only those rows are scored."""
+    only those rows are scored. On a card outside a tp group, each eval
+    bucket's two programs (the counterparts of the JAX package's jitted
+    ``_eval_metrics`` and ``_encode_and_collapse``: two encoder passes a
+    batch, as there) are CUDA graphs of the tree's eval graphs; the host
+    reads the metrics and tokens after each replay."""
     from speechcatcher_tpu_torch.decode.greedy import _encode_and_collapse
     from speechcatcher_tpu_torch.wer import word_error_rate
 
-    sums = {"loss": 0.0, "ctc": 0.0, "att": 0.0}
+    def metrics(*batch):
+        m = joint_loss(params, TrainBatch(*batch), cfg)[1]
+        return [torch.stack([m[k] for k in METRICS])]
+
+    def greedy(feats, feat_lens):
+        return list(_encode_and_collapse(params, feats, feat_lens, cfg))
+
+    device = next(tree_leaves(params))[1].device
+    eval_graphs = _eval_graphs(params) if graphed(device) else None
+    keep = _graph_constants(cfg, device) if eval_graphs else ()
+
+    def run(name, program, inputs):
+        if eval_graphs is None:
+            return program(*inputs)
+        return eval_graphs.run((name, cfg), name, inputs, program,
+                               keep=keep, device=device)
+
+    sums = {k: 0.0 for k in METRICS}
     refs: list = []
     hyps: list = []
     n = 0
     with torch.no_grad():
         for batch, texts in batches:
-            m = joint_loss(params, batch, cfg)[1]
-            for k in sums:
-                sums[k] += float(m[k])
+            m = run("eval_metrics", metrics, tuple(batch))[0].tolist()
+            for k, v in zip(METRICS, m):
+                sums[k] += v
             n += 1
             if tokenizer is not None:
-                tokens, counts = _encode_and_collapse(
-                    params, batch.feats, batch.feat_lens, cfg)
+                tokens, counts = run("encode_and_collapse", greedy,
+                                     (batch.feats, batch.feat_lens))
                 tokens, counts = tokens.cpu().numpy(), counts.cpu().numpy()
                 for i, text in enumerate(texts):
                     refs.append(text)

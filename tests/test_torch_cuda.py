@@ -17,6 +17,7 @@ import torch
 
 from speechcatcher_tpu_torch.models.encoder import block_attention_mask
 from speechcatcher_tpu_torch.ops.kernels.block_attention import (
+    BlockAttentionFn,
     block_attention,
     block_attention_plain,
 )
@@ -28,6 +29,7 @@ from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
     ctc_forward_recursion_streams_plain,
 )
 from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+    RelBlockAttentionFn,
     rel_block_attention,
     rel_block_attention_plain,
 )
@@ -713,8 +715,8 @@ def test_flagship_width_train_step_matches_cpu(dev):
     """One train_step at the flagship's widths (d 512, 8 heads, FFN 2048,
     vocab 1024; depth cut to 2 + 2 layers) on the card and on the CPU, from
     the same weights and batch: loss within 1e-5 relative, gradients and
-    parameters within the tolerances of chip_smoke.train_vs_cpu (CUDA's
-    ctc_loss and index backwards add with atomics)."""
+    parameters within the tolerances of chip_smoke.train_vs_cpu (atomic-add
+    backwards sum in no fixed order)."""
     from speechcatcher_tpu_torch.config import flagship_config
     from speechcatcher_tpu_torch.data import (
         BucketBatcher,
@@ -759,6 +761,100 @@ def test_flagship_width_train_step_matches_cpu(dev):
     diffs = np.concatenate([np.abs(pg - pc).ravel() for (_, pc), (_, pg) in
                             zip(tree_leaves(p_cpu), tree_leaves(p_gpu))])
     assert diffs.max() <= 2e-3 and (diffs > 1e-6).mean() <= 0.01
+
+
+def _small_train_model(dev, encoder_type, seed=4):
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.params import random_params
+
+    cfg = flagship_config(encoder_type=encoder_type, encoder_layers=2,
+                          decoder_layers=1)
+    tree = random_params(cfg, seed)
+    return cfg, tree, lambda: ASRModel.from_numpy(cfg, tree, dev)
+
+
+def _train_batches(model, n_utts=24):
+    from speechcatcher_tpu_torch.data import BucketBatcher, synthetic_dataset
+
+    utts = synthetic_dataset(n_utts, model.cfg, model.tokenizer, seed=2)
+    return list(BucketBatcher(model.frontend, model.tokenizer,
+                              batch_size=4).batches(utts, with_refs=True))
+
+
+@pytest.mark.parametrize("encoder_type", ["transformer", "conformer"])
+def test_train_step_graphs_replay_the_eager_step(dev, encoder_type,
+                                                 monkeypatch):
+    """Four train steps under WarmupLR and a clip, on two batch signatures
+    of one pool (flagship widths, 2 + 1 layers), graphed against the eager
+    program twice, under deterministic algorithms: each step's losses and
+    the final parameters, moments and count within the eager step's
+    difference from itself (0 when it repeats itself); A (E) forward and
+    backward counted once a layer per replay, through the capture's record
+    (the backward runs on autograd's own thread)."""
+    from speechcatcher_tpu_torch import training
+
+    cfg, _, make = _small_train_model(dev, encoder_type)
+    batches = [b for b, _ in _train_batches(make())]
+    shapes = sorted({b.feats.shape for b in batches})
+    steps = [next(b for b in batches if b.feats.shape == shapes[i % 2])
+             for i in range(4)]
+    kernel, fn = ((rel_block_attention, RelBlockAttentionFn)
+                  if encoder_type == "conformer"
+                  else (block_attention, BlockAttentionFn))
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for graphed in (False, False, True):
+            monkeypatch.setattr(training, "graphed", lambda d, g=graphed: g)
+            model = make()
+            opt = training.make_optimizer(warmup_steps=2, grad_clip=1.0)
+            state = opt.init(model.params)
+            before = (kernel.launches, fn.backward_launches)
+            losses = []
+            for b in steps:
+                _, _, m = training.train_step(model.params, state, b, cfg,
+                                              opt)
+                losses.append([float(m[k]) for k in training.METRICS])
+            torch.cuda.synchronize()
+            launched = (kernel.launches - before[0],
+                        fn.backward_launches - before[1])
+            runs.append((losses, state, launched))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (le, se, _), (l2, s2, _), (lg, sg, launched) = runs
+    assert sg.graphs is not None and len(sg.graphs.entries) == 2
+    assert launched == (cfg.encoder_layers * 4,) * 2
+    yard = max(abs(a - b) for x, y in zip(le, l2) for a, b in zip(x, y))
+    assert max(abs(a - b) for x, y in zip(le, lg)
+               for a, b in zip(x, y)) <= yard
+    for key in ("leaves", "mu", "nu"):
+        yard = max(float((a - b).detach().abs().max())
+                   for a, b in zip(getattr(se, key), getattr(s2, key)))
+        diff = max(float((a - b).detach().abs().max())
+                   for a, b in zip(getattr(se, key), getattr(sg, key)))
+        assert diff <= yard, (key, diff, yard)
+    assert int(sg.count) == int(se.count) == 4
+
+
+def test_evaluate_graphs_equal_eager(dev, monkeypatch):
+    """``evaluate`` with the tokenizer, graphed twice (capture, then
+    replays only) and eager: the same losses, WER and CER."""
+    from speechcatcher_tpu_torch import training
+    from speechcatcher_tpu_torch.decode import graphs
+
+    cfg, _, make = _small_train_model(dev, "transformer")
+    model = make()
+    batches = _train_batches(model, 12)
+    n0 = len(graphs.CAPTURED)
+    got = training.evaluate(model.params, cfg, batches, model.tokenizer)
+    n1 = len(graphs.CAPTURED)
+    again = training.evaluate(model.params, cfg, batches, model.tokenizer)
+    monkeypatch.setattr(training, "graphed", lambda d: False)
+    want = training.evaluate(model.params, cfg, batches, model.tokenizer)
+    assert got == again == want
+    assert n1 - n0 == 2 * len({b.feats.shape for b, _ in batches})
+    assert len(graphs.CAPTURED) == n1
 
 
 # ---------------------------------------------------------------------------

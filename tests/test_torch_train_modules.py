@@ -334,10 +334,9 @@ def _ctc_case(feasible: bool):
 
 @pytest.mark.parametrize("feasible", [True, False])
 def test_ctc_loss_against_optax(feasible):
-    """Feasible batches: equal loss and gradients. An infeasible row (more
-    labels than frames): optax clamps it to a finite value, torch's CTC
-    gives inf; the batcher's 2U+1 guard keeps such rows out of training
-    (a documented divergence, not a fault)."""
+    """Equal loss and gradients, for a feasible batch and for one with an
+    infeasible row (more labels than frames), which optax, and the port's
+    copy of its formulation, give a large finite value."""
     from speechcatcher_tpu.models.ctc import ctc_loss as JL
     from speechcatcher_tpu_torch.models.ctc import ctc_loss as PL
 
@@ -352,8 +351,6 @@ def test_ctc_loss_against_optax(feasible):
                         jnp.asarray(hs))
     if not feasible:
         assert np.isfinite(float(loss_j)) and float(loss_j) > 1e3
-        assert loss_p.item() == float("inf")
-        return
     np.testing.assert_allclose(loss_p.item(), float(loss_j), rtol=1e-5)
     loss_p.backward()
     np.testing.assert_allclose(n(hs_t.grad), n(grads_j[1]), rtol=GRAD_RTOL,
