@@ -1,0 +1,1 @@
+"""The benchmark of speechcatcher_tpu_torch (see benchmark/README.md)."""
