@@ -69,6 +69,7 @@ from speechcatcher_tpu_torch.ops.frontend import (
 )
 from speechcatcher_tpu_torch.ops.kernels import _plan
 from speechcatcher_tpu_torch.parallel.tp import tp_group
+from speechcatcher_tpu_torch.utils.metrics import TRACER
 
 # Beam steps per replay of the step graph (K). A block of n live steps
 # costs max(1, ceil(n / K)) host waits and K * max(1, ceil(n / K)) - n
@@ -236,7 +237,7 @@ def capture_graphs(programs: Sequence, warmup: Callable,
     cyclic garbage collector is off meanwhile: collected garbage can hold
     graphs (a sharded engine and its counters refer to each other), and a
     graph destroyed during a capture invalidates it."""
-    with _CAPTURE_LOCK, _no_cyclic_gc():
+    with TRACER.span("graphs.capture"), _CAPTURE_LOCK, _no_cyclic_gc():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side), _plan.recording(side):
@@ -374,13 +375,14 @@ class BlockLoop:
         """Decode one block: per-stream frames visible so far, frames added,
         frames visible after, whether the stream steps, whether the block
         is its last."""
-        self.ints.put(np.stack([np.asarray(x) for x in
-                                (vis, n_new, new_vis, stepping, block_final)
-                                ]).astype(np.int32))
-        if self.graphed:
-            self._run_graphs()
-        else:
-            self._run_eager()
+        with TRACER.span("beam.block"):
+            self.ints.put(np.stack([np.asarray(x) for x in
+                                    (vis, n_new, new_vis, stepping,
+                                     block_final)]).astype(np.int32))
+            if self.graphed:
+                self._run_graphs()
+            else:
+                self._run_eager()
 
     # -- programs over any copy of the state --------------------------------
     def _prologue(self, state, stepping0, out: dict) -> None:
@@ -453,7 +455,8 @@ class BlockLoop:
         steps = 0
         while True:
             step.replay()
-            any_stepping, live = self._flag.read()
+            with TRACER.span("beam.sync"):
+                any_stepping, live = self._flag.read()
             self.syncs += 1
             steps += live
             if not any_stepping:

@@ -41,6 +41,10 @@ appended in place and no snapshot holds them; every other field is computed
 anew and copied back over the old one (``graphs.write_tree``). ``finalize``
 copies the slot's state into the single-stream finalizer's, so nothing lands
 in the engine's rings through a view.
+
+The host's parts of a tick and of the finals (readback, plan, encode,
+extract, drain, reset, ...) are spans of the port's tracer
+(``utils.metrics.TRACER``), which records nothing unless started.
 """
 
 from __future__ import annotations
@@ -92,6 +96,7 @@ from speechcatcher_tpu_torch.ops.layers import layer_norm
 from speechcatcher_tpu_torch.params import CONV_SPECS
 from speechcatcher_tpu_torch.parallel.tp import tp_group
 from speechcatcher_tpu_torch.serve.wire import mulaw_decode as _mulaw_decode
+from speechcatcher_tpu_torch.utils.metrics import TRACER
 
 logger = logging.getLogger(__name__)
 
@@ -781,6 +786,10 @@ class StreamingEngine:
         Returns slot → committed token ids of the best hypothesis (partial
         output, one tick behind).
         """
+        with TRACER.span("engine.tick"):
+            return self._tick(audio)
+
+    def _tick(self, audio: Dict[int, np.ndarray]) -> Dict[int, List[int]]:
         c = self.c
         cfg = self.cfg
         slots = sorted(k for k in audio if c.active[k])
@@ -826,7 +835,8 @@ class StreamingEngine:
 
         # Read the PREVIOUS tick's [ylen | best yseq]: partials lag one tick.
         if self._pending_packed is not None:
-            self._last_packed = self._pending_packed.cpu().numpy()
+            with TRACER.span("engine.tick.readback"):
+                self._last_packed = self._pending_packed.cpu().numpy()
             self._pending_packed = None
             if self._pending_fresh is not None:
                 # Rows computed after the slot's reset clear its staleness;
@@ -863,9 +873,11 @@ class StreamingEngine:
         """Device portion of one tick: the encode, then every beam round of
         the host-known schedule. Returns the last round's packed
         [ylen | best yseq] (None if no round ran)."""
-        bk = self._encode_bookkeeping(do)
-        rounds, vis_f, pb_f = self._round_schedule(do, bk["buf_new"])
-        self._encode(audio, bk)
+        with TRACER.span("engine.tick.plan"):
+            bk = self._encode_bookkeeping(do)
+            rounds, vis_f, pb_f = self._round_schedule(do, bk["buf_new"])
+        with TRACER.span("engine.tick.encode"):
+            self._encode(audio, bk)
         self._apply_encode_counters(bk)
         if not rounds:
             return None
@@ -1099,6 +1111,11 @@ class StreamingEngine:
 
         Returns (yseq, xpos, score) of the best final hypothesis.
         """
+        TRACER.count("engine.final.fallbacks")
+        with TRACER.span("engine.final.fallback"):
+            return self._finalize(s, last_audio)
+
+    def _finalize(self, s: int, last_audio: Optional[np.ndarray]):
         last_audio = None if last_audio is None else self._float_audio(
             last_audio)
         c = self.c
@@ -1179,6 +1196,32 @@ class StreamingEngine:
         Returns slot → (yseq, xpos, score), token-exact against ``finalize``
         (except the capacity clamp, where ``finalize`` raises).
         """
+        with TRACER.span("engine.finalize_batch"):
+            with TRACER.span("engine.final.plan"):
+                items, batch, fallback, meta = self._final_plan(finals)
+            out: Dict[int, Tuple[np.ndarray, np.ndarray, float]] = {}
+            if batch:
+                out.update(self._finalize_compact(batch, items, meta))
+            for s in fallback:
+                # A failing fallback slot must not discard the results the
+                # compact batch already produced (and reset): quarantine
+                # it.
+                try:
+                    out[s] = self.finalize(s, items[s])
+                except Exception:
+                    self.quarantined += 1
+                    logger.exception("finalize failed for slot %d; "
+                                     "quarantining", s)
+                    try:
+                        self._reset_slot(s)
+                    finally:
+                        self.c.active[s] = False
+            return out
+
+    def _final_plan(self, finals: Dict[int, Optional[np.ndarray]]):
+        """finalize_batch's routing: the tails as float32 by slot, the
+        slots of the compact batch, those of the ``finalize`` fallback, and
+        each batched slot's final geometry."""
         c = self.c
         cfg = self.cfg
 
@@ -1192,7 +1235,7 @@ class StreamingEngine:
                 oversize.append(s)
             items[s] = a
         if not items:
-            return {}
+            return items, [], [], {}
 
         bs, hop_b, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
         offset = bs - la - hop_b
@@ -1243,24 +1286,7 @@ class StreamingEngine:
                        bn, y_emit)
             batch.append(s)
 
-        out: Dict[int, Tuple[np.ndarray, np.ndarray, float]] = {}
-        if batch:
-            out.update(self._finalize_compact(batch, items, meta))
-
-        for s in fallback:
-            # A failing fallback slot must not discard the results the
-            # compact batch already produced (and reset): quarantine it.
-            try:
-                out[s] = self.finalize(s, items[s])
-            except Exception:
-                self.quarantined += 1
-                logger.exception("finalize failed for slot %d; "
-                                 "quarantining", s)
-                try:
-                    self._reset_slot(s)
-                finally:
-                    self.c.active[s] = False
-        return out
+        return items, batch, fallback, meta
 
     def _finalize_compact(
         self,
@@ -1279,19 +1305,23 @@ class StreamingEngine:
         bs, hop_b, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
         n_fin = len(batch)
         f = self._compact_width(n_fin)
+        TRACER.count("engine.final.slots", n_fin)
+        TRACER.count("engine.final.rows", f)
         # Padding rows repeat the first slot; they are encoded with it and
         # never decoded.
         padded = batch + [batch[0]] * (f - n_fin)
-        rows = torch.tensor(padded, dtype=torch.long, device=self.device)
-        cb, loop = self._compact_set(f)
-        cst = loop.state
-        write_tree(
-            (cb, cst.arrays, cst.prev_arrays, cst.dec_cache, cst.prev_valid,
-             cst.process_idx, cst.output_index),
-            _extract_rows(self.buffers, self.arrays, self.prev_arrays,
-                          self.dec_cache, self.prev_valid_dev,
-                          self.process_idx_dev, self.output_index_dev, rows,
-                          self.beam))
+        with TRACER.span("engine.final.extract"):
+            rows = torch.tensor(padded, dtype=torch.long,
+                                device=self.device)
+            cb, loop = self._compact_set(f)
+            cst = loop.state
+            write_tree(
+                (cb, cst.arrays, cst.prev_arrays, cst.dec_cache,
+                 cst.prev_valid, cst.process_idx, cst.output_index),
+                _extract_rows(self.buffers, self.arrays, self.prev_arrays,
+                              self.dec_cache, self.prev_valid_dev,
+                              self.process_idx_dev, self.output_index_dev,
+                              rows, self.beam))
 
         do_f = np.arange(f) < n_fin
         buf_f = c.buf_len[padded].astype(np.int64)
@@ -1314,36 +1344,40 @@ class StreamingEngine:
             _assert_fits("raw", cols[3], cols[4], self.RCAP)
             _assert_fits("post", cols[5], cols[6], self.PCAP)
             _assert_fits("enc_out", cols[14], cols[10], self.ECAP)
-            self._final_encode(cb, torch.from_numpy(audio).to(self.device),
-                               self._ints(cols), maxb)
+            with TRACER.span("engine.final.encode"):
+                self._final_encode(
+                    cb, torch.from_numpy(audio).to(self.device),
+                    self._ints(cols), maxb)
             buf_f = buf_f + np.array([meta[s][6] for s in padded], np.int64)
 
         # Drain: each stream runs its remaining full blocks, then its final
         # block (block_final set, visibility extends to every emitted
         # frame). Rounds are lockstep across streams; each stream's own
         # sequence is that of the single-stream loop.
-        vis, pb = vis_f.copy(), pb_f.copy()
-        fdone = np.zeros(f, bool)
-        max_start = -1
-        while True:
-            cur_end = bs - la + hop_b * pb
-            ready = do_f & (cur_end < buf_f)
-            final = do_f & ~ready & ~fdone & (buf_f > 0)
-            step = ready | final
-            if not step.any():
-                break
-            new_vis = np.where(ready, np.minimum(cur_end, buf_f),
-                               np.where(final, buf_f, vis))
-            ext = new_vis - vis
-            assert ext.max() <= self.EXTCAP, (ext.max(), self.EXTCAP)
-            max_start = max(max_start, int(vis[step].max()))
-            self._round(loop, vis, new_vis, step, final)
-            vis = new_vis
-            pb = np.where(ready, pb + 1, pb)
-            fdone = fdone | final
+        with TRACER.span("engine.final.drain"):
+            vis, pb = vis_f.copy(), pb_f.copy()
+            fdone = np.zeros(f, bool)
+            max_start = -1
+            while True:
+                cur_end = bs - la + hop_b * pb
+                ready = do_f & (cur_end < buf_f)
+                final = do_f & ~ready & ~fdone & (buf_f > 0)
+                step = ready | final
+                if not step.any():
+                    break
+                new_vis = np.where(ready, np.minimum(cur_end, buf_f),
+                                   np.where(final, buf_f, vis))
+                ext = new_vis - vis
+                assert ext.max() <= self.EXTCAP, (ext.max(), self.EXTCAP)
+                max_start = max(max_start, int(vis[step].max()))
+                self._round(loop, vis, new_vis, step, final)
+                vis = new_vis
+                pb = np.where(ready, pb + 1, pb)
+                fdone = fdone | final
         self._last_drain_max_start = max_start
 
-        packed = _gather_final_rows(cst.arrays)
+        with TRACER.span("engine.final.readback"):
+            packed = _gather_final_rows(cst.arrays)
         lcap = cst.arrays.yseq.shape[2]
         out = {}
         for i, s in enumerate(batch):
@@ -1351,7 +1385,8 @@ class StreamingEngine:
             out[s] = (packed[i, 1:1 + n].astype(np.int64),
                       packed[i, 1 + lcap:1 + lcap + n].astype(np.int64),
                       float(np.float32(packed[i, -1])))
-        self._reset_slots(batch)
+        with TRACER.span("engine.final.reset"):
+            self._reset_slots(batch)
         for s in batch:
             c.active[s] = False
         return out

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+from speechcatcher_tpu_torch.utils.metrics import TRACER, ServingMetrics
 from speechcatcher_tpu_torch.utils.staging import StagingRing
 
 logger = logging.getLogger(__name__)
@@ -166,8 +167,6 @@ class SessionManager:
         )
         # Exceptions caught (and logged) so that serving goes on, by site.
         self.caught = {"batcher": 0, "finalize_batch": 0, "finalize": 0}
-        from speechcatcher_tpu_torch.utils.metrics import ServingMetrics
-
         self.metrics = ServingMetrics(
             chunk_seconds=self.chunk / self.cfg.sample_rate
         )
@@ -219,7 +218,7 @@ class SessionManager:
         """One engine tick over all sessions with a full chunk staged, then
         finalization for sessions with a pending final. Returns
         sid → Vosk-style message."""
-        with self._lock:
+        with self._lock, TRACER.span("serve.tick"):
             return self._tick_locked()
 
     def _tick_locked(self) -> Dict[int, dict]:
@@ -227,50 +226,56 @@ class SessionManager:
 
         batch: Dict[int, np.ndarray] = {}
         sid_by_slot: Dict[int, int] = {}
-        for sid, sess in self.sessions.items():
-            if sess.closed or sess.slot is None:
-                continue
-            if sess.eof_requested:
-                sess.pending_final = True
-            if sess.staged.available() < self.chunk:
-                continue
-            if self.engine.slot_would_stall(sess.slot):
-                # Encoder ring at capacity: engine.tick would skip the
-                # chunk, so stop consuming and cut a segment final instead
-                # — the staged backlog continues into the re-armed slot
-                # (no audio lost).
-                sess.pending_final = True
-                continue
-            # Backlogs (e.g. a whole file uploaded before {"eof":1}) drain
-            # through normal full-chunk ticks even when a final is pending;
-            # finalize below only ever consumes the sub-chunk remainder.
-            chunk = sess.staged.read(self.chunk)
-            if self.wire != "float32":
-                from speechcatcher_tpu_torch.serve.wire import encode_chunk
+        with TRACER.span("serve.stage"):
+            for sid, sess in self.sessions.items():
+                if sess.closed or sess.slot is None:
+                    continue
+                if sess.eof_requested:
+                    sess.pending_final = True
+                if sess.staged.available() < self.chunk:
+                    continue
+                if self.engine.slot_would_stall(sess.slot):
+                    # Encoder ring at capacity: engine.tick would skip
+                    # the chunk, so stop consuming and cut a segment final
+                    # instead — the staged backlog continues into the
+                    # re-armed slot (no audio lost).
+                    sess.pending_final = True
+                    continue
+                # Backlogs (e.g. a whole file uploaded before {"eof":1})
+                # drain through normal full-chunk ticks even when a final
+                # is pending; finalize below only ever consumes the
+                # sub-chunk remainder.
+                chunk = sess.staged.read(self.chunk)
+                if self.wire != "float32":
+                    from speechcatcher_tpu_torch.serve.wire import (
+                        encode_chunk,
+                    )
 
-                chunk = encode_chunk(chunk, self.wire)
-            batch[sess.slot] = chunk
-            sid_by_slot[sess.slot] = sid
+                    chunk = encode_chunk(chunk, self.wire)
+                batch[sess.slot] = chunk
+                sid_by_slot[sess.slot] = sid
 
         if batch:
             self.metrics.tick_begin(active_streams=len(batch))
             partials = self.engine.tick(batch)
             self.metrics.tick_end()
-            for slot, token_ids in partials.items():
-                sid = sid_by_slot[slot]
-                sess = self.sessions[sid]
-                text = self.tokenizer.ids_to_text(token_ids)
-                sess.partial_iters += 1
-                # Plateau endpointing.
-                sess.n_best_lens.append(len(text))
-                n = self.finalize_update_iters
-                if sess.partial_iters > self.max_partial_iters:
-                    sess.pending_final = True
-                elif len(sess.n_best_lens) > n and all(
-                    x == sess.n_best_lens[-1] for x in sess.n_best_lens[-n:]
-                ) and len(text) > 0:
-                    sess.pending_final = True
-                out[sid] = {"partial": text}
+            with TRACER.span("serve.partials"):
+                for slot, token_ids in partials.items():
+                    sid = sid_by_slot[slot]
+                    sess = self.sessions[sid]
+                    text = self.tokenizer.ids_to_text(token_ids)
+                    sess.partial_iters += 1
+                    # Plateau endpointing.
+                    sess.n_best_lens.append(len(text))
+                    n = self.finalize_update_iters
+                    if sess.partial_iters > self.max_partial_iters:
+                        sess.pending_final = True
+                    elif len(sess.n_best_lens) > n and all(
+                        x == sess.n_best_lens[-1]
+                        for x in sess.n_best_lens[-n:]
+                    ) and len(text) > 0:
+                        sess.pending_final = True
+                    out[sid] = {"partial": text}
 
         pending = [
             (sid, sess)
@@ -301,18 +306,19 @@ class SessionManager:
                                  "fallback")
                 results = None
             if results is not None:
-                for sid, sess in pending:
-                    res = results.get(sess.slot)
-                    if res is not None:
-                        yseq, xpos, _score = res
-                        out[sid] = self._assemble_final(sess, yseq, xpos)
-                        self.metrics.finalized()
-                    else:
-                        # The engine quarantined the slot (its finalize
-                        # raised): emit an empty final and close — the
-                        # cohort's other results are unaffected.
-                        out[sid] = {"result": [], "text": ""}
-                        self.close_session(sid)
+                with TRACER.span("serve.finals"):
+                    for sid, sess in pending:
+                        res = results.get(sess.slot)
+                        if res is not None:
+                            yseq, xpos, _score = res
+                            out[sid] = self._assemble_final(sess, yseq, xpos)
+                            self.metrics.finalized()
+                        else:
+                            # The engine quarantined the slot (its finalize
+                            # raised): emit an empty final and close — the
+                            # cohort's other results are unaffected.
+                            out[sid] = {"result": [], "text": ""}
+                            self.close_session(sid)
             else:
                 # A failing session must not take the batcher (and every
                 # other live session) down with it — finalize each alone,

@@ -438,17 +438,3 @@ def test_serving_metrics_match_jax(monkeypatch, tmp_path):
         snaps.append(m.snapshot())
     assert snaps[2:] == snaps[:2]
     assert snaps[3]["total_ticks"] == 100 and snaps[3]["total_finals"] == 12
-
-
-def test_profiler_trace(tmp_path):
-    import torch
-
-    PM.start_profiler_trace(str(tmp_path))
-    with pytest.raises(RuntimeError):
-        PM.start_profiler_trace(str(tmp_path))
-    torch.ones(8).sum()
-    PM.stop_profiler_trace()
-    traces = list(tmp_path.glob("*.pt.trace.json"))
-    assert len(traces) == 1 and traces[0].stat().st_size > 0
-    with pytest.raises(RuntimeError):
-        PM.stop_profiler_trace()
