@@ -395,7 +395,7 @@ def decode_block_device(
     check_eos_commit(eos_commit)
     loop = LoopSettings(beam, pre_beam, ctc_weight, use_bbd, max_length,
                         penalty, eos_commit)
-    cross_kv = project_cross_kv(params["decoder"], memory,
+    cross_kv = project_cross_kv(params["decoder"], memory, cfg.decoder_heads,
                                 state.dec_cache.h.dtype)
     st = state
     while bool(st.stepping.any()):

@@ -391,6 +391,7 @@ class BlockLoop:
         st = bs.block_extend(m.params, state, self.frames(ints), ints[1],
                              ints[3].bool())
         out["cross_kv"] = project_cross_kv(m.params["decoder"], self.memory,
+                                           m.cfg.decoder_heads,
                                            state.dec_cache.h.dtype)
         write_tree(state, st)
         stepping0.copy_(st.stepping)

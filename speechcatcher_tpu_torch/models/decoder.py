@@ -17,7 +17,11 @@ history mask hides, and the next step overwrites them).
 Cross-attention K/V are linear in the encoder frames, which do not change
 within a decoded block, so ``project_cross_kv`` computes them once per block
 and every beam step of the block reuses them; the numbers are those of
-projecting at every step.
+projecting at every step. They are stored head-major, (S, h, T, dk) a layer:
+the two contractions batch over (stream, head), and in the (S, T, d) rows of
+the projection that batch is no view, so every beam step would copy all of
+K and V into it. Laid out once a block, a step copies only its query and
+output rows.
 
 Precision: the cache and the projected K/V are stored in ``cfg.cache_dtype``.
 The self-attention contracts in float32 over widened operands (the JAX
@@ -165,43 +169,57 @@ def _attend_cached_lane(
 
 def _attend_cross_blocked(
     q: torch.Tensor,      # (N, d) queries, (S, B) order
-    mk: torch.Tensor,     # (S, T, d) memory keys
-    mv: torch.Tensor,     # (S, T, d)
+    mk: torch.Tensor,     # (S, h, T, dk) memory keys, head-major
+    mv: torch.Tensor,     # (S, h, T, dk)
     valid: torch.Tensor,  # (S, T) bool
-    n_head: int,
 ) -> torch.Tensor:
     """Cross-attention over projected K/V shared by a stream's B hyps, on
-    the rank's heads of `n_head` (K and V are the rank's columns). The
-    query is rounded to the K dtype and the attention weights to the V
-    dtype; both contractions run on the widened operands, so the products
-    are exact and accumulate in float32."""
-    s, t, d = mk.shape
+    the heads the K/V hold (the rank's under a tp group). The query is
+    rounded to the K dtype and the attention weights to the V dtype; both
+    contractions run on the widened operands, so the products are exact
+    and accumulate in float32. Batched over (stream, head), which merges
+    into one batch dimension of K and V as they lie: only the query and
+    the output rows are re-laid out."""
+    s, h, t, dk = mk.shape
     n = q.shape[0]
     b = n // s
-    h = local_heads(n_head)
-    dk = d // h
-    qh = q.reshape(s, b, h, dk).to(mk.dtype).float()
-    kh = mk.float().reshape(s, t, h, dk)
-    vh = mv.float().reshape(s, t, h, dk)
-    scores = torch.einsum("sbhd,sthd->sbht", qh, kh) / math.sqrt(dk)
+    qh = q.reshape(s, b, h, dk).transpose(1, 2).to(mk.dtype).float()
+    scores = torch.matmul(qh, mk.float().transpose(2, 3)) / math.sqrt(dk)
     keep = valid[:, None, None, :]
     scores = torch.where(keep, scores, MASK_MIN)
     attn = torch.softmax(scores, dim=-1)
     attn = torch.where(keep, attn, 0.0)
-    out = torch.einsum("sbht,sthd->sbhd", attn.to(mv.dtype).float(), vh)
-    return out.reshape(n, d)
+    out = torch.matmul(attn.to(mv.dtype).float(), mv.float())
+    return out.transpose(1, 2).reshape(n, h * dk)
 
 
-def project_cross_kv(params: Params, memory: torch.Tensor,
+def head_major(x: torch.Tensor, n_head: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """(S, T, h·dk) projected rows as a contiguous (S, h, T, dk) tensor of
+    `dtype`, h the rank's share of `n_head`: one pass that casts and
+    transposes."""
+    s, t, width = x.shape
+    h = local_heads(n_head)
+    out = torch.empty((s, h, t, width // h), dtype=dtype, device=x.device)
+    out.copy_(x.reshape(s, t, h, width // h).transpose(1, 2))
+    return out
+
+
+def project_cross_kv(params: Params, memory: torch.Tensor, n_head: int,
                      cache_dtype: torch.dtype
                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Per-layer (K, V) of the raw encoder frames (S, Tmax, d). The frames
-    are made finite first: stale or NaN rows past enc_len would leak through
+    """Per-layer (K, V) of the raw encoder frames (S, Tmax, d), head-major:
+    (S, h, Tmax, dk) in `cache_dtype` (``head_major``), the layout in
+    which ``_attend_cross_blocked`` contracts them without a copy; laid
+    out here, once a block, instead of in each beam step. The frames are
+    made finite first: stale or NaN rows past enc_len would leak through
     the masked value contraction as 0·NaN."""
     mem_s = torch.where(torch.isfinite(memory), memory, 0.0).to(cache_dtype)
     return [
-        (linear(p["src_attn"]["linear_k"], mem_s).to(cache_dtype),
-         linear(p["src_attn"]["linear_v"], mem_s).to(cache_dtype))
+        (head_major(linear(p["src_attn"]["linear_k"], mem_s), n_head,
+                    cache_dtype),
+         head_major(linear(p["src_attn"]["linear_v"], mem_s), n_head,
+                    cache_dtype))
         for p in params["layers"]
     ]
 
@@ -231,8 +249,9 @@ def decoder_step(
     lmax = cache.h.shape[2]
     cache_dt = cache.h.dtype
     if cross_kv is None:
-        cross_kv = project_cross_kv(params, memory, cache_dt)
-    tmax = cross_kv[0][0].shape[1]
+        cross_kv = project_cross_kv(params, memory, cfg.decoder_heads,
+                                    cache_dt)
+    tmax = cross_kv[0][0].shape[2]
     dev = tokens.device
 
     pos = pos.long()
@@ -263,7 +282,7 @@ def decoder_step(
         hn = layer_norm(p_layer["norm2"], h)
         q = linear(p_layer["src_attn"]["linear_q"], hn)
         mk_l, mv_l = cross_kv[l]
-        att = _attend_cross_blocked(q, mk_l, mv_l, mem_valid, cfg.decoder_heads)
+        att = _attend_cross_blocked(q, mk_l, mv_l, mem_valid)
         h = h + row_parallel_linear(p_layer["src_attn"]["linear_out"], att)
         hn = layer_norm(p_layer["norm3"], h)
         h = h + feed_forward(p_layer["feed_forward"], hn)

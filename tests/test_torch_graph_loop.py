@@ -26,6 +26,9 @@ eagerly:
   power-of-two widths (and the full width), its finals as ``finalize``'s.
 - ``decoder_step``'s fixed-shape cache write against JAX with rows that do
   not write and a row past the cache's capacity.
+- The cross-attention's K/V are the projection laid out head-major once a
+  block, and a beam step copies none of them (``torch.profiler``'s record
+  of the step's ``aten::copy_`` shapes).
 
 The state comes from a tiny engine on the CPU (three streams, seeded
 weights and audio), recorded where its rounds enter the block loop.
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +54,7 @@ from speechcatcher_tpu_torch.decode import beam_search as bs
 from speechcatcher_tpu_torch.decode import graphs
 from speechcatcher_tpu_torch.models.asr_model import ASRModel
 from speechcatcher_tpu_torch.models.decoder import project_cross_kv
+from speechcatcher_tpu_torch.ops.layers import linear
 from speechcatcher_tpu_torch.params import random_params
 from speechcatcher_tpu_torch.serve.engine import StreamingEngine
 
@@ -126,7 +131,7 @@ def _unrolled(loop, memory, k: int, monkeypatch):
     monkeypatch.setattr(graphs, "STEPS_PER_REPLAY", k)
     st = loop.state
     cross_kv = project_cross_kv(loop.model.params["decoder"], memory,
-                                st.dec_cache.h.dtype)
+                                CFG.decoder_heads, st.dec_cache.h.dtype)
     stepping0 = st.stepping.clone()
     flag = torch.zeros(2, dtype=torch.int32)
     replays = 0
@@ -143,7 +148,7 @@ def _stop_steps(model, memory, state, vis_len, block_final, eos_commit):
     """The step after which each stream stops, by the eager loop."""
     settings = _settings(eos_commit)
     cross_kv = project_cross_kv(model.params["decoder"], memory,
-                                state.dec_cache.h.dtype)
+                                CFG.decoder_heads, state.dec_cache.h.dtype)
     st, stops, step = state, [0, 0, 0], 0
     while bool(st.stepping.any()):
         step += 1
@@ -245,6 +250,48 @@ def test_steps_after_the_stop_change_nothing(monkeypatch):
         loop._step(loop.state, cross_kv, flag)
         assert flag.tolist() == [0, 0]
     _assert_bit_equal(loop.state, before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_kv_are_the_projection_laid_out_head_major(dtype):
+    """``project_cross_kv`` gives each layer's K and V as ``linear``'s
+    (S, T, d) rows of the finite frames, cast to the cache dtype and laid
+    out as contiguous (S, h, T, dk), bit for bit."""
+    model, _, memory, _, _, _ = _inputs("nonfinal")
+    dec = model.params["decoder"]
+    h = CFG.decoder_heads
+    s, tm, d = memory.shape
+    mem = torch.where(torch.isfinite(memory), memory, 0.0).to(dtype)
+    cross_kv = project_cross_kv(dec, memory, h, dtype)
+    assert len(cross_kv) == CFG.decoder_layers
+    for p_layer, kv in zip(dec["layers"], cross_kv):
+        for name, got in zip(("linear_k", "linear_v"), kv):
+            rows = linear(p_layer["src_attn"][name], mem).to(dtype)
+            want = rows.reshape(s, tm, h, d // h).transpose(1, 2)
+            assert got.dtype == dtype and got.is_contiguous()
+            assert torch.equal(got, want)
+
+
+def test_a_beam_step_copies_no_cross_kv():
+    """One run of the step program copies no cross K or V: every
+    ``aten::copy_`` it makes moves fewer elements than one layer's K,
+    S·T·d (the query and output rows of the cross-attention are re-laid
+    out, K and V are read where they lie)."""
+    model, _, memory, state, vis_len, final = _inputs("nonfinal")
+    loop = _loop(model, memory, state, vis_len, final, "native")
+    cross_kv = project_cross_kv(model.params["decoder"], memory,
+                                CFG.decoder_heads, state.dec_cache.h.dtype)
+    flag = torch.zeros(2, dtype=torch.int32)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        loop._step(loop.state, cross_kv, flag)
+    assert flag.tolist() == [1, 1]
+    copied = [math.prod(e.input_shapes[0]) for e in prof.events()
+              if e.name == "aten::copy_" and e.input_shapes
+              and e.input_shapes[0]]
+    assert len(copied) > 10
+    assert max(copied) < memory.numel()
 
 
 # ---------------------------------------------------------------------------

@@ -425,12 +425,14 @@ def test_attend_cross_blocked_matches_jax(kv_dtype):
     """With bfloat16 K/V the query is rounded to bfloat16 before the score
     contraction and the attention weights before the value contraction.
     Unit-scale operands: a float32 query against bfloat16 keys differs from
-    the rounded one by about 1e-2, a hundred times the tolerance."""
+    the rounded one by about 1e-2, a hundred times the tolerance. The port
+    takes its K/V head-major (``head_major``), JAX as (S, T, d) rows."""
     from speechcatcher_tpu.models.decoder import (
         _attend_cross_blocked as j_cross,
     )
     from speechcatcher_tpu_torch.models.decoder import (
         _attend_cross_blocked as p_cross,
+        head_major,
     )
 
     q, mk, mv, valid = _cross_operands()
@@ -438,12 +440,12 @@ def test_attend_cross_blocked_matches_jax(kv_dtype):
     pdt = torch.bfloat16 if kv_dtype == "bfloat16" else torch.float32
     ref = j_cross(jnp.asarray(q), jnp.asarray(mk).astype(jdt),
                   jnp.asarray(mv).astype(jdt), jnp.asarray(valid), 2)
-    got = p_cross(t(q), t(mk).to(pdt), t(mv).to(pdt), t(valid), 2)
+    pk, pv = head_major(t(mk), 2, pdt), head_major(t(mv), 2, pdt)
+    got = p_cross(t(q), pk, pv, t(valid))
     assert got.dtype == torch.float32 and ref.dtype == jnp.float32
     np.testing.assert_allclose(n(got), n(ref), **TOL)
     if kv_dtype == "bfloat16":
-        unrounded = p_cross(t(q), t(mk).to(pdt).float(),
-                            t(mv).to(pdt).float(), t(valid), 2)
+        unrounded = p_cross(t(q), pk.float(), pv.float(), t(valid))
         assert float((unrounded - got).abs().max()) > 1e-3
 
 
