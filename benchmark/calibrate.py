@@ -13,10 +13,11 @@ under the cell's limits:
 - ``program``: the check's readings of the served finals (what a benchmark
   run compares);
 - ``control`` and ``control_card_tf32`` (first ``--control-seeds`` seeds):
-  the reference in the program's place, in the precision below the
-  configuration's (every product's operands in TF32,
-  ``reference.asr.in_tf32``; the card's own TF32 mode), scoring the same
-  sample, judged against the float32 reference: the control must fail;
+  the configuration's reference (``Cell.reference``) in the program's
+  place, in the precision below the configuration's (every product's
+  operands in TF32, the reference's ``in_tf32``; the card's own TF32 mode),
+  scoring the same sample, judged against the float32 reference: the
+  control must fail;
 - ``altered``: the served finals with one token each replaced by another
   id: the fault "a token altered where it is produced";
 - ``fault`` with ``--fault half``: a run in which every tick feeds only half
@@ -64,14 +65,13 @@ def card_tf32():
         torch.backends.cudnn.allow_tf32 = False
 
 
-def controlled(ref, picked, chunk: int, beam: int, card: bool = False):
+def controlled(ref, picked, chunk: int, beam: int, lower):
     """The control in the program's place: copies of the picked finals,
-    each scored at its served tokens and positions by the reference in the
-    precision below the configuration's float32, TF32 (every product's
-    operands rounded to TF32, ``reference.asr.in_tf32``; with `card`, the
-    card's own TF32 mode)."""
+    each scored at its served tokens and positions by the reference within
+    `lower()`, the precision below the configuration's float32, TF32: the
+    reference module's ``in_tf32`` (every product's operands rounded to
+    TF32) or ``card_tf32`` (the card's own TF32 mode)."""
     from benchmark.harness import check
-    from benchmark.reference.asr import in_tf32
 
     out = []
     for sv in picked:
@@ -79,7 +79,7 @@ def controlled(ref, picked, chunk: int, beam: int, card: bool = False):
         chunks = check.chunks_of(sv.utt.pcm, sv.tail, chunk)
         if chunks is None:
             continue
-        with (card_tf32() if card else in_tf32()):
+        with lower():
             enc = ref.encode(chunks)
             score = ref.rescore(enc, ref.ctc_logp(enc), yseq, xpos,
                                 beam).score
@@ -146,15 +146,15 @@ def main() -> int:
 
     from benchmark.harness import check, serve, weights
     from benchmark.harness.traffic import Traffic
-    from benchmark.reference.asr import Reference
 
     device = "cuda"
     cell = cells.load(args.workload, args.seeds[0], args.seconds, False,
                       cells.process_seconds())
+    reference = cell.reference
     m = cell.config["model"]
     bias = cell.config["emission_bias"]
     base = cell.config["weights_seed"]
-    tree = weights.make_tree(m, bias, base, device)
+    tree = weights.make_tree(m, bias, base, device, reference.weight_specs)
     system = serve.System(m, tree, cell.traffic, device)
     serve.warm_up(system, Traffic(cell.traffic, args.seeds[0]))
     runs = [(base, s) for s in args.seeds]
@@ -164,7 +164,8 @@ def main() -> int:
     for i, (base, seed) in enumerate(runs):
         cell.seed = seed
         if base != loaded:
-            tree = weights.make_tree(m, bias, base, device)
+            tree = weights.make_tree(m, bias, base, device,
+                                     reference.weight_specs)
             weights.copy_into(system.model.params, tree)
             loaded = base
         undo = drop_half(system.engine) if args.fault else None
@@ -181,7 +182,7 @@ def main() -> int:
         if args.work_only:
             print(json.dumps(line), flush=True)
             continue
-        ref = Reference(m, tree, device)
+        ref = reference.Reference(m, tree, device)
         line["program" if not args.fault else "fault"] = judged(
             serve.judge(ref, out["served"], cell), cell)
         if not args.fault:
@@ -192,13 +193,12 @@ def main() -> int:
                 spec = cell.traffic
                 picked = check.sample(out["served"], cell.checks["sample"],
                                       seed)
-                for card in (False, True):
-                    line["control_card_tf32" if card else "control"] = \
-                        judged(check.reference_readings(
-                            ref, controlled(ref, picked,
-                                            spec["chunk_samples"],
-                                            spec["beam"], card),
-                            spec["chunk_samples"], spec["beam"]), cell)
+                for key, lower in (("control", reference.in_tf32),
+                                   ("control_card_tf32", card_tf32)):
+                    line[key] = judged(check.reference_readings(
+                        ref, controlled(ref, picked, spec["chunk_samples"],
+                                        spec["beam"], lower),
+                        spec["chunk_samples"], spec["beam"]), cell)
         print(json.dumps(line), flush=True)
         del ref, out
         gc.collect()

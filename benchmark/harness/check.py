@@ -4,8 +4,9 @@ After the window has closed and the program's state is freed, a sample of
 the utterances whose finals came back in the window, drawn from the seed
 with the longest among them, is recomputed by the plain reference from the
 same audio, cut into the chunks the server fed (the wire's int16 chunks,
-then the staged tail), and the same weights. For each, the reference scores
-the served hypothesis (``benchmark.reference.asr.Reference.rescore``).
+then the staged tail), and the same weights. For each, the configuration's
+reference (``Reference.rescore`` of the module ``Cell.reference``,
+``benchmark/reference/<name>.py``) scores the served hypothesis.
 
 Numbers compared, each against its limit from ``benchmark/checks/<cell>``:
 

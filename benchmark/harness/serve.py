@@ -389,11 +389,11 @@ def run_cell(cell, device: str = "cuda") -> Dict:
 
     from benchmark.harness import weights
     from benchmark.harness.trace import Trace
-    from benchmark.reference.asr import Reference
 
     m = cell.config["model"]
     tree = weights.make_tree(m, cell.config["emission_bias"],
-                             cell.config["weights_seed"], device)
+                             cell.config["weights_seed"], device,
+                             cell.reference.weight_specs)
     traffic = Traffic(cell.traffic, cell.seed)
     system = System(m, tree, cell.traffic, device)
     warm_up(system, traffic)
@@ -419,6 +419,6 @@ def run_cell(cell, device: str = "cuda") -> Dict:
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out["readings"] = judge(Reference(m, tree, device), out.pop("served"),
-                            cell)
+    out["readings"] = judge(cell.reference.Reference(m, tree, device),
+                            out.pop("served"), cell)
     return out

@@ -3,9 +3,13 @@
 
 Plain PyTorch (float32) and NumPy (float64 for the CTC prefix scores), no
 kernels, no graphs, no batching, one utterance at a time. It imports nothing
-of the measured program: the weights are the benchmark's own tree (the
-layer-stacked layout in which the benchmark hands them to the program) and
-the audio is the benchmark's own.
+of the measured program: the weights are the benchmark's own tree, drawn in
+the layout this module gives (``weight_specs``: the layer-stacked layout in
+which the benchmark hands them to the program), and the audio is the
+benchmark's own. A configuration that names no ``"reference"`` is checked
+by this module; it defines the three names the harness takes from a
+reference (``benchmark.harness.cell.REFERENCE_API``): ``Reference``,
+``weight_specs`` and ``in_tf32``.
 
 What it recomputes from the audio, its chunking and the weights:
 
@@ -74,6 +78,99 @@ def _r(x: torch.Tensor) -> torch.Tensor:
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _r(a) @ _r(b)
+
+
+# ---------------------------------------------------------------------------
+# Weights
+# ---------------------------------------------------------------------------
+
+def weight_specs(m: Dict) -> Dict:
+    """The layout of the weight tree this reference reads, with leaves ("u",
+    shape, bound), ("n", shape), ("0", shape) or ("1", shape) for
+    ``benchmark.harness.weights.make_tree`` to draw.
+
+    It is the layout in which the program loads weights
+    (``ASRModel.from_numpy``: nested dicts, the encoder's ``convs`` list,
+    layer leaves stacked on a leading axis, torch-layout (out, in) linear
+    weights), with the distributions of the program's own random
+    initialisation: uniform ±1/sqrt(fan_in) weights, zero biases, unit
+    LayerNorms, a standard-normal token embedding, Xavier-uniform position
+    biases and identity BatchNorm statistics."""
+    d, vocab = m["encoder_dim"], m["vocab_size"]
+
+    def lin(d_in, d_out, lead=(), bias=True):
+        p = {"weight": ("u", lead + (d_out, d_in), 1.0 / math.sqrt(d_in))}
+        if bias:
+            p["bias"] = ("0", lead + (d_out,))
+        return p
+
+    def norm(n, lead=()):
+        return {"weight": ("1", lead + (n,)), "bias": ("0", lead + (n,))}
+
+    def mha(lead):
+        return {k: lin(d, d, lead) for k in ("linear_q", "linear_k",
+                                              "linear_v", "linear_out")}
+
+    def ffn(hidden, lead):
+        return {"w_1": lin(d, hidden, lead), "w_2": lin(hidden, d, lead)}
+
+    if m["input_layer"] != "conv2d":
+        raise ValueError("the benchmark's weights know the conv2d input layer")
+    f2 = ((m["n_mels"] - 3) // 2 + 1 - 3) // 2 + 1
+    embed = {"convs": [
+        {"weight": ("u", (d, 1, 3, 3), 1.0 / 3.0), "bias": ("0", (d,))},
+        {"weight": ("u", (d, d, 3, 3), 1.0 / math.sqrt(d * 9)),
+         "bias": ("0", (d,))}],
+        "out": lin(d * f2, d)}
+    el = (m["encoder_layers"],)
+    if m["encoder_type"] == "conformer":
+        h = m["encoder_heads"]
+        dk = d // h
+        attn = mha(el)
+        attn["linear_pos"] = {"weight": ("u", el + (d, d),
+                                         1.0 / math.sqrt(d))}
+        xb = math.sqrt(6.0 / (h + dk))
+        attn["pos_bias_u"] = ("u", el + (h, dk), xb)
+        attn["pos_bias_v"] = ("u", el + (h, dk), xb)
+        k = m["conformer_kernel_size"]
+        conv = {
+            "pointwise_conv1": {"weight": ("u", el + (2 * d, d, 1),
+                                           1.0 / math.sqrt(d)),
+                                "bias": ("0", el + (2 * d,))},
+            "depthwise_conv": {"weight": ("u", el + (d, 1, k),
+                                          1.0 / math.sqrt(k)),
+                               "bias": ("0", el + (d,))},
+            "batch_norm": {"weight": ("1", el + (d,)),
+                           "bias": ("0", el + (d,)),
+                           "running_mean": ("0", el + (d,)),
+                           "running_var": ("1", el + (d,))},
+            "pointwise_conv2": {"weight": ("u", el + (d, d, 1),
+                                           1.0 / math.sqrt(d)),
+                                "bias": ("0", el + (d,))},
+        }
+        layers = {"self_attn": attn,
+                  "feed_forward": ffn(m["encoder_linear_units"], el),
+                  "feed_forward_macaron": ffn(m["encoder_linear_units"], el),
+                  "conv_module": conv,
+                  **{n: norm(d, el) for n in ("norm_ff", "norm_ff_macaron",
+                                              "norm_mha", "norm_conv",
+                                              "norm_final")}}
+    else:
+        layers = {"self_attn": mha(el),
+                  "feed_forward": ffn(m["encoder_linear_units"], el),
+                  "norm1": norm(d, el), "norm2": norm(d, el)}
+    dl = (m["decoder_layers"],)
+    decoder = {"embed": {"weight": ("n", (vocab, d))},
+               "layers": {"self_attn": mha(dl), "src_attn": mha(dl),
+                          "feed_forward": ffn(m["decoder_linear_units"], dl),
+                          "norm1": norm(d, dl), "norm2": norm(d, dl),
+                          "norm3": norm(d, dl)},
+               "after_norm": norm(d),
+               "output_layer": lin(d, vocab)}
+    return {"encoder": {"embed": embed, "layers": layers,
+                        "after_norm": norm(d)},
+            "decoder": decoder,
+            "ctc": {"ctc_lo": lin(d, vocab)}}
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ import dataclasses
 import json
 import time
 from pathlib import Path
+from typing import Optional
 
 import pytest
 import torch
@@ -22,8 +23,12 @@ def tiny_model(**overrides) -> dict:
 
 
 def tiny_cell(loop: str = "open", seed: int = 4_000_000_007,
-              encoder_type: str = "transformer", seconds: float = 3.0):
+              encoder_type: str = "transformer", seconds: float = 3.0,
+              reference: Optional[str] = None):
+    """The tiny cell; with `reference`, its configuration names that
+    reference module (without, it names none)."""
     from benchmark.harness.cell import Cell
+    from benchmark.harness.cell import reference as resolve
 
     name = "serve-rt64" if loop == "open" else "backlog256"
     traffic = json.loads((BENCH / "traffic" / f"{name}.json").read_text())
@@ -33,13 +38,16 @@ def tiny_cell(loop: str = "open", seed: int = 4_000_000_007,
                                 "max": 4.0})
     config = {"model": tiny_model(encoder_type=encoder_type),
               "emission_bias": {"eos": 2.0, "blank": 8.0}, "weights_seed": 1}
+    if reference is not None:
+        config["reference"] = reference
     # The whole window is judged, so that a fault that touches some streams
     # cannot slip past a small sample.
     checks = {"sample": 1000, "min_tokens": 1,
               "limits": {"score_gap": 1e-4, "rank_gap": 1e-3}}
     return Cell(name="tiny", chips=1, config=config, traffic=traffic,
                 checks=checks, end_to_end=[], per_layer=[], seed=seed,
-                seconds=seconds, trace=False, t_process=time.perf_counter())
+                seconds=seconds, trace=False, t_process=time.perf_counter(),
+                reference=resolve("tiny", config))
 
 
 @pytest.fixture(autouse=True)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import check, serve
+from benchmark.harness import check, serve, weights
 from conftest import tiny_cell
 
 
@@ -14,14 +14,37 @@ def correct(out, cell) -> bool:
     return check.verdict(out["readings"], cell.checks)
 
 
+@pytest.mark.parametrize("named", [None, "asr"],
+                         ids=["default-reference", "named-asr"])
 @pytest.mark.parametrize("loop", ["open", "closed"])
 @pytest.mark.parametrize("encoder_type", ["transformer", "conformer"])
-def test_a_sound_run_is_correct(loop, encoder_type):
-    cell = tiny_cell(loop, encoder_type=encoder_type)
+def test_a_sound_run_is_correct(loop, encoder_type, named, monkeypatch):
+    """A sound run is correct, and the configuration read the other way
+    (naming ``"reference": "asr"`` or naming none) draws its own tree and
+    reads the same sample bit for bit."""
+    judged = []
+
+    def judge(ref, served, cell):
+        judged.append(list(served))
+        return serve_judge(ref, served, cell)
+
+    serve_judge = serve.judge
+    monkeypatch.setattr(serve, "judge", judge)
+    cell = tiny_cell(loop, encoder_type=encoder_type, reference=named)
     out = serve.run_cell(cell, device="cpu")
     assert out["failed"] == 0
     assert out["readings"]["tokens"] > 10
     assert correct(out, cell), out["readings"]
+    other = tiny_cell(loop, encoder_type=encoder_type,
+                      reference=None if named else "asr")
+    assert other.reference is cell.reference
+    m = other.config["model"]
+    tree = weights.make_tree(m, other.config["emission_bias"],
+                             other.config["weights_seed"], "cpu",
+                             other.reference.weight_specs)
+    again = serve_judge(other.reference.Reference(m, tree, "cpu"),
+                        judged[0], other)
+    assert again == out["readings"]
 
 
 def test_a_step_that_returns_its_state_unchanged(monkeypatch):
@@ -95,29 +118,30 @@ def test_the_control_in_the_programs_place_is_not_correct(loop):
     from pathlib import Path
 
     from benchmark.calibrate import controlled
-    from benchmark.harness import weights
     from benchmark.harness.traffic import Traffic
-    from benchmark.reference.asr import Reference
 
     cell = tiny_cell(loop, seconds=2.5)
+    reference = cell.reference
     committed = json.loads((Path(check.__file__).resolve().parents[1]
                             / "checks" / "xl-transformer.serve-rt64.json")
                            .read_text())
     checks = dict(cell.checks, limits=committed["limits"])
     m = cell.config["model"]
     tree = weights.make_tree(m, cell.config["emission_bias"],
-                             cell.config["weights_seed"], "cpu")
+                             cell.config["weights_seed"], "cpu",
+                             reference.weight_specs)
     system = serve.System(m, tree, cell.traffic, "cpu")
     out = serve.serve_window(system, Traffic(cell.traffic, cell.seed), cell)
     system.close()
     system.unwatch()
-    ref = Reference(m, tree, "cpu")
+    ref = reference.Reference(m, tree, "cpu")
     spec = cell.traffic
     picked = check.sample(out["served"], checks["sample"], cell.seed)
     program = check.reference_readings(ref, picked, spec["chunk_samples"],
                                        spec["beam"])
     control = check.reference_readings(
-        ref, controlled(ref, picked, spec["chunk_samples"], spec["beam"]),
+        ref, controlled(ref, picked, spec["chunk_samples"], spec["beam"],
+                        reference.in_tf32),
         spec["chunk_samples"], spec["beam"])
     assert check.verdict(program, checks), program
     assert control["tokens"] == program["tokens"] > 0

@@ -63,7 +63,8 @@ def test_window_rates_and_latencies_on_the_cpu():
 
     m = cell.config["model"]
     tree = weights.make_tree(m, cell.config["emission_bias"],
-                             cell.config["weights_seed"], "cpu")
+                             cell.config["weights_seed"], "cpu",
+                             cell.reference.weight_specs)
     system = serve.System(m, tree, cell.traffic, "cpu")
     out = serve.serve_window(system, Traffic(cell.traffic, cell.seed), cell)
     system.close()

@@ -36,7 +36,8 @@ def session_final(m, tree, pcm, chunk=8192, beam=3):
                                           (5.0, 77)])
 def test_reference_matches_the_port(encoder_type, seconds, seed):
     m = tiny_model(encoder_type=encoder_type)
-    tree = weights.make_tree(m, {"eos": 2.0, "blank": 8.0}, seed, "cpu")
+    tree = weights.make_tree(m, {"eos": 2.0, "blank": 8.0}, seed, "cpu",
+                             asr.weight_specs)
     pcm = speech_like(seconds, np.random.default_rng(seed), 16000)
     chunks, yseq, xpos, score, frames = session_final(m, tree, pcm)
     ref = asr.Reference(m, tree, "cpu")
@@ -51,7 +52,8 @@ def test_reference_matches_the_port(encoder_type, seconds, seed):
 
 def test_the_control_reads_lower_precision():
     m = tiny_model()
-    tree = weights.make_tree(m, {"eos": 2.0, "blank": 8.0}, 5, "cpu")
+    tree = weights.make_tree(m, {"eos": 2.0, "blank": 8.0}, 5, "cpu",
+                             asr.weight_specs)
     pcm = speech_like(4.0, np.random.default_rng(5), 16000)
     chunks, yseq, xpos, score, _ = session_final(m, tree, pcm)
     ref = asr.Reference(m, tree, "cpu")

@@ -49,7 +49,8 @@ def test_the_step_log_follows_each_beam_step(loop):
     cell = tiny_cell(loop, seconds=2.5)
     m = cell.config["model"]
     tree = weights.make_tree(m, cell.config["emission_bias"],
-                             cell.config["weights_seed"], "cpu")
+                             cell.config["weights_seed"], "cpu",
+                             cell.reference.weight_specs)
     system = serve.System(m, tree, cell.traffic, "cpu")
     trace = StubTrace({"ctc_forward_recursion_kernel<float>": (1, 1.0)})
     out = serve.serve_window(system, Traffic(cell.traffic, cell.seed), cell,
