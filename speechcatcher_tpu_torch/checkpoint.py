@@ -6,7 +6,8 @@ A one-time conversion on the CPU: the state dict is deserialized with
 ``params.params_from_numpy`` takes (layer-stacked ``layers`` leaves, torch
 layouts kept), and the model then moves it to its device. Kept from the
 reference loader:
-- shape-based architecture inference,
+- shape-based architecture inference, and the encoder layer decided from
+  the keys (``encoder_layer_kind``),
 - a name mapping that keeps encoder./decoder./ctc. keys and drops
   frontend./normalize_ keys,
 - MVN stats from feats_stats.npz stored as mean/std or
@@ -23,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from speechcatcher_tpu_torch.config import ModelConfig
+from speechcatcher_tpu_torch.config import CB_CONFORMER, ModelConfig
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +128,40 @@ def _stack(layers) -> Any:
     return np.stack([np.asarray(x) for x in layers])
 
 
+def _conv_module(sd, cm: str) -> Dict[str, Any]:
+    """A conformer convolution module; its BatchNorm is ``norm`` (ESPnet)
+    or ``batch_norm``."""
+    bn = f"{cm}.norm" if f"{cm}.norm.weight" in sd else f"{cm}.batch_norm"
+    return {
+        "pointwise_conv1": _linear(sd, f"{cm}.pointwise_conv1"),
+        "depthwise_conv": _linear(sd, f"{cm}.depthwise_conv"),
+        "pointwise_conv2": _linear(sd, f"{cm}.pointwise_conv2"),
+        "batch_norm": {
+            name: np.asarray(_get(sd, f"{bn}.{name}"), dtype=np.float32)
+            for name in ("weight", "bias", "running_mean", "running_var")
+        },
+    }
+
+
+_LAYER0 = "encoder.encoders.0."
+
+
+def _has_macaron(sd: Dict[str, np.ndarray]) -> bool:
+    return any(k.startswith(_LAYER0 + "feed_forward_macaron.") for k in sd)
+
+
+def encoder_layer_kind(sd: Dict[str, np.ndarray]) -> Optional[str]:
+    """The conformer layer a state dict holds, decided from its keys: a
+    ``self_attn.linear_pos`` is the port's relative-attention conformer
+    (``conformer``); ``norm_mha`` without it ESPnet's contextual-block
+    conformer (``contextual_block_conformer``); neither, None."""
+    if not any(k.startswith(_LAYER0 + "norm_mha") for k in sd):
+        return None
+    if _LAYER0 + "self_attn.linear_pos.weight" in sd:
+        return "conformer"
+    return CB_CONFORMER
+
+
 def convert_state_dict(
     sd: Dict[str, np.ndarray], cfg: ModelConfig
 ) -> Dict[str, Any]:
@@ -166,65 +201,11 @@ def convert_state_dict(
                     "bias": np.asarray(embed_out_b)},
         }
 
-    is_conformer = any(
-        k.startswith("encoder.encoders.0.norm_mha") for k in sd
-    ) or cfg.encoder_type == "conformer"
-
+    kind = encoder_layer_kind(sd) or cfg.encoder_type
     enc_layers = []
     for i in range(cfg.encoder_layers):
         p = f"encoder.encoders.{i}"
-        if is_conformer:
-            attn = _mha(sd, f"{p}.self_attn")
-            attn["linear_pos"] = _linear(sd, f"{p}.self_attn.linear_pos")
-            attn["pos_bias_u"] = np.asarray(
-                _get(sd, f"{p}.self_attn.pos_bias_u"), dtype=np.float32
-            )
-            attn["pos_bias_v"] = np.asarray(
-                _get(sd, f"{p}.self_attn.pos_bias_v"), dtype=np.float32
-            )
-            cm = f"{p}.conv_module"
-            bn_prefix = (
-                f"{cm}.norm" if f"{cm}.norm.weight" in sd
-                else f"{cm}.batch_norm"
-            )
-            enc_layers.append(
-                {
-                    "self_attn": attn,
-                    "feed_forward": _ffn(sd, f"{p}.feed_forward"),
-                    "feed_forward_macaron": _ffn(
-                        sd, f"{p}.feed_forward_macaron"
-                    ),
-                    "conv_module": {
-                        "pointwise_conv1": _linear(sd, f"{cm}.pointwise_conv1"),
-                        "depthwise_conv": _linear(sd, f"{cm}.depthwise_conv"),
-                        "pointwise_conv2": _linear(sd, f"{cm}.pointwise_conv2"),
-                        "batch_norm": {
-                            "weight": np.asarray(
-                                _get(sd, f"{bn_prefix}.weight"),
-                                dtype=np.float32,
-                            ),
-                            "bias": np.asarray(
-                                _get(sd, f"{bn_prefix}.bias"),
-                                dtype=np.float32,
-                            ),
-                            "running_mean": np.asarray(
-                                _get(sd, f"{bn_prefix}.running_mean"),
-                                dtype=np.float32,
-                            ),
-                            "running_var": np.asarray(
-                                _get(sd, f"{bn_prefix}.running_var"),
-                                dtype=np.float32,
-                            ),
-                        },
-                    },
-                    "norm_ff": _norm(sd, f"{p}.norm_ff"),
-                    "norm_ff_macaron": _norm(sd, f"{p}.norm_ff_macaron"),
-                    "norm_mha": _norm(sd, f"{p}.norm_mha"),
-                    "norm_conv": _norm(sd, f"{p}.norm_conv"),
-                    "norm_final": _norm(sd, f"{p}.norm_final"),
-                }
-            )
-        else:
+        if kind == "transformer":
             enc_layers.append(
                 {
                     "self_attn": _mha(sd, f"{p}.self_attn"),
@@ -233,6 +214,32 @@ def convert_state_dict(
                     "norm2": _norm(sd, f"{p}.norm2"),
                 }
             )
+            continue
+        attn = _mha(sd, f"{p}.self_attn")
+        if kind == "conformer":
+            attn["linear_pos"] = _linear(sd, f"{p}.self_attn.linear_pos")
+            attn["pos_bias_u"] = np.asarray(
+                _get(sd, f"{p}.self_attn.pos_bias_u"), dtype=np.float32
+            )
+            attn["pos_bias_v"] = np.asarray(
+                _get(sd, f"{p}.self_attn.pos_bias_v"), dtype=np.float32
+            )
+        layer = {
+            "self_attn": attn,
+            "feed_forward": _ffn(sd, f"{p}.feed_forward"),
+            "conv_module": _conv_module(sd, f"{p}.conv_module"),
+            "norm_ff": _norm(sd, f"{p}.norm_ff"),
+            "norm_mha": _norm(sd, f"{p}.norm_mha"),
+            "norm_conv": _norm(sd, f"{p}.norm_conv"),
+            "norm_final": _norm(sd, f"{p}.norm_final"),
+        }
+        # The port's conformer is always macaron; ESPnet's layer where the
+        # checkpoint has the macaron feed-forward.
+        if kind == "conformer" or _has_macaron(sd):
+            layer["feed_forward_macaron"] = _ffn(
+                sd, f"{p}.feed_forward_macaron")
+            layer["norm_ff_macaron"] = _norm(sd, f"{p}.norm_ff_macaron")
+        enc_layers.append(layer)
 
     encoder = {
         "embed": embed_tree,
@@ -280,11 +287,18 @@ def convert_state_dict(
 
 
 def load_espnet_checkpoint(
-    checkpoint_path: Path, cfg: Optional[ModelConfig] = None
+    checkpoint_path: Path, cfg: Optional[ModelConfig] = None,
+    config_path: Optional[Path] = None,
 ) -> Tuple[Dict[str, Any], ModelConfig, Dict[str, Any]]:
-    """Load + convert. Returns (params, possibly-updated cfg, arch info)."""
+    """Load + convert. Returns (params, possibly-updated cfg, arch info).
+    With `config_path` in place of `cfg`, the config is that ESPnet
+    config.yaml's, built for the conformer kind the keys hold."""
     sd = _load_state_dict(Path(checkpoint_path))
     arch = infer_architecture(sd)
+    kind = encoder_layer_kind(sd)
+    if config_path is not None:
+        cfg = ModelConfig.from_yaml(
+            config_path, **({"encoder_type": kind} if kind else {}))
     if cfg is None:
         cfg = ModelConfig()
     updates = {}
@@ -295,9 +309,17 @@ def load_espnet_checkpoint(
             updates[field] = arch[field]
     if "encoder_dim" in updates:
         updates.setdefault("decoder_dim", updates["encoder_dim"])
-    if any(k.startswith("encoder.encoders.0.norm_mha") for k in sd):
-        if cfg.encoder_type != "conformer":
-            updates["encoder_type"] = "conformer"
+    kind = kind or cfg.encoder_type
+    if kind != cfg.encoder_type:
+        updates["encoder_type"] = kind
+    if kind == CB_CONFORMER:
+        # The macaron flag and the depthwise taps, as the weights hold them.
+        found = {"macaron_style": _has_macaron(sd),
+                 "conformer_kernel_size": int(
+                     sd[_LAYER0 + "conv_module.depthwise_conv.weight"]
+                     .shape[-1])}
+        updates.update({k: v for k, v in found.items()
+                        if getattr(cfg, k) != v})
     if updates:
         logger.info("Checkpoint shape inference overrides config: %s", updates)
         cfg = cfg.replace(**updates)

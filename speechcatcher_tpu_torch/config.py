@@ -16,6 +16,11 @@ import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+CB_CONFORMER = "contextual_block_conformer"
+ENCODER_TYPES = ("transformer", "conformer", CB_CONFORMER)
+# The activations of ``contextual_block_conformer`` layers the port computes.
+ACTIVATIONS = ("swish",)
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -45,9 +50,15 @@ class ModelConfig:
     init_average: bool = True
     ctx_pos_enc: bool = True
     pos_enc_max_len: int = 5000
-    encoder_type: str = "transformer"  # transformer | conformer
+    encoder_type: str = "transformer"  # see ENCODER_TYPES
 
     conformer_kernel_size: int = 31
+    # ``contextual_block_conformer`` only: ESPnet's ``macaron_style`` (a
+    # half-step feed-forward before the attention, both halved) and
+    # ``activation_type`` of the feed-forwards and the convolution module.
+    # The port's ``conformer`` is always macaron with ReLU feed-forwards.
+    macaron_style: bool = True
+    activation_type: str = "swish"
 
     # Decoder.
     decoder_dim: int = 256
@@ -68,6 +79,15 @@ class ModelConfig:
     cache_dtype: str = "float32"
     ctc_ring_dtype: str = "float32"
     enc_ring_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.encoder_type not in ENCODER_TYPES:
+            raise ValueError(f"encoder_type {self.encoder_type!r} is not one "
+                             f"of {ENCODER_TYPES}")
+        if (self.encoder_type == CB_CONFORMER
+                and self.activation_type not in ACTIVATIONS):
+            raise ValueError(f"activation_type {self.activation_type!r}: the "
+                             f"port computes {ACTIVATIONS} alone")
 
     @property
     def cache_torch_dtype(self) -> torch.dtype:
@@ -119,7 +139,18 @@ class ModelConfig:
         if vocab_size is None:
             token_list = cfg.get("token_list")
             vocab_size = len(token_list) if token_list else 1024
-        encoder_type = cfg.get("encoder", "contextual_block_transformer")
+        # The yaml's name gives the kind unless the caller settled it: the
+        # port's conformer and ESPnet's both go by contextual_block_conformer,
+        # and only a checkpoint's keys tell them apart.
+        encoder = str(cfg.get("encoder", "contextual_block_transformer"))
+        if "encoder_type" in overrides:
+            encoder_type = overrides["encoder_type"]
+        elif encoder == CB_CONFORMER:
+            encoder_type = CB_CONFORMER
+        elif "conformer" in encoder:
+            encoder_type = "conformer"
+        else:
+            encoder_type = "transformer"
         kwargs: Dict[str, Any] = dict(
             vocab_size=vocab_size,
             n_fft=fr.get("n_fft", 512),
@@ -135,19 +166,45 @@ class ModelConfig:
             look_ahead=enc.get("look_ahead", 16),
             init_average=enc.get("init_average", True),
             ctx_pos_enc=enc.get("ctx_pos_enc", True),
-            encoder_type=(
-                "conformer" if "conformer" in str(encoder_type) else "transformer"
-            ),
+            encoder_type=encoder_type,
             decoder_dim=enc.get("output_size", 256),
             decoder_heads=dec.get("attention_heads", 4),
             decoder_linear_units=dec.get("linear_units", 2048),
             decoder_layers=dec.get("num_blocks", 6),
         )
+        if encoder_type == CB_CONFORMER:
+            kwargs.update(_cb_conformer_keys(enc, fr))
         kwargs.update(overrides)
         return cls(**kwargs)
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _cb_conformer_keys(enc: Dict[str, Any], fr: Dict[str, Any]
+                       ) -> Dict[str, Any]:
+    """The ``contextual_block_conformer`` keys of an ESPnet encoder_conf, at
+    ESPnet's defaults where absent (no macaron, 31 taps, swish), and the
+    frontend's, at the defaults of ESPnet's ``DefaultFrontend`` (n_fft 512,
+    win_length n_fft, hop_length 128, 80 mels) that its recipes get without
+    a frontend_conf. Refuses, naming the key, what the port does not
+    compute."""
+    if not enc.get("use_cnn_module", True):
+        raise ValueError("use_cnn_module: false: the port's "
+                         "contextual_block_conformer always has the "
+                         "convolution module")
+    act = enc.get("activation_type", "swish")
+    if act not in ACTIVATIONS:
+        raise ValueError(f"activation_type {act!r}: the port's "
+                         f"contextual_block_conformer computes "
+                         f"{ACTIVATIONS} alone")
+    return dict(macaron_style=bool(enc.get("macaron_style", False)),
+                conformer_kernel_size=int(enc.get("cnn_module_kernel", 31)),
+                activation_type=act,
+                n_fft=fr.get("n_fft", 512),
+                win_length=fr.get("win_length") or fr.get("n_fft", 512),
+                hop_length=fr.get("hop_length", 128),
+                n_mels=fr.get("n_mels", 80))
 
 
 def tiny_config(**overrides: Any) -> ModelConfig:

@@ -98,14 +98,12 @@ class ASRModel:
 
         resolve_device(device)
         model_dir = Path(model_dir)
-        cfg = None
         config_path = model_dir / "config.yaml"
-        if config_path.exists():
-            cfg = ModelConfig.from_yaml(config_path)
         ckpt = find_checkpoint(model_dir)
         if ckpt is None:
             raise FileNotFoundError(f"No checkpoint found in {model_dir}")
-        tree, cfg, arch = load_espnet_checkpoint(ckpt, cfg)
+        tree, cfg, arch = load_espnet_checkpoint(
+            ckpt, config_path=config_path if config_path.exists() else None)
         logger.info("Loaded %s with arch %s", ckpt, arch)
 
         mean = std = None

@@ -10,9 +10,12 @@ stream's offsets as device integers, is what ``decode.graphs.ChunkStep``
 captures per static signature (``StreamingEncoder.subsample_program``,
 ``blocks_program``). Transformer layers attend inside the
 (block_size+2)-wide windows through the ``block_attention`` kernel
-(``ops.layers.multi_head_attention``); conformer layers through the
-``rel_block_attention`` kernel (``ops.conformer.rel_position_attention``),
-with the raw sinusoid table of the window as position embedding.
+(``ops.layers.multi_head_attention``); the port's conformer layers through
+the ``rel_block_attention`` kernel (``ops.conformer.rel_position_attention``),
+with the raw sinusoid table of the window as position embedding; ESPnet's
+contextual-block conformer layers (``contextual_block_conformer``) through
+``block_attention`` again, their positions being the absolute ones added
+to the block's frames, as in the transformer.
 
 ``encoder_forward_train`` runs whole utterances as the reference's training
 forward does: every block of every utterance at once, N = B·block_num
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from speechcatcher_tpu_torch.config import ModelConfig
+from speechcatcher_tpu_torch.config import CB_CONFORMER, ModelConfig
 from speechcatcher_tpu_torch.ops.conformer import (
     conv_module,
     rel_position_attention,
@@ -49,6 +52,7 @@ from speechcatcher_tpu_torch.ops.layers import (
     linear,
     multi_head_attention,
     sinusoidal_pe_table,
+    swish,
 )
 from speechcatcher_tpu_torch.params import CONV_SPECS, conv_len
 
@@ -111,8 +115,38 @@ def _conformer_block(p_layer: Params, h: torch.Tensor,
     return layer_norm(p_layer["norm_final"], h)
 
 
+def _cb_conformer_block(p_layer: Params, h: torch.Tensor,
+                        mask: Optional[torch.Tensor], n_head: int,
+                        pos_emb: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """ESPnet's contextual-block conformer layer
+    (``contextual_block_encoder_layer.py``): with ``macaron_style`` (the
+    layer has ``feed_forward_macaron``) ½ swish FFN first; then MHSA with
+    absolute positions (pos_emb unused; a 2-D block mask goes to kernel A),
+    the conv module, the swish FFN (½ with macaron, else whole) and the
+    final LayerNorm, each sub-block pre-norm with a residual."""
+    scale = 1.0
+    if "feed_forward_macaron" in p_layer:
+        scale = 0.5
+        hn = layer_norm(p_layer["norm_ff_macaron"], h)
+        h = h + scale * feed_forward(p_layer["feed_forward_macaron"], hn,
+                                     swish)
+    hn = layer_norm(p_layer["norm_mha"], h)
+    h = h + multi_head_attention(p_layer["self_attn"], hn, hn, hn, mask,
+                                 n_head)
+    hn = layer_norm(p_layer["norm_conv"], h)
+    h = h + conv_module(p_layer["conv_module"], hn)
+    hn = layer_norm(p_layer["norm_ff"], h)
+    h = h + scale * feed_forward(p_layer["feed_forward"], hn, swish)
+    return layer_norm(p_layer["norm_final"], h)
+
+
+_LAYERS = {"transformer": _attn_ffn, "conformer": _conformer_block,
+           CB_CONFORMER: _cb_conformer_block}
+
+
 def _layer_fn(layer_kind: str):
-    return _conformer_block if layer_kind == "conformer" else _attn_ffn
+    return _LAYERS[layer_kind]
 
 
 def apply_layers_infer(

@@ -3,7 +3,9 @@
 Port of ``speechcatcher_tpu/ops/conformer.py`` (inference):
 
 - ``conv_module``: optional LayerNorm → pointwise (2C) → GLU → depthwise
-  'same' conv → BatchNorm from running statistics → Swish → pointwise.
+  'same' conv → BatchNorm from running statistics → Swish → pointwise;
+  the layer of both conformers (the port's and ESPnet's
+  ``contextual_block_conformer``).
 - ``rel_position_attention``: Transformer-XL "legacy" relative attention
   with learned pos_bias_u / pos_bias_v and the reshape-trick ``rel_shift``.
   The streaming encoder's windows (a shared 2-D geometry mask, one shared
@@ -37,6 +39,7 @@ from speechcatcher_tpu_torch.ops.layers import (
     linear,
     mha_project,
     row_parallel_linear,
+    swish,
 )
 from speechcatcher_tpu_torch.parallel.tp import local_rows
 
@@ -64,7 +67,7 @@ def conv_module(p: Params, x: torch.Tensor, eps: float = 1e-5
     bn = p["batch_norm"]
     h = (h - bn["running_mean"]) * torch.rsqrt(bn["running_var"] + eps)
     h = h * bn["weight"] + bn["bias"]
-    h = h * torch.sigmoid(h)
+    h = swish(h)
     w2 = p["pointwise_conv2"]["weight"][:, :, 0].float()
     return torch.matmul(h, w2.t()) + p["pointwise_conv2"]["bias"]
 

@@ -186,10 +186,17 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = LAYERNORM_EPS
     return xhat * p["weight"] + p["bias"]
 
 
-def feed_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Position-wise FFN: w_2(relu(w_1(x)))."""
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """x · sigmoid(x): the conformers' convolution module and ESPnet's
+    conformer feed-forwards."""
+    return x * torch.sigmoid(x)
+
+
+def feed_forward(p: Params, x: torch.Tensor, activation=torch.relu
+                 ) -> torch.Tensor:
+    """Position-wise FFN: w_2(activation(w_1(x))), ReLU by default."""
     return row_parallel_linear(
-        p["w_2"], torch.relu(linear(p["w_1"], copy_to_tp(x))))
+        p["w_2"], activation(linear(p["w_1"], copy_to_tp(x))))
 
 
 def mha_project(p: Params, x: torch.Tensor, name: str, n_head: int

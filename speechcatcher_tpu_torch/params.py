@@ -6,9 +6,10 @@ the ``convs`` list), layer-stacked ``layers`` leaves with a leading layer
 axis, torch-layout (out, in) Linear weights, float32 everywhere. The
 distributions are those of the JAX initialisers (uniform ±1/sqrt(fan_in)
 weights, zero biases, unit LayerNorm, standard-normal token embedding; for
-the conformer also Xavier-uniform position biases and identity BatchNorm
-statistics), drawn from ``np.random.default_rng(seed)``; the numbers differ
-from JAX's own random_init, which uses JAX keys.
+the port's conformer also Xavier-uniform position biases, for both
+conformers identity BatchNorm statistics), drawn from
+``np.random.default_rng(seed)``; the numbers differ from JAX's own
+random_init, which uses JAX keys.
 
 ``params_from_numpy(tree, device)`` turns any such numpy tree into tensors,
 whether it came from here or from the JAX package; ``params_to_numpy`` turns
@@ -24,7 +25,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from speechcatcher_tpu_torch.config import ModelConfig
+from speechcatcher_tpu_torch.config import CB_CONFORMER, ModelConfig
 
 CONV_SPECS = {
     "conv2d": ([3, 3], [2, 2]),
@@ -137,6 +138,21 @@ def _encoder(rng, cfg: ModelConfig) -> Dict[str, Any]:
                 "norm_ff", "norm_ff_macaron", "norm_mha", "norm_conv",
                 "norm_final")},
         }
+    elif cfg.encoder_type == CB_CONFORMER:
+        # ESPnet's layer: plain attention (no position projection or
+        # biases), a macaron feed-forward only with macaron_style.
+        layers = {
+            "self_attn": _mha(rng, d, lead),
+            "feed_forward": _ffn(rng, d, cfg.encoder_linear_units, lead),
+            "conv_module": _conv_module(rng, d, cfg.conformer_kernel_size,
+                                        lead),
+            **{name: _layer_norm(d, lead) for name in (
+                "norm_ff", "norm_mha", "norm_conv", "norm_final")},
+        }
+        if cfg.macaron_style:
+            layers["feed_forward_macaron"] = _ffn(
+                rng, d, cfg.encoder_linear_units, lead)
+            layers["norm_ff_macaron"] = _layer_norm(d, lead)
     else:
         layers = {
             "self_attn": _mha(rng, d, lead),

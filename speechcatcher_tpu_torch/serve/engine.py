@@ -44,7 +44,10 @@ in the engine's rings through a view.
 
 The host's parts of a tick and of the finals (readback, plan, encode,
 extract, drain, reset, ...) are spans of the port's tracer
-(``utils.metrics.TRACER``), which records nothing unless started.
+(``utils.metrics.TRACER``), which records nothing unless started; its
+counter ``encoder.windows`` adds the windows (streams × blocks a stream,
+padding included) that each tick encode and each final encode send through
+the layer stack, from the host's plan.
 """
 
 from __future__ import annotations
@@ -878,6 +881,7 @@ class StreamingEngine:
             rounds, vis_f, pb_f = self._round_schedule(do, bk["buf_new"])
         with TRACER.span("engine.tick.encode"):
             self._encode(audio, bk)
+        TRACER.count("encoder.windows", self.S * bk["maxb"])
         self._apply_encode_counters(bk)
         if not rounds:
             return None
@@ -903,7 +907,8 @@ class StreamingEngine:
         n_frames = np.where(can, (total - (win - hop)) // hop, 0)
         n_res = np.where(can, (total - (win - hop)) % hop, 0)
         keep_len = np.where(can, (win - hop) + n_res, total)
-        stft_frames = n_frames + 2  # 1 + proc_len//hop, proc=240+n*hop
+        # 1 + proc_len // hop over proc_len = (win - hop) + n_frames * hop.
+        stft_frames = 1 + ((win - hop) + n_frames * hop) // hop
         trim_start = np.where(c.first_wave, 0, self.trim)
         valid_feats = np.where(
             can, np.maximum(stft_frames - trim_start - self.trim, 0), 0)
@@ -1348,6 +1353,7 @@ class StreamingEngine:
                 self._final_encode(
                     cb, torch.from_numpy(audio).to(self.device),
                     self._ints(cols), maxb)
+            TRACER.count("encoder.windows", f * maxb)
             buf_f = buf_f + np.array([meta[s][6] for s in padded], np.int64)
 
         # Drain: each stream runs its remaining full blocks, then its final

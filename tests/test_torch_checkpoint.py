@@ -110,9 +110,9 @@ def test_conformer_is_detected_from_the_keys():
 # ---------------------------------------------------------------------------
 
 def _espnet_config(cfg: ModelConfig) -> dict:
-    return {
+    conf = {
         "encoder": ("contextual_block_conformer"
-                    if cfg.encoder_type == "conformer"
+                    if cfg.encoder_type != "transformer"
                     else "contextual_block_transformer"),
         "encoder_conf": {
             "output_size": cfg.encoder_dim,
@@ -135,6 +135,11 @@ def _espnet_config(cfg: ModelConfig) -> dict:
                           "win_length": cfg.win_length},
         "token_list": [f"t{i}" for i in range(cfg.vocab_size)],
     }
+    if cfg.encoder_type == "contextual_block_conformer":
+        conf["encoder_conf"].update(macaron_style=cfg.macaron_style,
+                                    cnn_module_kernel=cfg.conformer_kernel_size,
+                                    activation_type=cfg.activation_type)
+    return conf
 
 
 # Without a config.yaml the architecture is inferred from shapes over the
@@ -159,9 +164,9 @@ def test_from_directory_matches_jax(model_dir):
     run, tree, with_config = model_dir
     pm = ASRModel.from_directory(run, device="cpu")
     jm = JaxModel.from_directory(run)
-    import dataclasses
+    from test_torch_common import shared_fields
 
-    assert dataclasses.asdict(pm.cfg) == dataclasses.asdict(jm.cfg)
+    assert shared_fields(pm.cfg) == shared_fields(jm.cfg)
     if with_config:
         assert pm.cfg == DIR_CFG.replace(max_enc_frames=2048, max_tokens=500)
     else:   # inferred over the defaults
@@ -252,9 +257,9 @@ def test_load_espnet_checkpoint_matches_jax(tmp_path, wrap):
     j_params, j_cfg, j_arch = J.load_espnet_checkpoint(ckpt)
     _assert_same_leaves(params, j_params)
     _assert_same_leaves(params, tree)
-    import dataclasses
+    from test_torch_common import shared_fields
 
-    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(j_cfg)
+    assert shared_fields(got_cfg) == shared_fields(j_cfg)
     assert arch == j_arch
     assert got_cfg.encoder_type == "conformer"
     assert (got_cfg.encoder_dim, got_cfg.decoder_dim, got_cfg.vocab_size) \
@@ -387,3 +392,120 @@ def test_unpack_refuses_an_unknown_format(tmp_path):
     junk.write_bytes(b"not an archive")
     with pytest.raises(ValueError, match="Unknown archive format"):
         _unpack(junk, tmp_path / "dest")
+
+
+# ---------------------------------------------------------------------------
+# ESPnet's contextual-block conformer
+# ---------------------------------------------------------------------------
+
+CB = "contextual_block_conformer"
+
+
+@pytest.mark.parametrize("macaron", [True, False])
+def test_a_tree_without_linear_pos_converts_to_espnets_conformer(tmp_path,
+                                                                 macaron):
+    """ESPnet's layer names, ``conv_module.norm`` for the BatchNorm and no
+    ``linear_pos``: the kind, the macaron flag and the taps come from the
+    keys and shapes over the default config, and every leaf is kept."""
+    cfg = tiny_config(encoder_type=CB, macaron_style=macaron,
+                      conformer_kernel_size=5)
+    tree = _tree(cfg)
+    sd = espnet_state_dict(tree, cfg)
+    assert not any("linear_pos" in k or "pos_bias" in k for k in sd)
+    assert "encoder.encoders.0.conv_module.norm.running_var" in sd
+    assert any("feed_forward_macaron" in k for k in sd) == macaron
+    run = write_model_dir(tmp_path, cfg, tree)
+    params, got, _ = P.load_espnet_checkpoint(run / "valid.acc.ave_6best.pth")
+    assert (got.encoder_type, got.macaron_style, got.conformer_kernel_size) \
+        == (CB, macaron, 5)
+    _assert_same_leaves(params, tree)
+    # With its config.yaml the directory loads as the same model.
+    run = write_model_dir(tmp_path / "with_config", cfg, tree,
+                          config=_espnet_config(cfg))
+    pm = ASRModel.from_directory(run, device="cpu")
+    assert pm.cfg == cfg.replace(max_enc_frames=2048, max_tokens=500)
+
+
+def test_a_relative_attention_tree_stays_the_ports_conformer(tmp_path):
+    """``linear_pos`` in the keys: the port's conformer, though the
+    config.yaml names ESPnet's ``contextual_block_conformer``."""
+    cfg = DIR_CFG.replace(encoder_type="conformer", conformer_kernel_size=7)
+    tree = _tree(cfg)
+    conf = _espnet_config(cfg)
+    assert conf["encoder"] == CB
+    assert ModelConfig.from_espnet_dict(conf).encoder_type == CB
+    run = write_model_dir(tmp_path, cfg, tree, config=conf)
+    pm = ASRModel.from_directory(run, device="cpu")
+    assert pm.cfg.encoder_type == "conformer"
+    assert "linear_pos" in pm.params["encoder"]["layers"][0]["self_attn"]
+
+
+def test_a_relative_attention_yaml_keeps_the_jax_defaults(tmp_path):
+    """A config.yaml with neither frontend_conf nor macaron_style over a
+    ``linear_pos`` tree: the port's conformer takes the JAX package's
+    defaults (window 400, hop 160), not the DefaultFrontend defaults that
+    ESPnet's layer gets under the same encoder name."""
+    from test_torch_common import PORT_ONLY, shared_fields
+
+    cfg = DIR_CFG.replace(encoder_type="conformer")
+    conf = _espnet_config(cfg)
+    del conf["frontend_conf"]
+    assert conf["encoder"] == CB
+    run = write_model_dir(tmp_path, cfg, _tree(cfg), config=conf)
+    pm = ASRModel.from_directory(run, device="cpu")
+    jm = JaxModel.from_directory(run)
+    assert shared_fields(pm.cfg) == shared_fields(jm.cfg)
+    assert (pm.cfg.win_length, pm.cfg.hop_length) == (400, 160)
+    for k in PORT_ONLY:
+        assert getattr(pm.cfg, k) == getattr(ModelConfig, k), k
+
+
+# The AISHELL-1 streaming-conformer recipe's values, as the benchmark's
+# ``aishell-cb-conformer`` configuration assumes them; no frontend_conf, so
+# ESPnet's DefaultFrontend defaults.
+RECIPE = {
+    "encoder": CB,
+    "encoder_conf": {"output_size": 256, "attention_heads": 4,
+                     "linear_units": 2048, "num_blocks": 12,
+                     "dropout_rate": 0.1, "positional_dropout_rate": 0.1,
+                     "attention_dropout_rate": 0.0, "input_layer": "conv2d",
+                     "normalize_before": True, "activation_type": "swish",
+                     "macaron_style": True, "use_cnn_module": True,
+                     "cnn_module_kernel": 15, "block_size": 40,
+                     "hop_size": 16, "look_ahead": 16, "init_average": True,
+                     "ctx_pos_enc": True},
+    "decoder": "transformer",
+    "decoder_conf": {"attention_heads": 4, "linear_units": 2048,
+                     "num_blocks": 6, "dropout_rate": 0.1},
+    "model_conf": {"ctc_weight": 0.3, "lsm_weight": 0.1},
+    "token_list": ["<blank>", "<unk>"] + [f"c{i}" for i in range(4230)]
+                  + ["<sos/eos>"],
+}
+
+
+def test_the_recipe_gives_the_benchmarks_configuration():
+    import dataclasses
+    import json
+
+    model = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                        / "configs" / "aishell-cb-conformer.json")
+                       .read_text())["model"]
+    cfg = ModelConfig.from_espnet_dict(RECIPE, max_enc_frames=768,
+                                       max_tokens=192)
+    assert dataclasses.asdict(cfg) == model
+
+
+@pytest.mark.parametrize("key,value", [("use_cnn_module", False),
+                                       ("activation_type", "relu")])
+def test_what_the_port_does_not_compute_is_refused(key, value):
+    conf = dict(RECIPE, encoder_conf=dict(RECIPE["encoder_conf"],
+                                          **{key: value}))
+    with pytest.raises(ValueError, match=key):
+        ModelConfig.from_espnet_dict(conf)
+
+
+def test_an_unknown_encoder_kind_is_refused():
+    with pytest.raises(ValueError, match="encoder_type"):
+        tiny_config(encoder_type="branchformer")
+    with pytest.raises(ValueError, match="activation_type"):
+        tiny_config(encoder_type=CB, activation_type="relu")

@@ -22,8 +22,24 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 
 
+# Fields the port's config has and the JAX package's has not: the keys of
+# ESPnet's contextual-block conformer, a kind the JAX package lacks.
+PORT_ONLY = ("macaron_style", "activation_type")
+
+
+def shared_fields(cfg) -> dict:
+    """A config of either package as a dict of the fields both have."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k not in PORT_ONLY}
+
+
 def jax_config(cfg: ModelConfig) -> JaxConfig:
-    return JaxConfig(**dataclasses.asdict(cfg))
+    """The JAX package's config of a port config of a kind both packages
+    have (the port-only fields at their defaults)."""
+    assert cfg.encoder_type in ("transformer", "conformer"), cfg.encoder_type
+    for k in PORT_ONLY:
+        assert getattr(cfg, k) == getattr(ModelConfig, k), k
+    return JaxConfig(**shared_fields(cfg))
 
 
 def jax_model(cfg: ModelConfig, tree, mean=None, std=None):

@@ -1,14 +1,12 @@
 """Weights: the port's random_params has the JAX pytree's exact structure,
 and params_from_numpy carries any such tree across leaf for leaf."""
 
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
 import torch
 
-from test_torch_common import jax_config
+from test_torch_common import jax_config, shared_fields
 
 from speechcatcher_tpu.models.asr_model import ASRModel as JaxModel
 from speechcatcher_tpu_torch.config import flagship_config, tiny_config
@@ -68,7 +66,7 @@ def test_model_layers_are_views_of_the_stack():
 def test_flagship_config_matches_the_jax_flagship():
     from __graft_entry__ import _flagship_config
 
-    assert dataclasses.asdict(flagship_config()) == dataclasses.asdict(
+    assert shared_fields(flagship_config()) == shared_fields(
         _flagship_config())
 
 
