@@ -9,13 +9,19 @@ flagship width (random weights from a seed), for the transformer encoder and
 for the conformer encoder (``flagship_config(encoder_type="conformer")``):
 three utterances through ``Speech2TextStreaming``, and ten streams through
 the batched ``StreamingEngine`` (8 slots), each final held against the
-single-stream session. Each path reads the launch counts of all five
+single-stream session. Each path reads the launch counts of all six
 kernels, set to 0 just before it. It replays the fixtures blessed by the JAX
 package (a transformer utterance that stops early and a token-rich one, a
 conformer utterance and a token-rich one, one engine run), decodes at small width on the card
 and the CPU, times ticks with 32 busy slots, and prints JSON lines. The
 last line is ``{"ok": true, "device": {...}}``; any failure exits non-zero
 before it.
+
+Kernel F (each LayerNorm of the beam step with its residual add, bias
+add and cache-row write) is held against its plain twin at the beam
+step's rows; ``--profile beam-step`` runs that alone, then times the
+graphed beam step of both benchmark configurations at 32 and 256 streams
+(device ms and kernels a replay), each block bit-equal to the eager loop.
 
 The precision modes: kernel B on bfloat16 log-prob rows against its plain
 version and, to the last bit, against itself on the widened rows; the
@@ -79,6 +85,7 @@ as a process, resumed from its checkpoint.
     python3 chip_smoke.py --profile train-memory       # step and eval memory
     python3 chip_smoke.py --profile train-in-process   # train paths, profiles
     python3 chip_smoke.py --profile mesh-step   # the eager step a mesh runs
+    python3 chip_smoke.py --profile beam-step   # kernel F, graphed beam steps
 
 Imports neither JAX nor the JAX package.
 """
@@ -865,6 +872,111 @@ def check_ring_append_rows_session(dev, cfg, chunk_samples: int):
         "library_ms": lib_ms, "library_ms_runs": l_all,
         "library": "Tensor.index_put_ (precomputed indices)",
     }
+
+# Kernel F's rows in the beam step: (S x beam, d) at the drain's compact
+# width 32 and the backlog's 256 slots, beam 3, at both configurations'
+# decoder widths.
+ADD_LAYER_NORM_SHAPES = ((96, 512), (768, 512), (96, 256), (768, 256))
+ADD_LAYER_NORM = "speechcatcher_tpu_torch.ops.kernels.add_layer_norm"
+
+
+def fused_norm_counter():
+    """Kernel F's wrapper, or None in a checkout from before it: the
+    beam-step phase measures the parent commit with this script too."""
+    import importlib
+    import importlib.util
+
+    if importlib.util.find_spec(ADD_LAYER_NORM) is None:
+        return None
+    return importlib.import_module(ADD_LAYER_NORM).add_layer_norm
+
+
+def check_add_layer_norm(dev):
+    """Kernel F against its plain twin at ADD_LAYER_NORM_SHAPES, without
+    and with the cache write (a float32 and a bfloat16 (N, 48, d) cache,
+    a third of the rows not writing, one row past the capacity): the
+    residual sums and the cache rows exact, the normalised rows within
+    1e-5 of their largest value (the twin's sums run in another order).
+    Each shape with the float32 cache write timed: CUDA-event ms, device
+    us, the twin's ms and the bound (bytes: each operand read once, each
+    result written once). The yardstick, F.layer_norm of the finished sum,
+    is the norm alone. Returns the rows."""
+    import numpy as np
+    import torch
+
+    from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import (
+        add_layer_norm,
+        add_layer_norm_plain,
+    )
+
+    lmax = 48
+    rows = []
+    for n, d in ADD_LAYER_NORM_SHAPES:
+        rng = np.random.default_rng(n + d)
+
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape).astype(np.float32)).to(dev)
+
+        p = {"weight": 1.0 + 0.1 * rand(d), "bias": 0.1 * rand(d)}
+        h, y, b = 3.0 * rand(n, d) + 1.0, rand(n, d), rand(d)
+        pos = torch.from_numpy(rng.integers(0, lmax, n)).to(dev)
+        pos[0] = lmax
+        write = torch.from_numpy(rng.random(n) < 0.67).to(dev)
+        ref_h, ref_hn = add_layer_norm_plain(p, h, y, b)
+        errs, abs_errs = {}, {}
+        for form in ("none", "float32", "bfloat16"):
+            if form == "none":
+                got_h, got_hn = add_layer_norm(p, h, y, b)
+            else:
+                dtype = getattr(torch, form)
+                cache0 = rand(n, lmax, d).to(dtype)
+                cache = cache0.clone()
+                got_h, got_hn = add_layer_norm(p, h, y, b, cache, pos, write)
+                keep = (write & (pos < lmax))[:, None]
+                at = pos.clamp(max=lmax - 1)
+                idx = torch.arange(n, device=dev)
+                cache0[idx, at] = torch.where(keep, got_hn.to(dtype),
+                                              cache0[idx, at])
+                torch.cuda.synchronize()
+                if not torch.equal(cache, cache0):
+                    fail(f"add_layer_norm ({n}, {d}): the {form} cache "
+                         "differs from the kernel's rows written by the "
+                         "twin's rule")
+            torch.cuda.synchronize()
+            if not torch.equal(got_h, ref_h):
+                fail(f"add_layer_norm ({n}, {d}, {form}): h + (y + bias) "
+                     "differs from the twin's")
+            abs_errs[form] = float((got_hn - ref_hn).abs().max())
+            errs[form] = abs_errs[form] / float(ref_hn.abs().max())
+            if errs[form] > 1e-5:
+                fail(f"add_layer_norm ({n}, {d}, {form}): relative error "
+                     f"{errs[form]:.3g} > 1e-5")
+        cache = torch.zeros((n, lmax, d), device=dev)
+
+        def kernel():
+            add_layer_norm(p, h, y, b, cache, pos, write)
+
+        written = int((write & (pos < lmax)).sum())
+        b_ms, b_by = bound(4 * (4 * n * d + 3 * d + written * d)
+                           + 9 * n, 8 * n * d)
+        summed = ref_h.clone()
+        rows.append({
+            "name": "add_layer_norm", "route": "cuda",
+            "source": "speechcatcher_tpu_torch/csrc/add_layer_norm.cu",
+            "replaces": "none (the JAX package's norms are XLA fusions)",
+            "shape": [n, d], "cache": [n, lmax, d],
+            "max_rel_err": errs, "max_abs_err": max(abs_errs.values()),
+            "tol": 1e-5, "ms": cuda_ms(kernel, 200),
+            "device_us": device_us(kernel, "add_layer_norm_kernel"),
+            "plain_ms": cuda_ms(lambda: add_layer_norm_plain(
+                p, h, y, b, cache, pos, write), 50),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(
+                summed, (d,), p["weight"], p["bias"], 1e-12), 200),
+            "library": "F.layer_norm of the finished sum (the norm alone)",
+        })
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3522,8 +3634,11 @@ TP_TRAIN_LOSS_RTOL = 1e-4
 
 
 def kernel_counters():
-    """(the five kernel wrappers, the two autograd Functions): what carries
+    """(the six kernel wrappers, the two autograd Functions): what carries
     a launch count."""
+    from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import (
+        add_layer_norm,
+    )
     from speechcatcher_tpu_torch.ops.kernels.block_attention import (
         BlockAttentionFn,
         block_attention,
@@ -3541,7 +3656,7 @@ def kernel_counters():
     )
 
     return ([block_attention, rel_block_attention, ctc_forward_recursion,
-             ring_append_cols, ring_append_rows],
+             ring_append_cols, ring_append_rows, add_layer_norm],
             [BlockAttentionFn, RelBlockAttentionFn])
 
 
@@ -3924,8 +4039,15 @@ class GraphCheck:
             bit_equal(f"encode {check.encodes}", engine.buffers, start)
             check.encodes += 1
 
+        from speechcatcher_tpu_torch.ops.kernels.block_attention import (
+            block_attention,
+        )
+        from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
+            rel_block_attention,
+        )
+
         step_chunk = graphs.ChunkStep.step
-        attention = kernel_counters()[0][:2]  # A and E
+        attention = [block_attention, rel_block_attention]
 
         def checked_chunk(chunk, source, is_final):
             if not chunk.graphed:
@@ -4086,6 +4208,108 @@ def price_k(costs: dict, hist: dict) -> dict:
                           + (replays * k - int(n)) * costs["masked_step_ms"])
         out[str(k)] = total / max(blocks, 1)
     return out
+
+
+# The beam step's widths: finalize_batch's compact drain at 32 streams and
+# the backlog tick's 256 slots; beam 3 as the benchmark's cells serve.
+BEAM_STEP_WIDTHS = (32, 256)
+BEAM_STEP_BEAM = 3
+
+
+def graph_kernels(graph, reps: int = 10) -> dict:
+    """Kernels one replay of `graph` runs on the card, by torch.profiler
+    over `reps` replays: all of them, and kernel F's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return {"kernels_per_replay": len(names) / reps,
+            "add_layer_norm_per_replay":
+                sum("add_layer_norm_kernel" in n for n in names) / reps}
+
+
+def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
+    """The graphed beam step of both benchmark configurations (the
+    flagship and ESPnet's conformer at the AISHELL-1 widths, random
+    weights with the cells' emission biases) at BEAM_STEP_WIDTHS streams:
+    `blocks` blocks through a ``BlockLoop`` over random frames, each held
+    bit-equal to the eager loop (``GraphCheck``), then, every stream
+    stopped, the step graph's replays: device ms a step (CUDA events over
+    `reps` masked steps, which run every kernel of a live one), kernels a
+    replay by the profiler and by the capture's launch record, kernel F's
+    among them (19 a step at six layers; 0 in a checkout without F)."""
+    import functools
+    import json
+
+    import numpy as np
+    import torch
+
+    from speechcatcher_tpu_torch.config import ModelConfig, flagship_config
+    from speechcatcher_tpu_torch.decode import beam_search as bs
+    from speechcatcher_tpu_torch.decode.graphs import BlockLoop
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.serve.engine import _ring_frames
+
+    cbc = json.loads((ROOT / "benchmark" / "configs"
+                      / "aishell-cb-conformer.json").read_text())
+    configs = (("de-xl-transformer", flagship_config(), (2.0, 8.0)),
+               ("aishell-cb-conformer", ModelConfig(**cbc["model"]),
+                (cbc["emission_bias"]["eos"], cbc["emission_bias"]["blank"])))
+    fused = fused_norm_counter()
+    for name, cfg, biases in configs:
+        model = ASRModel.random_init(cfg, seed=3, device=dev)
+        with torch.no_grad():
+            model.params["decoder"]["output_layer"]["bias"][cfg.eos_id] += \
+                biases[0]
+            model.params["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += biases[1]
+        for s_dim in BEAM_STEP_WIDTHS:
+            ecap = -(-(cfg.max_enc_frames + cfg.block_size) // 64) * 64
+            gen = torch.Generator(device=dev).manual_seed(s_dim)
+            memory = torch.randn((s_dim, ecap, cfg.encoder_dim), device=dev,
+                                 generator=gen)
+            settings = bs.LoopSettings(BEAM_STEP_BEAM, cfg.pre_beam_size,
+                                       cfg.ctc_weight, True, cfg.max_tokens)
+            loop = BlockLoop(
+                model, bs.fresh_block_state(cfg, s_dim, BEAM_STEP_BEAM, dev),
+                memory, settings,
+                frames=functools.partial(_ring_frames, memory,
+                                         cfg.block_size),
+                extcap=cfg.block_size)
+            vis = 0
+            with GraphCheck() as check:
+                for b in range(blocks):
+                    n_new = cfg.block_size if b == 0 else cfg.hop_size
+                    loop.run(np.full(s_dim, vis), np.full(s_dim, n_new),
+                             np.full(s_dim, vis + n_new), np.ones(s_dim),
+                             np.zeros(s_dim))
+                    vis += n_new
+            step = loop._graphs[1]
+            record = {f.__name__: n for (f, _), n in step.launches.items()}
+            costs = replay_costs(loop, reps)
+            row = {"phase": "beam_step", "config": name, "streams": s_dim,
+                   "rows": s_dim * BEAM_STEP_BEAM, "nvidia_smi": smi,
+                   "blocks_checked": check.blocks, "live_steps": loop.steps,
+                   "step_ms": costs["masked_step_ms"],
+                   "step_ms_again": replay_costs(loop, reps)[
+                       "masked_step_ms"],
+                   "readback_ms": costs["readback_ms"],
+                   "launch_record": record, **graph_kernels(step.graph)}
+            if fused is not None and record.get(fused.__name__) != \
+                    3 * cfg.decoder_layers + 1:
+                fail(f"beam_step {name} S={s_dim}: kernel F launched "
+                     f"{record.get(fused.__name__)} times a step")
+            emit(row)
+            del loop, memory
+        del model
+        torch.cuda.empty_cache()
 
 
 def engine_loops(engine) -> list:
@@ -4544,7 +4768,7 @@ def main() -> int:
                     choices=("utterance", "engine", "conformer", "tiling",
                              "recursion", "recognize", "train",
                              "train-memory", "train-in-process",
-                             "mesh-step"),
+                             "mesh-step", "beam-step"),
                     help="profile one main-path utterance (default), "
                     "engine ticks at S=8, one conformer utterance, or the "
                     "attention kernels' device time under either tiling "
@@ -4555,7 +4779,9 @@ def main() -> int:
                     "step's and evaluate's memory at 4 s and 32 s, or the "
                     "graphed train paths with their profiles in one "
                     "process, or the eager step a mesh runs (one card, tp "
-                    "= 2, the NCCL trainer), then stop")
+                    "= 2, the NCCL trainer), or kernel F and the graphed "
+                    "beam step of both benchmark configurations at 32 and "
+                    "256 streams, then stop")
     ap.add_argument("--precision", choices=PRECISIONS, default="float32",
                     help="the model of --profile, --profile engine and "
                     "--profile conformer: float32, that with only the CTC "
@@ -4576,9 +4802,6 @@ def main() -> int:
     from speechcatcher_tpu_torch.ops.kernels import _build
     from speechcatcher_tpu_torch.parallel.mesh import make_mesh
 
-    counters, fns = kernel_counters()
-    (block_attention, rel_block_attention, ctc_forward_recursion,
-     ring_append_cols, ring_append_rows) = counters
     dev = resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4591,6 +4814,15 @@ def main() -> int:
     lib = _build.library()
     emit({"phase": "build", "seconds": lib.build_seconds, "built": lib.built,
           "library": str(lib.path.relative_to(ROOT))})
+    if args.profile == "beam-step":
+        if fused_norm_counter() is not None:
+            for row in check_add_layer_norm(dev):
+                emit({"phase": "kernel", **row})
+        beam_step_costs(dev, smi)
+        return 0
+    counters, fns = kernel_counters()
+    (block_attention, rel_block_attention, ctc_forward_recursion,
+     ring_append_cols, ring_append_rows, add_layer_norm) = counters
 
     if args.profile == "utterance":
         profile_utterance(dev, precision=args.precision)
@@ -4659,6 +4891,9 @@ def main() -> int:
         check_ring_append(dev, cfg, n_new=cfg.hop_size, n_slots=8),
         check_ring_append_rows(dev, cfg, n_slots=8),
     ]
+    fused_rows = check_add_layer_norm(dev)
+    checks += fused_rows[1:]
+    kernels.append(fused_rows[0])
     for k in checks + kernels:
         emit({"phase": "kernel", **k})
     check_gemm(dev, cfg)

@@ -14,6 +14,12 @@ beam step can be captured in a CUDA graph. No beam snapshot holds the cache, and
 rolled-back step's rows are never read again (they sit at positions the
 history mask hides, and the next step overwrites them).
 
+Kernel F (``ops.kernels.add_layer_norm``): each of a step's 3L + 1 norms is
+one launch that also adds the residual and the preceding linear's bias
+(``row_parallel_product`` leaves the bias apart) and, for norm1, writes the
+cache row; on the CPU its twin is the composition it replaces, bit for bit.
+``decoder_forward_train`` keeps ``layer_norm`` (training needs a backward).
+
 Cross-attention K/V are linear in the encoder frames, which do not change
 within a decoded block, so ``project_cross_kv`` computes them once per block
 and every beam step of the block reuses them; the numbers are those of
@@ -45,6 +51,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from speechcatcher_tpu_torch.config import ModelConfig
+from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import add_layer_norm
 from speechcatcher_tpu_torch.ops.kernels.block_attention import MASK_MIN
 from speechcatcher_tpu_torch.ops.layers import (
     Params,
@@ -53,7 +60,7 @@ from speechcatcher_tpu_torch.ops.layers import (
     layer_norm,
     linear,
     multi_head_attention,
-    row_parallel_linear,
+    row_parallel_product,
     sinusoidal_pe_table,
 )
 from speechcatcher_tpu_torch.parallel.tp import (
@@ -244,7 +251,6 @@ def decoder_step(
     place). ``cross_kv`` is ``project_cross_kv(params, memory, ...)``, made
     once per block by the caller; without it the step projects ``memory``
     itself."""
-    n = tokens.shape[0]
     d = cfg.decoder_dim
     lmax = cache.h.shape[2]
     cache_dt = cache.h.dtype
@@ -260,33 +266,33 @@ def decoder_step(
     hist_valid = torch.arange(lmax, device=dev)[None, :] < pos[:, None]
     mem_valid = (torch.arange(tmax, device=dev)[None, :]
                  < enc_len.long()[:, None])
-    # A fixed-shape write, with no host sync: every row writes at its
-    # position (clamped into the cache) and keeps the old value where it
-    # must not write, so rows past the capacity are dropped, as JAX's
-    # mode="drop" scatter drops them. One position a row: no index repeats.
-    write = (write & (pos < lmax))[:, None]
-    wrows = torch.arange(n, device=dev)
-    wpos = pos.clamp(max=lmax - 1)
 
-    h = x
+    # The residual stream is h plus a pending sublayer output y and its
+    # bias b, which the next norm's kernel adds (h + (y + b), the order of
+    # h + linear(...)). Each norm1 also appends this step's rows to the
+    # cache in place, with a fixed-shape write and no host sync: rows that
+    # must not write keep the old value, rows past the capacity are
+    # dropped, as JAX's mode="drop" scatter drops them.
+    h, y, b = x, None, None
     for l, p_layer in enumerate(params["layers"]):
         h_l = cache.h[l]
-        hn = layer_norm(p_layer["norm1"], h)
-        # In place: append this step's rows for the writing hypotheses.
-        h_l[wrows, wpos] = torch.where(write, hn.to(cache_dt),
-                                       h_l[wrows, wpos])
+        h, hn = add_layer_norm(p_layer["norm1"], h, y, b, h_l, pos, write)
         q = linear(p_layer["self_attn"]["linear_q"], hn)
         att = _attend_cached_lane(q, h_l, hn, p_layer["self_attn"], lane,
                                   hist_valid, beam, cfg.decoder_heads)
-        h = h + row_parallel_linear(p_layer["self_attn"]["linear_out"], att)
-        hn = layer_norm(p_layer["norm2"], h)
+        y, b = row_parallel_product(p_layer["self_attn"]["linear_out"], att)
+        h, hn = add_layer_norm(p_layer["norm2"], h, y, b)
         q = linear(p_layer["src_attn"]["linear_q"], hn)
         mk_l, mv_l = cross_kv[l]
         att = _attend_cross_blocked(q, mk_l, mv_l, mem_valid)
-        h = h + row_parallel_linear(p_layer["src_attn"]["linear_out"], att)
-        hn = layer_norm(p_layer["norm3"], h)
-        h = h + feed_forward(p_layer["feed_forward"], hn)
+        y, b = row_parallel_product(p_layer["src_attn"]["linear_out"], att)
+        h, hn = add_layer_norm(p_layer["norm3"], h, y, b)
+        p_ff = p_layer["feed_forward"]
+        y, b = row_parallel_product(
+            p_ff["w_2"], torch.relu(linear(p_ff["w_1"], copy_to_tp(hn))))
     if cfg.normalize_before:
-        h = layer_norm(params["after_norm"], h)
+        _, h = add_layer_norm(params["after_norm"], h, y, b)
+    else:
+        h = h + (y if b is None else y + b)
     logits = output_logits(params, h)
     return torch.log_softmax(logits, dim=-1), cache

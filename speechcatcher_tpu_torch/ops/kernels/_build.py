@@ -45,6 +45,8 @@ _SIGNATURES = {
     # ring, new, start, n_new, plan (a struct, by address), stream
     "sc_ring_append_cols": [_P, _P, _P, _P, _P, _P],
     "sc_ring_append_rows": [_P, _P, _P, _P, _P, _P],
+    # h, y, bias, weight, beta, h_out, hn, cache, pos, write, plan, stream
+    "sc_add_layer_norm": [_P] * 12,
 }
 
 

@@ -24,7 +24,7 @@ group every function here runs what it runs on one card.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -173,9 +173,19 @@ def row_parallel_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     products are summed over the group and the bias is added once."""
     if tp_size() == 1:
         return linear(p, x)
-    y = reduce_from_tp(linear({k: v for k, v in p.items() if k != "bias"},
-                              x))
-    return y + p["bias"] if "bias" in p else y
+    y, bias = row_parallel_product(p, x)
+    return y if bias is None else y + bias
+
+
+def row_parallel_product(p: Params, x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``row_parallel_linear`` with its bias apart: the product (summed over
+    the tp group under one) and the bias (None without one), for a caller
+    that adds the bias inside a later kernel."""
+    y = linear({k: v for k, v in p.items() if k != "bias"}, x)
+    if tp_size() > 1:
+        y = reduce_from_tp(y)
+    return y, p.get("bias")
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = LAYERNORM_EPS

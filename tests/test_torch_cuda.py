@@ -8,7 +8,9 @@ The tolerances are those of chip_smoke.py: A and E within 1e-5; B within
 than the plain version's frame-by-frame loop: about ten ulps where r reaches
 a few thousand) and equal to the last bit on every frame outside
 [start, end), and B on bfloat16 rows equal to the last bit to B on the same
-rows widened to float32; C and D exact.
+rows widened to float32; C and D exact; F's normalised rows within 1e-5 of
+the largest (only the order of its two float32 sums differs), its residual
+sums and cache rows exact.
 """
 
 import numpy as np
@@ -16,6 +18,10 @@ import pytest
 import torch
 
 from speechcatcher_tpu_torch.models.encoder import block_attention_mask
+from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import (
+    add_layer_norm,
+    add_layer_norm_plain,
+)
 from speechcatcher_tpu_torch.ops.kernels.block_attention import (
     BlockAttentionFn,
     block_attention,
@@ -437,6 +443,88 @@ def test_ring_append_rows_stream_and_graph(dev):
     assert torch.equal(cache, ref)
 
 
+def _add_layer_norm_operands(dev, n, d, lmax=12, cache_dtype=None, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def rows(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    p = {"weight": 1.0 + 0.1 * rows(d), "bias": 0.1 * rows(d)}
+    ops = {"h": 3.0 * rows(n, d) + 1.0, "y": rows(n, d), "bias": rows(d)}
+    if cache_dtype is not None:
+        ops["cache"] = rows(n, lmax, d).to(cache_dtype)
+        ops["pos"] = torch.from_numpy(rng.integers(0, lmax + 3, n)).to(dev)
+        ops["write"] = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    return p, ops
+
+
+def _add_layer_norm_close(p, ops, got_h, got_hn, old_cache=None):
+    """F against its twin: h + (y + bias) exact, the normalised rows within
+    1e-5 of the largest, each cache row the kernel's own row cast (the old
+    one where the row must not write)."""
+    ref_h, ref_hn = add_layer_norm_plain(p, ops["h"], ops.get("y"),
+                                         ops.get("bias"))
+    torch.cuda.synchronize()
+    assert torch.equal(got_h, ref_h)
+    err = float((got_hn - ref_hn).abs().max() / ref_hn.abs().max())
+    assert err <= 1e-5, err
+    if old_cache is not None:
+        lmax = old_cache.shape[1]
+        keep = (ops["write"] & (ops["pos"] < lmax))[:, None]
+        rows = torch.arange(got_hn.shape[0], device=got_hn.device)
+        at = ops["pos"].clamp(max=lmax - 1)
+        want = old_cache.clone()
+        want[rows, at] = torch.where(keep, got_hn.to(want.dtype),
+                                     want[rows, at])
+        assert torch.equal(ops["cache"], want)
+
+
+@pytest.mark.parametrize("n,d", [(96, 512), (768, 512), (96, 256),
+                                 (768, 256), (5, 16), (3, 64), (7, 1024)])
+@pytest.mark.parametrize("form", ["h", "h_y", "h_y_bias", "cache_float32",
+                                  "cache_bfloat16"])
+def test_add_layer_norm_kernel(dev, form, n, d):
+    cache_dtype = {"cache_float32": torch.float32,
+                   "cache_bfloat16": torch.bfloat16}.get(form)
+    p, ops = _add_layer_norm_operands(dev, n, d, cache_dtype=cache_dtype,
+                                      seed=n + d)
+    if form == "h":
+        del ops["y"], ops["bias"]
+    elif form == "h_y":
+        del ops["bias"]
+    old = ops["cache"].clone() if "cache" in ops else None
+    before = add_layer_norm.launches
+    got_h, got_hn = add_layer_norm(p, **ops)
+    assert add_layer_norm.launches == before + 1
+    if form == "h":
+        assert got_h is ops["h"]
+    _add_layer_norm_close(p, ops, got_h, got_hn, old)
+    with pytest.raises(ValueError):
+        add_layer_norm(p, ops["h"].cpu())                # no silent fallback
+
+
+def test_add_layer_norm_stream_and_graph(dev):
+    """F on a side stream, then captured in a CUDA graph and replayed with
+    new positions and write flags."""
+    p, ops = _add_layer_norm_operands(dev, 96, 512, cache_dtype=torch.float32)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(ops["h"]) == side.cuda_stream
+        add_layer_norm(p, **{**ops, "cache": ops["cache"].clone()})
+    torch.cuda.synchronize()
+    old = ops["cache"].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_h, got_hn = add_layer_norm(p, **ops)
+    torch.cuda.synchronize()
+    assert torch.equal(ops["cache"], old)            # captured, not run
+    ops["pos"].copy_(torch.arange(96) % 15)
+    ops["write"].copy_(torch.arange(96) % 3 != 0)
+    graph.replay()
+    _add_layer_norm_close(p, ops, got_h, got_hn, old)
+
+
 @pytest.mark.parametrize("n,h,w,dk", [
     (1, 8, 42, 64),    # flagship session, one block
     (24, 8, 42, 64),   # flagship engine, 8 slots x 3 blocks
@@ -684,7 +772,7 @@ def test_attention_functions_grad_equal_plain_autograd(dev, which, n):
 
 
 def test_kernels_without_backward_refuse_grad_on_the_card(dev):
-    """B, C and D raise on an operand that requires grad (no result without
+    """B, C, D and F raise on an operand that requires grad (no result without
     a gradient), and run under no_grad."""
     i32 = dict(dtype=torch.int32, device=dev)
     calls = [
@@ -701,6 +789,10 @@ def test_kernels_without_backward_refuse_grad_on_the_card(dev):
                             torch.zeros(2, **i32),
                             torch.full((2,), 3, **i32)]),
     ]
+    calls.append((add_layer_norm, [
+        {"weight": torch.ones(32, device=dev),
+         "bias": torch.zeros(32, device=dev)},
+        torch.randn(4, 32, device=dev), torch.randn(4, 32, device=dev)]))
     for call, ops in calls:
         ops[1].requires_grad_()
         with pytest.raises(RuntimeError, match="has no backward"):
