@@ -792,7 +792,7 @@ def check_ring_append_rows_session(dev, cfg, chunk_samples: int):
     import numpy as np
     import torch
 
-    from speechcatcher_tpu_torch.models.encoder import carry_capacity
+    from speechcatcher_tpu_torch.geometry import carry_capacity
     from speechcatcher_tpu_torch.ops.kernels.ring_append import (
         ring_append_rows,
         ring_append_rows_plain,
@@ -2540,9 +2540,9 @@ def add_counts(a: dict, b: dict) -> dict:
 def train_blocks(cfg, n_frames: int) -> int:
     """Blocks per utterance of encoder_forward_train for `n_frames`
     feature frames (0: the plain path of one block or less)."""
-    from speechcatcher_tpu_torch.params import conv_len
+    from speechcatcher_tpu_torch.geometry import subsampled_len
 
-    total = conv_len(n_frames, cfg.input_layer)
+    total = subsampled_len(n_frames, cfg.input_layer)
     if total <= cfg.block_size:
         return 0
     return math.ceil((total - cfg.block_size + cfg.hop_size)

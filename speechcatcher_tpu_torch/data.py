@@ -23,7 +23,7 @@ import torch
 
 from speechcatcher_tpu_torch.config import ModelConfig
 from speechcatcher_tpu_torch.ops.frontend import Frontend
-from speechcatcher_tpu_torch.params import conv_len
+from speechcatcher_tpu_torch.geometry import subsampled_len
 from speechcatcher_tpu_torch.tokenizer import Tokenizer
 
 logger = logging.getLogger(__name__)
@@ -129,7 +129,8 @@ class BucketBatcher:
 
     def _subsampled_frames(self, n_samples: int) -> int:
         """Encoder frames after the model's subsampling."""
-        return conv_len(self.frontend.n_frames(n_samples), self.input_layer)
+        return subsampled_len(self.frontend.n_frames(n_samples),
+                              self.input_layer)
 
     def _encode_targets(self, utt: Utterance) -> Optional[List[int]]:
         ids = self.tokenizer.text_to_ids(utt.text)

@@ -38,6 +38,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from speechcatcher_tpu_torch import geometry
 from speechcatcher_tpu_torch.config import ModelConfig
 from speechcatcher_tpu_torch.decode import graphs
 from speechcatcher_tpu_torch.decode.ctc_prefix import (
@@ -536,8 +537,7 @@ class BlockwiseSynchronousBeamSearch:
         if self.encodes(source.n_frames(cfg.hop_length), is_final):
             self.chunk.step(source, is_final)
         while True:
-            cur_end = (cfg.block_size - cfg.look_ahead
-                       + cfg.hop_size * st.processed_block)
+            cur_end = geometry.block_end(cfg, st.processed_block)
             buf_len = self.chunk.enc_len
             if cur_end < buf_len:
                 self._decode_one_block(cur_end, block_is_final=False)

@@ -60,6 +60,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from speechcatcher_tpu_torch import geometry
 from speechcatcher_tpu_torch.decode import beam_search as bs
 from speechcatcher_tpu_torch.models import encoder as enc
 from speechcatcher_tpu_torch.models.decoder import project_cross_kv
@@ -514,8 +515,8 @@ class ChunkInput(NamedTuple):
         return None
 
 
-def chunk_graph_keys(input_key: Optional[tuple], plan: "enc.ChunkPlan"
-                     ) -> List[tuple]:
+def chunk_graph_keys(input_key: Optional[tuple],
+                     plan: "geometry.ChunkPlan") -> List[tuple]:
     """The static signatures of a chunk's programs, in order: its input's,
     the subsampling's (the plan's feature lengths; none while buffering or
     when no frame is left to subsample) and the blocks' (the plan's block
@@ -556,9 +557,9 @@ class ChunkStep:
     ``_subsample_jit`` and ``_infer_core`` / ``_infer_short``: each of the
     three is one CUDA graph per static signature (``chunk_graph_keys``),
     captured at first use or ahead (``capture``) into the session's pool.
-    The host keeps every length (``plan_chunk``) and uploads the stream's
-    offsets as device integers (``CHUNK_INTS``), once a chunk, so the
-    stream's position is no part of a signature. The frontend's signature
+    The host keeps every length (``geometry.plan_chunk``) and uploads the
+    stream's offsets as device integers (``CHUNK_INTS``), once a chunk, so
+    the stream's position is no part of a signature. The frontend's signature
     is its frame count: a final tail's sample count is a device integer
     (``reflect_frames``). No switch and no fallback: on a CUDA device a
     capture or replay that fails raises. On the CPU and under a tp group
@@ -630,17 +631,19 @@ class ChunkStep:
             n_processed_blocks=self.npb,
             past_ctx=c.past_ctx if self.has_past else None)
 
-    def plan(self, source: ChunkInput, is_final: bool) -> "enc.ChunkPlan":
-        return enc.plan_chunk(self.cfg, self.n_before,
-                              source.n_frames(self.cfg.hop_length),
-                              self.n_after, self.npb, is_final)
+    def plan(self, source: ChunkInput, is_final: bool
+             ) -> "geometry.ChunkPlan":
+        return geometry.plan_chunk(self.cfg, self.n_before,
+                                   source.n_frames(self.cfg.hop_length),
+                                   self.n_after, self.npb, is_final)
 
-    def step(self, source: ChunkInput, is_final: bool) -> "enc.ChunkPlan":
+    def step(self, source: ChunkInput, is_final: bool
+             ) -> "geometry.ChunkPlan":
         """One chunk: its frames through the programs, the emitted ones
         appended to the ring. Returns the chunk's plan."""
         cfg = self.cfg
         plan = self.plan(source, is_final)
-        rcap, pcap = enc.carry_capacity(cfg)
+        rcap, pcap = geometry.carry_capacity(cfg)
         if (plan.n_in > rcap or plan.total > pcap
                 or self.enc_len + plan.y_length > cfg.max_enc_frames):
             raise_too_long(cfg, self.enc_len + max(plan.y_length,

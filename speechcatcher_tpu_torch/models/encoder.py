@@ -3,9 +3,9 @@ whole-utterance (training-mode) forward.
 
 Port of ``speechcatcher_tpu/models/encoder.py``: conv2d subsampling, block
 assembly with context ("addin") vectors, the layer stack with the per-layer
-context carry, emit-window extraction, and the host-side chunk buffering of
-``StreamingEncoder.step`` (its arithmetic in ``plan_chunk``). The same
-device work over a carry at fixed addresses (``EncoderCarry``), with the
+context carry, emit-window extraction, and the chunk buffering of
+``StreamingEncoder.step`` (its lengths from ``geometry.plan_chunk``). The
+same device work over a carry at fixed addresses (``EncoderCarry``), with the
 stream's offsets as device integers, is what ``decode.graphs.ChunkStep``
 captures per static signature (``StreamingEncoder.subsample_program``,
 ``blocks_program``). Transformer layers attend inside the
@@ -54,17 +54,19 @@ from speechcatcher_tpu_torch.ops.layers import (
     sinusoidal_pe_table,
     swish,
 )
-from speechcatcher_tpu_torch.params import CONV_SPECS, conv_len
+from speechcatcher_tpu_torch.geometry import (
+    CONV_SPECS,
+    ChunkPlan,
+    carry_capacity,
+    plan_chunk,
+    subsampled_len,
+)
 
 
 def encoder_pe_table(cfg: ModelConfig) -> np.ndarray:
     """PE table long enough that no streaming offset reaches its end."""
     n = max(cfg.pos_enc_max_len, cfg.max_enc_frames + cfg.block_size + 2)
     return sinusoidal_pe_table(cfg.encoder_dim, n)
-
-
-def subsampled_len(n_in: int, input_layer: str) -> int:
-    return conv_len(n_in, input_layer)
 
 
 def conv2d_subsample(p: Params, x: torch.Tensor, input_layer: str
@@ -339,85 +341,6 @@ class EncoderState:
     past_ctx: Optional[torch.Tensor] = None     # (B, L, d)
 
 
-class ChunkPlan(NamedTuple):
-    """The host arithmetic of one chunk step (``plan_chunk``): every length
-    and count, as Python ints, from the lengths of the carried buffers and
-    of the chunk. ``kind`` says what the step does:
-
-    - "buffer": too few feature frames to subsample; they are carried;
-    - "hold": subsampled, but no block is full; the frames are carried;
-    - "empty": a final with no frame at all;
-    - "short": a final of the first chunk no longer than a block
-      (``_infer_short``);
-    - "blocks": ``block_num`` blocks through ``_infer_core``."""
-
-    kind: str
-    is_final: bool
-    first_chunk: bool   # no block processed before (npb == 0)
-    n_in: int           # carried + new feature frames
-    n_conv_in: int      # of them through the conv subsampling
-    n_sub: int          # subsampled frames that gives (0: no conv)
-    n_before: int       # feature frames carried to the next chunk
-    total: int          # carried + new subsampled frames (total_frame_num)
-    n_blocks_in: int    # of them read by the blocks
-    block_num: int
-    y_length: int       # frames emitted
-    n_after: int        # subsampled frames carried to the next chunk
-    npb: int            # blocks processed after this chunk
-
-
-def plan_chunk(cfg: ModelConfig, n_before: int, n_feats: int, n_after: int,
-               npb: int, is_final: bool) -> ChunkPlan:
-    """The chunk step's host arithmetic (the JAX package's
-    ``StreamingEncoder.step`` outside its jit-compiled functions): carried
-    feature frames `n_before`, the chunk's `n_feats`, carried subsampled
-    frames `n_after`, blocks processed `npb`."""
-    sub = cfg.subsample
-    bs, hop, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
-    n_in = n_before + n_feats
-    n_conv_in, new_before = n_in, 0
-    first = npb == 0
-
-    def plan(kind, n_sub=0, total=0, n_blocks_in=0, block_num=0,
-             y_length=0, new_after=n_after, npb_next=npb):
-        return ChunkPlan(kind, is_final, first, n_in, n_conv_in, n_sub,
-                         new_before, total, n_blocks_in, block_num, y_length,
-                         new_after, npb_next)
-
-    if not is_final:
-        n_samples = n_in // sub - 1
-        if n_samples < 2:
-            new_before = n_in
-            return plan("buffer")
-        new_before = n_in % sub + sub * 2
-        n_conv_in = n_samples * sub
-    n_sub = max(subsampled_len(n_conv_in, cfg.input_layer), 0)
-    total = n_after + n_sub
-    if is_final:
-        if total == 0:
-            return plan("empty", new_after=0)
-        past_size = bs - hop - la
-        block_num = math.ceil(float(total - past_size - la) / float(hop))
-        n_blocks_in, new_after = total, 0
-    else:
-        if total <= bs:
-            return plan("hold", n_sub, total, new_after=total)
-        overlap = bs - hop
-        block_num = max(0, total - overlap) // hop
-        new_after = total - hop * block_num
-        n_blocks_in = block_num * hop + overlap
-    if first and total <= bs and is_final:
-        return plan("short", n_sub, total, total, 0, total, 0)
-    block_num = max(block_num, 1)
-    offset = bs - la - hop
-    if is_final:
-        y_length = n_blocks_in if first else n_blocks_in - offset
-    else:
-        y_length = block_num * hop + (offset if first else 0)
-    return plan("blocks", n_sub, total, n_blocks_in, block_num, y_length,
-                new_after, npb + block_num)
-
-
 class EncoderCarry(NamedTuple):
     """The streaming carry of one stream at fixed addresses, for the chunk
     programs (``StreamingEncoder.subsample_program`` and
@@ -430,16 +353,6 @@ class EncoderCarry(NamedTuple):
     post: torch.Tensor        # (1, PCAP, d)
     prev_addin: torch.Tensor  # (1, 1, d)
     past_ctx: torch.Tensor    # (1, L, d)
-
-
-def carry_capacity(cfg: ModelConfig) -> Tuple[int, int]:
-    """(RCAP, PCAP): the most feature and subsampled frames a chunk step of
-    a decodable utterance holds. Past PCAP = max_enc_frames + block_size
-    subsampled frames the utterance has more encoder frames than the decode
-    state holds; RCAP feature frames subsample to more than PCAP even after
-    the carried residue is cut off."""
-    pcap = cfg.max_enc_frames + cfg.block_size
-    return cfg.subsample * (pcap + 4), pcap
 
 
 def init_carry(cfg: ModelConfig, device: torch.device) -> EncoderCarry:
@@ -608,17 +521,6 @@ def _constants(cfg: ModelConfig, device: torch.device):
             torch.from_numpy(block_attention_mask(cfg.block_size)).to(device))
 
 
-def subsampled_lens(ilens: torch.Tensor, input_layer: str) -> torch.Tensor:
-    """Frame counts after the conv subsampling: the kernel/stride walk of
-    ``CONV_SPECS`` on lengths ('linear' keeps them)."""
-    if input_layer == "linear":
-        return ilens
-    kernels, strides = CONV_SPECS[input_layer]
-    for k, s in zip(kernels, strides):
-        ilens = (ilens - k) // s + 1
-    return ilens
-
-
 def encoder_forward_train(params: Params, feats: torch.Tensor,
                           ilens: torch.Tensor, cfg: ModelConfig
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -627,7 +529,7 @@ def encoder_forward_train(params: Params, feats: torch.Tensor,
     pe, mask = _constants(cfg, feats.device)
     layers = params["layers"]
     xs = conv2d_subsample(params["embed"], feats, cfg.input_layer)
-    olens = subsampled_lens(ilens, cfg.input_layer)
+    olens = subsampled_len(ilens, cfg.input_layer)
 
     total = xs.shape[1]
     bs, hop, la = cfg.block_size, cfg.hop_size, cfg.look_ahead

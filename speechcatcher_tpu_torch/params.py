@@ -26,24 +26,7 @@ import numpy as np
 import torch
 
 from speechcatcher_tpu_torch.config import CB_CONFORMER, ModelConfig
-
-CONV_SPECS = {
-    "conv2d": ([3, 3], [2, 2]),
-    "conv2d6": ([3, 5], [2, 3]),
-    "conv2d8": ([3, 3, 3], [2, 2, 2]),
-}
-
-
-def conv_len(n_in: int, input_layer: str) -> int:
-    """Output length of the subsampling stack along one VALID-conv axis."""
-    if input_layer == "linear":
-        return n_in
-    kernels, strides = CONV_SPECS[input_layer]
-    out = n_in
-    for k, s in zip(kernels, strides):
-        out = math.floor((out - k) / s + 1)
-    return out
-
+from speechcatcher_tpu_torch.geometry import CONV_SPECS, subsampled_len
 
 def _uniform(rng: np.random.Generator, shape, bound: float) -> np.ndarray:
     return ((rng.random(shape, dtype=np.float32) * 2.0 - 1.0)
@@ -123,7 +106,7 @@ def _encoder(rng, cfg: ModelConfig) -> Dict[str, Any]:
                 "bias": np.zeros((d,), np.float32),
             })
             in_ch = d
-        feat = conv_len(cfg.n_mels, cfg.input_layer)
+        feat = subsampled_len(cfg.n_mels, cfg.input_layer)
         embed = {"convs": convs, "out": _linear(rng, d * feat, d)}
     lead = (cfg.encoder_layers,)
     if cfg.encoder_type == "conformer":

@@ -6,9 +6,10 @@ batched over the stream axis with fixed capacity shapes and per-stream
 length masks.
 
 - All length bookkeeping (buffer fills, block counts, beam-round schedule)
-  is host-side numpy: lengths are data-independent functions of the
-  per-stream chunk counts. The encode and each beam round upload their
-  per-stream integers in one packed (K, S) int32 transfer each.
+  is host-side numpy (``geometry``, shared with the session): lengths are
+  data-independent functions of the per-stream chunk counts. The encode
+  and each beam round upload their per-stream integers in one packed
+  (K, S) int32 transfer each.
 - Device state is capacity-padded: waveform carry, pre/post-subsample
   feature carries, the emitted-encoder-frame ring ``enc_out``, the CTC
   log-prob ring and forward variables, beam arrays, the decoder cache.
@@ -61,6 +62,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from speechcatcher_tpu_torch import geometry
 from speechcatcher_tpu_torch.config import ModelConfig
 from speechcatcher_tpu_torch.decode.beam_search import (
     BeamArrays,
@@ -75,6 +77,7 @@ from speechcatcher_tpu_torch.decode.beam_search import (
 from speechcatcher_tpu_torch.decode.ctc_prefix import CTCScorerState
 from speechcatcher_tpu_torch.decode.graphs import (
     BlockLoop,
+    ChunkInput,
     Upload,
     capture_graphs,
     clone_tree,
@@ -88,7 +91,6 @@ from speechcatcher_tpu_torch.models.encoder import (
     apply_layers_infer,
     block_attention_mask,
     conv2d_subsample,
-    subsampled_len,
 )
 from speechcatcher_tpu_torch.ops.frontend import (
     logmel_frontend,
@@ -96,7 +98,6 @@ from speechcatcher_tpu_torch.ops.frontend import (
 )
 from speechcatcher_tpu_torch.ops.kernels.ring_append import ring_append_rows
 from speechcatcher_tpu_torch.ops.layers import layer_norm
-from speechcatcher_tpu_torch.params import CONV_SPECS
 from speechcatcher_tpu_torch.parallel.tp import tp_group
 from speechcatcher_tpu_torch.serve.wire import mulaw_decode as _mulaw_decode
 from speechcatcher_tpu_torch.utils.metrics import TRACER
@@ -528,24 +529,9 @@ class StreamingEngine:
                 "win_length must exceed n_fft//2 for the final-frontend "
                 f"reflection (got win_length={cfg.win_length}, "
                 f"n_fft={cfg.n_fft})")
-        self.WCAP = cfg.win_length  # carry ≤ win_length always
-        ccap = self.WCAP + self.A
-        self.FCAP = 1 + ccap // cfg.hop_length
-        self.RCAP = self.FCAP + 3 * cfg.subsample + 4
-        self.SUBCAP = subsampled_len(self.RCAP, cfg.input_layer)
-        # Blocks per tick: carry < block_size plus ≤ SUBCAP new frames.
-        self.MAXB = max(1, -(-self.SUBCAP // cfg.hop_size) + 1)
-        self.PCAP = max(
-            (self.MAXB - 1) * cfg.hop_size + cfg.block_size + cfg.hop_size,
-            cfg.block_size + self.SUBCAP,
-        )
-        self.ECAP = cfg.max_enc_frames
-        self.EXTCAP = cfg.block_size  # max frames made visible per round
-        # enc_out carries EXTCAP rows of tail padding so the new-frames
-        # gather never clips its start (see _gather_new_frames); writes are
-        # bounded to ECAP by the stall and overflow guards. Rounded to a
-        # multiple of 64 as in the JAX engine, so both rings have one shape.
-        self.ECAP_PAD = -(-(self.ECAP + self.EXTCAP) // 64) * 64
+        (self.WCAP, self.FCAP, self.RCAP, self.SUBCAP, self.MAXB, self.PCAP,
+         self.ECAP, self.EXTCAP, self.ECAP_PAD) = geometry.engine_capacities(
+             cfg, self.A)
 
         self.buffers = self._new_buffers(self.S)
         # The block loop's state: the beam; a snapshot with an EMPTY CTC
@@ -560,7 +546,6 @@ class StreamingEngine:
         self.quarantined = 0
         self._slot_clean = np.ones(self.S, bool)  # fresh-state slots
 
-        self.trim = math.ceil(math.ceil(cfg.win_length / cfg.hop_length) / 2)
         self._mask = torch.from_numpy(
             block_attention_mask(cfg.block_size)).to(dev)
         self._mulaw = torch.from_numpy(_MULAW_TABLE).to(dev)
@@ -748,10 +733,8 @@ class StreamingEngine:
         """True when one more chunk could overflow the encoder ring: the
         guard tick() applies before consuming a slot's audio (tick() skips
         a stalled slot, so a chunk passed anyway is dropped)."""
-        cfg = self.cfg
-        offset = cfg.block_size - cfg.look_ahead - cfg.hop_size
-        emit_max = self.MAXB * cfg.hop_size + offset
-        return bool(self.c.buf_len[s] + emit_max > self.ECAP)
+        return bool(geometry.would_stall(self.cfg, self.MAXB, self.ECAP,
+                                         self.c.buf_len[s]))
 
     def _reset_slot(self, s: int):
         self._reset_slots([s])
@@ -811,8 +794,7 @@ class StreamingEngine:
                 else np.dtype(np.float32)
             )
             audio_batch = np.zeros((self.S, self.A), wire_dtype)
-        offset = cfg.block_size - cfg.look_ahead - cfg.hop_size
-        emit_max = self.MAXB * cfg.hop_size + offset
+        stalled = geometry.would_stall(cfg, self.MAXB, self.ECAP, c.buf_len)
         for s in slots:
             chunk = audio[s]
             if len(chunk) != self.A:
@@ -820,7 +802,7 @@ class StreamingEngine:
                                  f"slot {s} got {len(chunk)}")
             # Capacity stall: a stream whose encoder ring could overflow
             # stops consuming audio (slot_would_stall is this predicate).
-            if c.buf_len[s] + emit_max > self.ECAP:
+            if stalled[s]:
                 continue
             chunk = np.asarray(chunk)
             if chunk.dtype != wire_dtype:
@@ -895,64 +877,25 @@ class StreamingEngine:
 
     # -- frontend + encoder -------------------------------------------------
     def _encode_bookkeeping(self, do: np.ndarray) -> dict:
-        """All host-side length arithmetic of one tick's encode (pure: no
-        counter changes)."""
+        """All host-side length arithmetic of one tick's encode
+        (``geometry.plan_streams``; pure: no counter changes)."""
         c = self.c
-        cfg = self.cfg
-        win, hop = cfg.win_length, cfg.hop_length
-        sub = cfg.subsample
-
-        total = np.where(do, c.wave_len + self.A, c.wave_len)
-        can = do & (total > win)
-        n_frames = np.where(can, (total - (win - hop)) // hop, 0)
-        n_res = np.where(can, (total - (win - hop)) % hop, 0)
-        keep_len = np.where(can, (win - hop) + n_res, total)
-        # 1 + proc_len // hop over proc_len = (win - hop) + n_frames * hop.
-        stft_frames = 1 + ((win - hop) + n_frames * hop) // hop
-        trim_start = np.where(c.first_wave, 0, self.trim)
-        valid_feats = np.where(
-            can, np.maximum(stft_frames - trim_start - self.trim, 0), 0)
-        keep_from = np.where(can, total - keep_len, 0)
-
-        # Subsampling.
-        raw_total = c.raw_len + valid_feats
-        n_samples = raw_total // sub - 1
-        can_sub = can & (n_samples >= 2)
-        n_sub_in = np.where(can_sub, n_samples * sub, 0)  # frames consumed
-        outs = n_sub_in.astype(np.int64)
-        if cfg.input_layer != "linear":  # linear keeps the length
-            kernels, strides = CONV_SPECS[cfg.input_layer]
-            for k, st in zip(kernels, strides):
-                outs = (outs - k) // st + 1
-        n_sub_out = np.where(can_sub, outs, 0)
-        n_res_raw = np.where(can_sub, raw_total % sub + sub * 2, raw_total)
-        consumed = np.where(can_sub, raw_total - n_res_raw, 0)
-
-        # Blocks.
-        post_total = c.post_len + n_sub_out
-        overlap = cfg.block_size - cfg.hop_size
-        bn = np.where(
-            post_total > cfg.block_size,
-            np.maximum(0, post_total - overlap) // cfg.hop_size,
-            0,
-        )
-        bn = np.minimum(bn, self.MAXB)
-        maxb_tick = int(bn.max())
-        offset = cfg.block_size - cfg.look_ahead - cfg.hop_size
-        emitted = np.where(
-            bn > 0, bn * cfg.hop_size + np.where(c.npb == 0, offset, 0), 0)
-
-        _assert_fits("raw", c.raw_len, valid_feats, self.RCAP)
-        _assert_fits("post", c.post_len, n_sub_out, self.PCAP)
-        _assert_fits("enc_out", c.buf_len, emitted, self.ECAP)
-        ints = [c.wave_len, trim_start, keep_from, keep_len, c.raw_len,
-                valid_feats, consumed, c.post_len, n_sub_out, bn,
-                c.has_prev, c.has_past, c.buf_len, c.npb, emitted]
+        fe, sp, bp = geometry.plan_streams(
+            self.cfg, c.wave_len, np.where(do, self.A, 0), c.first_wave,
+            c.raw_len, c.post_len, c.npb, False, self.MAXB)
+        _assert_fits("raw", c.raw_len, fe.n_frames, self.RCAP)
+        _assert_fits("post", c.post_len, sp.n_sub, self.PCAP)
+        _assert_fits("enc_out", c.buf_len, bp.y_length, self.ECAP)
+        ints = [c.wave_len, fe.lo, fe.keep_from, fe.n_keep, c.raw_len,
+                fe.n_frames, sp.n_in - sp.n_keep, c.post_len, sp.n_sub,
+                bp.block_num, c.has_prev, c.has_past, c.buf_len, c.npb,
+                bp.y_length]
         return {
-            "ints": ints, "maxb": maxb_tick, "can": can,
-            "keep_len": keep_len, "n_res_raw": n_res_raw,
-            "post_total": post_total, "bn": bn, "emitted": emitted,
-            "buf_new": c.buf_len + emitted,
+            "ints": ints, "maxb": int(bp.block_num.max()),
+            "can": fe.n_process > 0, "keep_len": fe.n_keep,
+            "n_res_raw": sp.n_keep, "post_total": bp.total,
+            "bn": bp.block_num, "emitted": bp.y_length,
+            "buf_new": c.buf_len + bp.y_length,
         }
 
     def _encode(self, audio: np.ndarray, bk: dict):
@@ -1052,13 +995,11 @@ class StreamingEngine:
         processed_block. A round makes the next block visible to every
         stream whose block boundary lies inside its emitted frames."""
         c = self.c
-        cfg = self.cfg
         vis = c.vis_len.copy()
         pb = c.processed_block.copy()
         rounds = []
         while True:
-            cur_end = (cfg.block_size - cfg.look_ahead
-                       + cfg.hop_size * pb)
+            cur_end = geometry.block_end(self.cfg, pb)
             ready = do & c.active & (cur_end < buf_new)
             if not ready.any():
                 break
@@ -1164,21 +1105,15 @@ class StreamingEngine:
             self.output_index_dev[one]))
         st.memory.copy_(buf.enc_out[one, :cfg.max_enc_frames])
 
-        # Frontend final: the right-aligned wave carry + the last audio
-        # through the exact-length path.
+        # The right-aligned wave carry and the last audio, as the session's
+        # final chunk.
         wl = int(c.wave_len[s])
-        wave = (buf.wave[s, self.WCAP - wl:].cpu().numpy() if wl
-                else np.zeros(0, np.float32))
-        audio = (np.concatenate([wave, last_audio])
-                 if last_audio is not None and len(last_audio) else wave)
-        if len(audio) <= cfg.win_length:
-            audio = np.concatenate(
-                [audio, np.zeros(cfg.win_length - len(audio), np.float32)])
-        feats = self.model.frontend(audio)
-        if not c.first_wave[s] and feats.shape[1] > self.trim:
-            feats = feats[:, self.trim:, :]
-
-        fin.process_block(feats, is_final=True)
+        wave = buf.wave[s, self.WCAP - wl:].cpu().numpy()
+        tail = np.zeros(0, np.float32) if last_audio is None else last_audio
+        fe = geometry.plan_frontend(cfg, wl, len(tail), c.first_wave[s], True)
+        audio = np.concatenate([wave, tail, np.zeros(int(fe.pad), np.float32)])
+        fin.process_input(ChunkInput("wave", audio, lo=int(fe.lo)),
+                          is_final=True)
         yseq, xpos, score = fin.best_hypothesis()
         self._reset_slot(s)
         self.c.active[s] = False
@@ -1226,55 +1161,40 @@ class StreamingEngine:
     def _final_plan(self, finals: Dict[int, Optional[np.ndarray]]):
         """finalize_batch's routing: the tails as float32 by slot, the
         slots of the compact batch, those of the ``finalize`` fallback, and
-        each batched slot's final geometry."""
+        each batched slot's final geometry (``geometry.plan_streams``)."""
         c = self.c
         cfg = self.cfg
 
         items: Dict[int, np.ndarray] = {}
-        oversize: List[int] = []
+        fallback: List[int] = []
         for s, a in finals.items():
             if not c.active[s]:
                 continue
             a = self._float_audio(a)
             if len(a) > self.A:
-                oversize.append(s)
+                fallback.append(s)  # oversize tail
             items[s] = a
-        if not items:
-            return items, [], [], {}
-
-        bs, hop_b, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
-        offset = bs - la - hop_b
-        win, hop = cfg.win_length, cfg.hop_length
+        slots = [s for s in items if s not in fallback]
+        if not slots:
+            return items, [], fallback, {}
+        # Consume-all on final: even a 1-2 frame tail flows through, and a
+        # dropped tiny tail still flushes the carried frames.
+        fe, sp, bp = geometry.plan_streams(
+            cfg, c.wave_len[slots], np.array([len(items[s]) for s in slots]),
+            c.first_wave[slots], c.raw_len[slots], c.post_len[slots],
+            c.npb[slots], True)
 
         batch: List[int] = []
-        fallback: List[int] = list(oversize)
         meta: Dict[int, Tuple[int, ...]] = {}
-        for s, a in items.items():
-            if s in oversize:
-                continue
-            total = int(c.wave_len[s]) + len(a)
-            total_p = max(total, win)
-            if total_p <= cfg.n_fft // 2 + 1:
+        for i, s in enumerate(slots):
+            post_total, bn, y_emit = (int(bp.total[i]), int(bp.block_num[i]),
+                                      int(bp.y_length[i]))
+            if fe.n_process[i] <= cfg.n_fft // 2 + 1:
                 fallback.append(s)  # the reflection needs total_p > pad
                 continue
-            nf = 1 + total_p // hop
-            trim_start = 0 if c.first_wave[s] else self.trim
-            # Consume-all on final: even a 1-2 frame tail flows through,
-            # and a dropped tiny tail still flushes the carried frames.
-            valid_feats = max(0, nf - trim_start)
-            raw_total = int(c.raw_len[s]) + valid_feats
-            n_sub = (max(0, subsampled_len(raw_total, cfg.input_layer))
-                     if raw_total > 0 else 0)
-            post_total = int(c.post_len[s]) + n_sub
-            npb = int(c.npb[s])
-            if npb == 0 and 0 < post_total <= bs:
+            if c.npb[s] == 0 and 0 < post_total <= cfg.block_size:
                 fallback.append(s)  # short-segment path
                 continue
-            if post_total > 0:
-                bn = max(1, -(-(post_total - offset - la) // hop_b))
-                y_emit = post_total if npb == 0 else post_total - offset
-            else:
-                bn, y_emit = 0, 0  # nothing carried: decode-only drain
             if y_emit < 0:
                 fallback.append(s)  # degenerate geometry: exact slow path
                 continue
@@ -1287,7 +1207,8 @@ class StreamingEngine:
                     "carried frames (decode-only drain)", s, y_emit,
                 )
                 bn, y_emit = 0, 0
-            meta[s] = (total_p, trim_start, valid_feats, n_sub, post_total,
+            meta[s] = (int(fe.n_process[i]), int(fe.lo[i]),
+                       int(fe.n_frames[i]), int(sp.n_sub[i]), post_total,
                        bn, y_emit)
             batch.append(s)
 
@@ -1306,8 +1227,6 @@ class StreamingEngine:
         final block may burst to max_length beam steps, so its per-step
         cost should scale with F, not S."""
         c = self.c
-        cfg = self.cfg
-        bs, hop_b, la = cfg.block_size, cfg.hop_size, cfg.look_ahead
         n_fin = len(batch)
         f = self._compact_width(n_fin)
         TRACER.count("engine.final.slots", n_fin)
@@ -1365,7 +1284,7 @@ class StreamingEngine:
             fdone = np.zeros(f, bool)
             max_start = -1
             while True:
-                cur_end = bs - la + hop_b * pb
+                cur_end = geometry.block_end(self.cfg, pb)
                 ready = do_f & (cur_end < buf_f)
                 final = do_f & ~ready & ~fdone & (buf_f > 0)
                 step = ready | final

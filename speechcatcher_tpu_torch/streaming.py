@@ -10,65 +10,30 @@ block's beam loop run as CUDA graphs over the session's state, which stays
 at fixed addresses between chunks and utterances (``decode.graphs``): one
 graph per static signature, captured at first use, or ahead for a chunk
 size by ``capture_graphs``. The host keeps the waveform buffer and every
-length (``frontend_lengths``, ``models.encoder.plan_chunk``). On the CPU the
-same programs run eagerly.
+length (``geometry``). On the CPU the same programs run eagerly.
 """
 
 from __future__ import annotations
 
-import math
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from speechcatcher_tpu_torch import geometry
 from speechcatcher_tpu_torch.decode.beam_search import (
     BlockwiseSynchronousBeamSearch,
 )
 from speechcatcher_tpu_torch.decode.graphs import ChunkInput, chunk_graph_keys
 from speechcatcher_tpu_torch.device import resolve_device
 from speechcatcher_tpu_torch.models.asr_model import ASRModel
-from speechcatcher_tpu_torch.models.encoder import plan_chunk
 from speechcatcher_tpu_torch.ops.layers import (
     cast_params,
     quantize_params_int8,
 )
 
 Result = Tuple[str, List[str], List[int], List[int]]
-
-
-def frontend_lengths(win_length: int, hop_length: int,
-                     n_buffer: Optional[int], n_new: int, is_final: bool
-                     ) -> Tuple[Optional[int], int, int, Optional[int]]:
-    """The session's waveform buffering and boundary trimming on lengths:
-    a buffer of `n_buffer` samples (None before the first chunk) and
-    `n_new` new ones → (samples the frontend processes, or None when it
-    runs on nothing; frames cut at the start; frames cut at the end; the
-    next buffer's length, None after a final). A final shorter than the
-    window is zero-padded to it."""
-    n = n_new + (n_buffer or 0)
-    if n <= win_length:
-        if not is_final:
-            return None, 0, 0, n
-        n = win_length
-    if is_final:
-        n_process, n_next = n, None
-    else:
-        overlap = win_length - hop_length
-        n_frames, n_residual = divmod(n - overlap, hop_length)
-        n_process = overlap + n_frames * hop_length
-        n_next = overlap + n_residual
-    trim = math.ceil(math.ceil(win_length / hop_length) / 2)
-    t = 1 + n_process // hop_length
-    if is_final:
-        lo = trim if n_buffer is not None and t > trim else 0
-        return n_process, lo, 0, n_next
-    if n_buffer is None:
-        return n_process, 0, trim if t > trim else 0, n_next
-    if t > 2 * trim:
-        return n_process, trim, trim, n_next
-    return None, 0, 0, n_next
 
 
 def assemble_hypothesis(cfg, tokenizer, yseq, xpos, is_final: bool
@@ -100,24 +65,13 @@ def chunk_signatures(cfg, chunk_samples: int) -> set:
     `chunk_samples`-sample chunks can reach: from every state of its
     lengths that such chunks lead to, a next chunk and a final of every
     length from 1 to `chunk_samples` samples (``_infer_short`` finals
-    included). Host arithmetic on lengths only."""
-    win, hop = cfg.win_length, cfg.hop_length
+    included). Host arithmetic on lengths only (``geometry``)."""
     keys: set = set()
 
-    def visit(state, n_new: int, is_final: bool):
-        """Add a chunk's keys; the lengths' state after it."""
-        n_buffer, n_before, n_after, npb = state
-        n_process, lo, hi, n_next = frontend_lengths(
-            win, hop, n_buffer, n_new, is_final)
-        if n_process is None:
-            return (n_next, n_before, n_after, npb)
-        source = ChunkInput("wave", np.empty(n_process, np.float32), lo, hi)
-        n_feats = source.n_frames(hop)
-        if not BlockwiseSynchronousBeamSearch.encodes(n_feats, is_final):
-            return (n_next, n_before, n_after, npb)
-        plan = plan_chunk(cfg, n_before, n_feats, n_after, npb, is_final)
-        keys.update(chunk_graph_keys(source.key(hop), plan))
-        return (n_next, plan.n_before, plan.n_after, min(plan.npb, 1))
+    def add(n_process, lo, hi, plan):
+        keys.update(chunk_graph_keys(
+            ("frontend", int(geometry.stft_frames(cfg, n_process)), int(lo),
+             int(hi)), plan))
 
     # (waveform buffer length or None, feature frames carried, subsampled
     # frames carried, whether a block was processed)
@@ -127,14 +81,26 @@ def chunk_signatures(cfg, chunk_samples: int) -> set:
         if state in seen:
             continue
         seen.add(state)
-        # A final's programs depend on its frame count alone.
-        finals = {}
-        for n in range(1, chunk_samples + 1):
-            total = n + (state[0] or 0)
-            finals.setdefault(1 + max(total, win) // hop, n)
-        for n in finals.values():
-            visit(state, n, True)
-        todo.append(visit(state, chunk_samples, False))
+        n_buffer, n_before, n_after, npb = state
+        first = n_buffer is None
+        # Every final length at once; its programs depend on its frame
+        # count alone.
+        fin = geometry.plan_frontend(
+            cfg, n_buffer or 0, np.arange(1, chunk_samples + 1), first, True)
+        _, at = np.unique(fin.n_process // cfg.hop_length, return_index=True)
+        for i, plan in zip(at, geometry.plan_chunks(
+                cfg, n_before, fin.n_frames[at], n_after, npb, True)):
+            add(fin.n_process[i], fin.lo, 0, plan)
+        fe = geometry.plan_frontend(cfg, n_buffer or 0, chunk_samples, first,
+                                    False)
+        nxt = (int(fe.n_keep), n_before, n_after, npb)
+        if BlockwiseSynchronousBeamSearch.encodes(int(fe.n_frames), False):
+            plan = geometry.plan_chunk(cfg, n_before, int(fe.n_frames),
+                                       n_after, npb, False)
+            add(fe.n_process, fe.lo, fe.hi, plan)
+            nxt = (int(fe.n_keep), plan.n_before, plan.n_after,
+                   min(plan.npb, 1))
+        todo.append(nxt)
     return keys
 
 
@@ -213,25 +179,22 @@ class Speech2TextStreaming:
     def _wave_input(self, speech: np.ndarray, prev_states: Optional[Dict],
                     is_final: bool
                     ) -> Tuple[Optional[ChunkInput], Optional[Dict]]:
-        """Waveform buffering on the host (``frontend_lengths``): the
+        """Waveform buffering on the host (``geometry.plan_frontend``): the
         samples the frontend processes with the frames to cut, or None,
         and the next states."""
         if prev_states is not None and "waveform_buffer" in prev_states:
             speech = np.concatenate([prev_states["waveform_buffer"], speech])
-        n_buffer = None if prev_states is None else 0
-        n_process, lo, hi, n_next = frontend_lengths(
-            self.win_length, self.hop_length, n_buffer, speech.shape[0],
-            is_final)
-        if speech.shape[0] < self.win_length and is_final:
-            pad = np.zeros(self.win_length - speech.shape[0],
-                           dtype=speech.dtype)
-            speech = np.concatenate([speech, pad])
-        next_states = (None if n_next is None else
-                       {"waveform_buffer":
-                        speech[speech.shape[0] - n_next:].copy()})
-        if n_process is None:
+        fe = geometry.plan_frontend(self.cfg, 0, speech.shape[0],
+                                    prev_states is None, is_final)
+        if fe.pad:
+            speech = np.concatenate([speech, np.zeros(int(fe.pad),
+                                                      speech.dtype)])
+        next_states = (None if is_final else
+                       {"waveform_buffer": speech[int(fe.keep_from):].copy()})
+        if not fe.n_frames:
             return None, next_states
-        return ChunkInput("wave", speech[:n_process], lo, hi), next_states
+        return (ChunkInput("wave", speech[:int(fe.n_process)], int(fe.lo),
+                           int(fe.hi)), next_states)
 
     def apply_frontend(self, speech: np.ndarray, prev_states: Optional[Dict],
                        is_final: bool

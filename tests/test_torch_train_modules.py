@@ -265,12 +265,12 @@ def _frames_for(span, cfg):
     """Input frames for a subsampled length: 'short' fits one block (the
     plain path; a blocked run always has two blocks or more), 'two_blocks'
     is one frame longer, 'many' about ten blocks."""
-    from speechcatcher_tpu_torch.params import conv_len
+    from speechcatcher_tpu_torch.geometry import subsampled_len
 
     want = {"short": cfg.block_size, "two_blocks": cfg.block_size + 1,
             "many": 10 * cfg.hop_size + 3}[span]
     frames = 1
-    while conv_len(frames, cfg.input_layer) < want:
+    while subsampled_len(frames, cfg.input_layer) < want:
         frames += 1
     return frames
 
