@@ -9,7 +9,7 @@ flagship width (random weights from a seed), for the transformer encoder and
 for the conformer encoder (``flagship_config(encoder_type="conformer")``):
 three utterances through ``Speech2TextStreaming``, and ten streams through
 the batched ``StreamingEngine`` (8 slots), each final held against the
-single-stream session. Each path reads the launch counts of all six
+single-stream session. Each path reads the launch counts of all seven
 kernels, set to 0 just before it. It replays the fixtures blessed by the JAX
 package (a transformer utterance that stops early and a token-rich one, a
 conformer utterance and a token-rich one, one engine run), decodes at small width on the card
@@ -19,9 +19,11 @@ before it.
 
 Kernel F (each LayerNorm of the beam step with its residual add, bias
 add and cache-row write) is held against its plain twin at the beam
-step's rows; ``--profile beam-step`` runs that alone, then times the
-graphed beam step of both benchmark configurations at 32 and 256 streams
-(device ms and kernels a replay), each block bit-equal to the eager loop.
+step's rows, and kernel G (each layer's lane self-attention) against its
+twin at the beam step's hypotheses and positions; ``--profile
+beam-step`` runs those alone, then times the graphed beam step of both
+benchmark configurations at 32 and 256 streams (device ms and kernels a
+replay), each block bit-equal to the eager loop.
 
 The precision modes: kernel B on bfloat16 log-prob rows against its plain
 version and, to the last bit, against itself on the widened rows; the
@@ -85,7 +87,7 @@ as a process, resumed from its checkpoint.
     python3 chip_smoke.py --profile train-memory       # step and eval memory
     python3 chip_smoke.py --profile train-in-process   # train paths, profiles
     python3 chip_smoke.py --profile mesh-step   # the eager step a mesh runs
-    python3 chip_smoke.py --profile beam-step   # kernel F, graphed beam steps
+    python3 chip_smoke.py --profile beam-step   # F, G, graphed beam steps
 
 Imports neither JAX nor the JAX package.
 """
@@ -880,15 +882,16 @@ ADD_LAYER_NORM_SHAPES = ((96, 512), (768, 512), (96, 256), (768, 256))
 ADD_LAYER_NORM = "speechcatcher_tpu_torch.ops.kernels.add_layer_norm"
 
 
-def fused_norm_counter():
-    """Kernel F's wrapper, or None in a checkout from before it: the
-    beam-step phase measures the parent commit with this script too."""
+def optional_wrapper(module: str):
+    """The wrapper of a kernel (the function that names its module), or
+    None in a checkout from before the kernel: the beam-step phase
+    measures the parent commit with this script too."""
     import importlib
     import importlib.util
 
-    if importlib.util.find_spec(ADD_LAYER_NORM) is None:
+    if importlib.util.find_spec(module) is None:
         return None
-    return importlib.import_module(ADD_LAYER_NORM).add_layer_norm
+    return getattr(importlib.import_module(module), module.rsplit(".", 1)[1])
 
 
 def check_add_layer_norm(dev):
@@ -976,6 +979,119 @@ def check_add_layer_norm(dev):
                 summed, (d,), p["weight"], p["bias"], 1e-12), 200),
             "library": "F.layer_norm of the finished sum (the norm alone)",
         })
+    return rows
+
+
+# Kernel G's calls in the beam step: N = S x beam hypotheses at the drain's
+# compact width 32 and the backlog's 256 slots, beam 3, Lmax = max_tokens,
+# at both configurations' decoder widths (d, heads); every hypothesis at
+# one position, as a stream's hypotheses are in the beam search.
+LANE_ATTENTION = "speechcatcher_tpu_torch.ops.kernels.lane_attention"
+LANE_ATTENTION_WIDTHS = (("de-xl-transformer", 512, 8),
+                         ("aishell-cb-conformer", 256, 4))
+LANE_ATTENTION_ROWS = (96, 768)
+LANE_ATTENTION_POS = (0, 16, 32, 64, 191)
+LANE_ATTENTION_LMAX = 192
+LANE_ATTENTION_TOL = 2e-6
+
+
+def check_lane_attention(dev, timed=True, widths=LANE_ATTENTION_WIDTHS,
+                         sizes=LANE_ATTENTION_ROWS,
+                         positions=LANE_ATTENTION_POS):
+    """Kernel G against its plain twin at `widths` x `sizes` x
+    `positions` (LANE_ATTENTION_*, Lmax 192, beam 3) for a float32
+    and a bfloat16 cache, over a lane map whose hypotheses share a prefix
+    and branch after it: the largest error against the twin evaluated in
+    float64, over the largest |u|, within LANE_ATTENTION_TOL (the float32
+    twin's own error on the card, cuBLAS's sums, reaches 4e-6 at N = 768
+    and is printed beside it, with the kernel's distance to the float32
+    twin), and the kernel's result bit-equal when every row at t >= pos
+    holds NaN (it never reads one; the twin would, as 0 x NaN). With
+    `timed`, each case also gets CUDA-event ms, device us, the twin's ms
+    and the bound (bytes: the P history rows read once, qk, hn_self, lane
+    and pos read, u written; operations 4 N h (P + 1) d). Returns the
+    rows."""
+    import numpy as np
+    import torch
+
+    from speechcatcher_tpu_torch.ops.kernels.lane_attention import (
+        lane_attention,
+        lane_attention_plain,
+    )
+
+    lmax, beam = LANE_ATTENTION_LMAX, BEAM_STEP_BEAM
+    rows = []
+    for config, d, heads in widths:
+        dk = d // heads
+        for n in sizes:
+            s = n // beam
+            rng = np.random.default_rng(n + d)
+
+            def rand(*shape):
+                return torch.from_numpy(rng.standard_normal(
+                    shape).astype(np.float32)).to(dev)
+
+            qk, hn, cache32 = rand(n, heads, d), rand(n, d), rand(n, lmax, d)
+            lane_np = rng.integers(0, beam, (s, beam, lmax)).astype(np.int32)
+            lane_np[:, :, :lmax // 3] = 0
+            lane = torch.from_numpy(lane_np).to(dev)
+            for p in positions:
+                pos = torch.full((n,), p, dtype=torch.int64, device=dev)
+                hidden = (torch.arange(lmax, device=dev) >= p)[None, :, None]
+                for dtype in (torch.float32, torch.bfloat16):
+                    cache = cache32.to(dtype)
+                    got = lane_attention(qk, cache, hn, lane, pos, dk)
+                    twin = lane_attention_plain(qk, cache, hn, lane, pos, dk)
+                    ref = lane_attention_plain(qk.double(), cache,
+                                               hn.double(), lane, pos, dk)
+                    nan = torch.where(hidden, float("nan"),
+                                      cache.float()).to(dtype)
+                    again = lane_attention(qk, nan, hn, lane, pos, dk)
+                    torch.cuda.synchronize()
+                    what = (f"lane_attention {config} N={n} pos={p} "
+                            f"{str(dtype)[6:]}")
+                    if not torch.equal(again, got):
+                        fail(f"{what}: a row at t >= pos changed the result")
+                    scale = float(ref.abs().max())
+                    abs_err = float((got - ref).abs().max())
+                    err = abs_err / scale
+                    if not err <= LANE_ATTENTION_TOL:
+                        fail(f"{what}: relative error {err:.3g} > "
+                             f"{LANE_ATTENTION_TOL}")
+                    row = {"name": "lane_attention", "route": "cuda",
+                           "source": "speechcatcher_tpu_torch/csrc/"
+                                     "lane_attention.cu",
+                           "replaces": "none (the JAX package's lane "
+                                       "attention is XLA)",
+                           "config": config, "shape": [n, heads, d],
+                           "cache": [n, lmax, d], "cache_dtype":
+                               str(dtype)[6:], "pos": p,
+                           "max_rel_err": err, "max_abs_err": abs_err,
+                           "tol": LANE_ATTENTION_TOL,
+                           "rel_err_to_float32_twin": float(
+                               (got - twin).abs().max()) / scale,
+                           "float32_twin_rel_err": float(
+                               (twin - ref).abs().max()) / scale}
+                    if timed:
+                        def kernel():
+                            lane_attention(qk, cache, hn, lane, pos, dk)
+
+                        valid = min(p, lmax)
+                        b_ms, b_by = bound(
+                            n * valid * d * cache.element_size()
+                            + 4 * (2 * n * heads * d + n * d + n * valid)
+                            + 8 * n, 4 * n * heads * (valid + 1) * d)
+                        row |= {
+                            "ms": cuda_ms(kernel, 100),
+                            "device_us": device_us(kernel,
+                                                   "lane_attention_kernel"),
+                            "plain_ms": cuda_ms(lambda: lane_attention_plain(
+                                qk, cache, hn, lane, pos, dk), 20),
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None,
+                            "library": "none: no PyTorch call reads rows "
+                                       "through a lane map"}
+                    rows.append(row)
     return rows
 
 
@@ -3634,8 +3750,8 @@ TP_TRAIN_LOSS_RTOL = 1e-4
 
 
 def kernel_counters():
-    """(the six kernel wrappers, the two autograd Functions): what carries
-    a launch count."""
+    """(the seven kernel wrappers, the two autograd Functions): what
+    carries a launch count."""
     from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import (
         add_layer_norm,
     )
@@ -3645,6 +3761,9 @@ def kernel_counters():
     )
     from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
         ctc_forward_recursion,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.lane_attention import (
+        lane_attention,
     )
     from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
         RelBlockAttentionFn,
@@ -3656,7 +3775,8 @@ def kernel_counters():
     )
 
     return ([block_attention, rel_block_attention, ctc_forward_recursion,
-             ring_append_cols, ring_append_rows, add_layer_norm],
+             ring_append_cols, ring_append_rows, add_layer_norm,
+             lane_attention],
             [BlockAttentionFn, RelBlockAttentionFn])
 
 
@@ -4214,11 +4334,12 @@ def price_k(costs: dict, hist: dict) -> dict:
 # the backlog tick's 256 slots; beam 3 as the benchmark's cells serve.
 BEAM_STEP_WIDTHS = (32, 256)
 BEAM_STEP_BEAM = 3
+BEAM_STEP_POS = 32
 
 
 def graph_kernels(graph, reps: int = 10) -> dict:
     """Kernels one replay of `graph` runs on the card, by torch.profiler
-    over `reps` replays: all of them, and kernel F's."""
+    over `reps` replays: all of them, and kernels F's and G's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4233,7 +4354,9 @@ def graph_kernels(graph, reps: int = 10) -> dict:
              and not e.name.startswith(("Memcpy", "Memset"))]
     return {"kernels_per_replay": len(names) / reps,
             "add_layer_norm_per_replay":
-                sum("add_layer_norm_kernel" in n for n in names) / reps}
+                sum("add_layer_norm_kernel" in n for n in names) / reps,
+            "lane_attention_per_replay":
+                sum("lane_attention_kernel" in n for n in names) / reps}
 
 
 def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
@@ -4245,7 +4368,12 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
     stopped, the step graph's replays: device ms a step (CUDA events over
     `reps` masked steps, which run every kernel of a live one), kernels a
     replay by the profiler and by the capture's launch record, kernel F's
-    among them (19 a step at six layers; 0 in a checkout without F)."""
+    among them (19 a step at six layers) and kernel G's (6; either 0 in a
+    checkout without it). A step's cost in G grows with the hypotheses'
+    positions (the composition before G read all Lmax rows whatever they
+    were): the row gives the loop's mean pos / Lmax, and the step's ms
+    again with every stream's position set to BEAM_STEP_POS, a typical
+    drain position (5 tokens a second into a 6 s utterance)."""
     import functools
     import json
 
@@ -4263,7 +4391,8 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
     configs = (("de-xl-transformer", flagship_config(), (2.0, 8.0)),
                ("aishell-cb-conformer", ModelConfig(**cbc["model"]),
                 (cbc["emission_bias"]["eos"], cbc["emission_bias"]["blank"])))
-    fused = fused_norm_counter()
+    fused = optional_wrapper(ADD_LAYER_NORM)
+    lane_fn = optional_wrapper(LANE_ATTENTION)
     for name, cfg, biases in configs:
         model = ASRModel.random_init(cfg, seed=3, device=dev)
         with torch.no_grad():
@@ -4293,19 +4422,26 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
                     vis += n_new
             step = loop._graphs[1]
             record = {f.__name__: n for (f, _), n in step.launches.items()}
+            ylen = loop.state.arrays.ylen
+            mean_pos = float((ylen - 1).float().mean()) / cfg.max_tokens
             costs = replay_costs(loop, reps)
+            again = replay_costs(loop, reps)["masked_step_ms"]
+            ylen.fill_(BEAM_STEP_POS + 1)
+            at_pos = [replay_costs(loop, reps)["masked_step_ms"]
+                      for _ in range(2)]
             row = {"phase": "beam_step", "config": name, "streams": s_dim,
                    "rows": s_dim * BEAM_STEP_BEAM, "nvidia_smi": smi,
                    "blocks_checked": check.blocks, "live_steps": loop.steps,
-                   "step_ms": costs["masked_step_ms"],
-                   "step_ms_again": replay_costs(loop, reps)[
-                       "masked_step_ms"],
+                   "mean_pos_over_lmax": mean_pos,
+                   "step_ms": costs["masked_step_ms"], "step_ms_again": again,
+                   f"step_ms_at_pos_{BEAM_STEP_POS}": at_pos,
                    "readback_ms": costs["readback_ms"],
                    "launch_record": record, **graph_kernels(step.graph)}
-            if fused is not None and record.get(fused.__name__) != \
-                    3 * cfg.decoder_layers + 1:
-                fail(f"beam_step {name} S={s_dim}: kernel F launched "
-                     f"{record.get(fused.__name__)} times a step")
+            for fn, want in ((fused, 3 * cfg.decoder_layers + 1),
+                             (lane_fn, cfg.decoder_layers)):
+                if fn is not None and record.get(fn.__name__) != want:
+                    fail(f"beam_step {name} S={s_dim}: {fn.__name__} "
+                         f"launched {record.get(fn.__name__)} times a step")
             emit(row)
             del loop, memory
         del model
@@ -4779,9 +4915,9 @@ def main() -> int:
                     "step's and evaluate's memory at 4 s and 32 s, or the "
                     "graphed train paths with their profiles in one "
                     "process, or the eager step a mesh runs (one card, tp "
-                    "= 2, the NCCL trainer), or kernel F and the graphed "
-                    "beam step of both benchmark configurations at 32 and "
-                    "256 streams, then stop")
+                    "= 2, the NCCL trainer), or kernels F and G and the "
+                    "graphed beam step of both benchmark configurations "
+                    "at 32 and 256 streams, then stop")
     ap.add_argument("--precision", choices=PRECISIONS, default="float32",
                     help="the model of --profile, --profile engine and "
                     "--profile conformer: float32, that with only the CTC "
@@ -4815,14 +4951,18 @@ def main() -> int:
     emit({"phase": "build", "seconds": lib.build_seconds, "built": lib.built,
           "library": str(lib.path.relative_to(ROOT))})
     if args.profile == "beam-step":
-        if fused_norm_counter() is not None:
+        if optional_wrapper(ADD_LAYER_NORM) is not None:
             for row in check_add_layer_norm(dev):
+                emit({"phase": "kernel", **row})
+        if optional_wrapper(LANE_ATTENTION) is not None:
+            for row in check_lane_attention(dev):
                 emit({"phase": "kernel", **row})
         beam_step_costs(dev, smi)
         return 0
     counters, fns = kernel_counters()
     (block_attention, rel_block_attention, ctc_forward_recursion,
-     ring_append_cols, ring_append_rows, add_layer_norm) = counters
+     ring_append_cols, ring_append_rows, add_layer_norm,
+     lane_attention) = counters
 
     if args.profile == "utterance":
         profile_utterance(dev, precision=args.precision)
@@ -4894,6 +5034,11 @@ def main() -> int:
     fused_rows = check_add_layer_norm(dev)
     checks += fused_rows[1:]
     kernels.append(fused_rows[0])
+    # G: every case checked, the drain's width-32 flagship call at a
+    # typical position timed.
+    checks += check_lane_attention(dev, timed=False)
+    kernels += check_lane_attention(dev, widths=LANE_ATTENTION_WIDTHS[:1],
+                                    sizes=(96,), positions=(32,))[:1]
     for k in checks + kernels:
         emit({"phase": "kernel", **k})
     check_gemm(dev, cfg)

@@ -20,6 +20,13 @@ one launch that also adds the residual and the preceding linear's bias
 cache row; on the CPU its twin is the composition it replaces, bit for bit.
 ``decoder_forward_train`` keeps ``layer_norm`` (training needs a backward).
 
+Kernel G (``ops.kernels.lane_attention``): each layer's self-attention,
+from the query with the K projection folded in to the weighted sum, is one
+launch that reads a hypothesis's history rows in place through the lane map,
+only below its position; on the CPU its twin is the composition it replaces
+(a gather of the whole cache, two contractions, the masked softmax), bit for
+bit.
+
 Cross-attention K/V are linear in the encoder frames, which do not change
 within a decoded block, so ``project_cross_kv`` computes them once per block
 and every beam step of the block reuses them; the numbers are those of
@@ -53,6 +60,7 @@ import torch
 from speechcatcher_tpu_torch.config import ModelConfig
 from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import add_layer_norm
 from speechcatcher_tpu_torch.ops.kernels.block_attention import MASK_MIN
+from speechcatcher_tpu_torch.ops.kernels.lane_attention import lane_attention
 from speechcatcher_tpu_torch.ops.layers import (
     Params,
     dense_weight,
@@ -137,36 +145,25 @@ def _attend_cached_lane(
     hn_self: torch.Tensor,     # (N, d) this step's post-norm1 hidden
     p_attn: Params,            # this layer's self_attn params
     lane: torch.Tensor,        # (S, B, T) lane map
-    hist_valid: torch.Tensor,  # (N, T) bool, t < pos
-    beam: int,
+    pos: torch.Tensor,         # (N,) int64: rows t < pos are the history
     n_head: int,
 ) -> torch.Tensor:
     """Self-attention over the lazily reordered activation cache, on the
     rank's heads of `n_head` (its rows of the K and V weights).
 
     Row t of hypothesis b's history lives at lane ``lane[s, b, t]`` of its
-    stream; a gather collects those rows. Scores use the K projection
-    folded into the query, ``(W_k[h]ᵀ q_h) · hn_t`` (the K bias cancels in
-    the softmax), and the V projection is applied once to the weighted sum
-    (the V bias adds once, as the weights sum to 1)."""
-    n, t, d = hh.shape
-    s = n // beam
+    stream; kernel G (``lane_attention``) reads those rows in place.
+    Scores use the K projection folded into the query, ``(W_k[h]ᵀ q_h) ·
+    hn_t`` (the K bias cancels in the softmax), and the V projection is
+    applied once to the weighted sum (the V bias adds once, as the weights
+    sum to 1)."""
+    n, _, d = hh.shape
     h = local_heads(n_head)
     dk = d // n_head
     wk = dense_weight(p_attn["linear_k"]).reshape(h, dk, d)
     wv = dense_weight(p_attn["linear_v"]).reshape(h, dk, d)
     qk = torch.einsum("nhk,hkd->nhd", q.reshape(n, h, dk), wk)
-    hhl = hh.float().reshape(s, beam, t, d)
-    idx = lane.long()[..., None].expand(s, beam, t, d)
-    rows = torch.gather(hhl, 1, idx).reshape(n, t, d)
-    scores = torch.einsum("nhd,ntd->nht", qk, rows) / math.sqrt(dk)
-    scores = torch.where(hist_valid[:, None, :], scores, MASK_MIN)
-    self_score = torch.einsum("nhd,nd->nh", qk, hn_self) / math.sqrt(dk)
-    scores = torch.cat([scores, self_score[:, :, None]], dim=2)
-    attn = torch.softmax(scores, dim=-1)
-    hist_attn = torch.where(hist_valid[:, None, :], attn[:, :, :t], 0.0)
-    u = torch.einsum("nht,ntd->nhd", hist_attn, rows)
-    u = u + attn[:, :, t][:, :, None] * hn_self[:, None, :]
+    u = lane_attention(qk, hh, hn_self, lane, pos, dk)
     out = torch.einsum("nhd,hkd->nhk", u, wv)
     bias = p_attn["linear_v"].get("bias")
     if bias is not None:
@@ -252,7 +249,6 @@ def decoder_step(
     once per block by the caller; without it the step projects ``memory``
     itself."""
     d = cfg.decoder_dim
-    lmax = cache.h.shape[2]
     cache_dt = cache.h.dtype
     if cross_kv is None:
         cross_kv = project_cross_kv(params, memory, cfg.decoder_heads,
@@ -263,7 +259,6 @@ def decoder_step(
     pos = pos.long()
     x = (vocab_lookup(params["embed"]["weight"], tokens.long()) * math.sqrt(d)
          + pe[pos])
-    hist_valid = torch.arange(lmax, device=dev)[None, :] < pos[:, None]
     mem_valid = (torch.arange(tmax, device=dev)[None, :]
                  < enc_len.long()[:, None])
 
@@ -279,7 +274,7 @@ def decoder_step(
         h, hn = add_layer_norm(p_layer["norm1"], h, y, b, h_l, pos, write)
         q = linear(p_layer["self_attn"]["linear_q"], hn)
         att = _attend_cached_lane(q, h_l, hn, p_layer["self_attn"], lane,
-                                  hist_valid, beam, cfg.decoder_heads)
+                                  pos, cfg.decoder_heads)
         y, b = row_parallel_product(p_layer["self_attn"]["linear_out"], att)
         h, hn = add_layer_norm(p_layer["norm2"], h, y, b)
         q = linear(p_layer["src_attn"]["linear_q"], hn)

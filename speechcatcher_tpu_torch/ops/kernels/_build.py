@@ -47,6 +47,8 @@ _SIGNATURES = {
     "sc_ring_append_rows": [_P, _P, _P, _P, _P, _P],
     # h, y, bias, weight, beta, h_out, hn, cache, pos, write, plan, stream
     "sc_add_layer_norm": [_P] * 12,
+    # qk, cache, hn_self, lane, pos, out, plan, stream
+    "sc_lane_attention": [_P] * 8,
 }
 
 

@@ -10,7 +10,8 @@ a few thousand) and equal to the last bit on every frame outside
 [start, end), and B on bfloat16 rows equal to the last bit to B on the same
 rows widened to float32; C and D exact; F's normalised rows within 1e-5 of
 the largest (only the order of its two float32 sums differs), its residual
-sums and cache rows exact.
+sums and cache rows exact; G within 2e-6 of the largest |u| of its twin
+evaluated in float64 and blind to rows at t >= pos.
 """
 
 import numpy as np
@@ -40,6 +41,10 @@ from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
     rel_block_attention_plain,
 )
 from speechcatcher_tpu_torch.ops.kernels import _build
+from speechcatcher_tpu_torch.ops.kernels.lane_attention import (
+    lane_attention,
+    lane_attention_plain,
+)
 from speechcatcher_tpu_torch.ops.kernels.ring_append import (
     ring_append_cols,
     ring_append_cols_plain,
@@ -523,6 +528,83 @@ def test_add_layer_norm_stream_and_graph(dev):
     ops["write"].copy_(torch.arange(96) % 3 != 0)
     graph.replay()
     _add_layer_norm_close(p, ops, got_h, got_hn, old)
+
+
+def _lane_attention_operands(dev, n, h, d, lmax, beam, cache_dtype, p,
+                             seed=0):
+    """G's operands: qk as the transposed view the decoder's einsum
+    returns, a lane map that branches after a shared prefix, every
+    hypothesis at position p."""
+    rng = np.random.default_rng(seed)
+
+    def rows(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    lane = rng.integers(0, beam, (n // beam, beam, lmax)).astype(np.int32)
+    lane[:, :, :lmax // 3] = 0
+    return {"qk": rows(h, n, d).transpose(0, 1),
+            "cache": rows(n, lmax, d).to(cache_dtype),
+            "hn_self": rows(n, d), "lane": torch.from_numpy(lane).to(dev),
+            "pos": torch.full((n,), p, dtype=torch.int64, device=dev),
+            "dk": d // h}
+
+
+def _lane_attention_close(got, ops):
+    """G within 2e-6 of the largest |u| of the twin evaluated in float64
+    (the float32 twin's cuBLAS sums are themselves up to 4e-6 off)."""
+    ref = lane_attention_plain(**{**ops, "qk": ops["qk"].double(),
+                                  "hn_self": ops["hn_self"].double()})
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= 2e-6, err
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,d,lmax,p", [
+    (96, 8, 512, 192, 32),     # flagship drain step, width 32
+    (768, 8, 512, 192, 191),   # flagship backlog round, full history
+    (96, 4, 256, 192, 0),      # conformer, the self row alone
+    (768, 4, 256, 192, 64),
+    (12, 4, 512, 192, 200),    # tp = 2's heads, pos past Lmax
+    (6, 2, 16, 160, 7),        # tiny config
+    (12, 4, 64, 40, 39),       # small card-test width
+    (3, 4, 1024, 64, 17),
+    (9, 32, 128, 24, 23),
+])
+def test_lane_attention_kernel(dev, n, h, d, lmax, p, cache_dtype):
+    ops = _lane_attention_operands(dev, n, h, d, lmax, 3, cache_dtype, p,
+                                   seed=n + d)
+    before = lane_attention.launches
+    got = lane_attention(**ops)
+    assert lane_attention.launches == before + 1
+    _lane_attention_close(got, ops)
+    hidden = (torch.arange(lmax, device=dev) >= p)[None, :, None]
+    nan = torch.where(hidden, float("nan"), ops["cache"].float())
+    again = lane_attention(**{**ops, "cache": nan.to(cache_dtype)})
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)             # rows at t >= pos unread
+    with pytest.raises(ValueError):
+        lane_attention(**{**ops, "pos": ops["pos"].cpu()})  # no fallback
+
+
+def test_lane_attention_stream_and_graph(dev):
+    """G on a side stream, then captured in a CUDA graph and replayed with
+    new positions and a new lane map."""
+    ops = _lane_attention_operands(dev, 96, 8, 512, 192, 3, torch.float32,
+                                   20)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(ops["hn_self"]) == side.cuda_stream
+        _lane_attention_close(lane_attention(**ops), ops)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = lane_attention(**ops)
+    ops["pos"].copy_(torch.arange(96) % 50)
+    ops["lane"].copy_(torch.randint(0, 3, ops["lane"].shape))
+    graph.replay()
+    _lane_attention_close(got, ops)
 
 
 @pytest.mark.parametrize("n,h,w,dk", [

@@ -474,7 +474,7 @@ def test_attend_cached_lane_matches_jax_with_a_bfloat16_cache(mode):
                                          dtype=jnp.float32), 3, 2)
     ref = j_lane(jnp.asarray(q), jnp.asarray(hh).astype(jnp.bfloat16),
                  jnp.asarray(hn), ja, onehot, jnp.asarray(hist), beam, h)
-    got = p_lane(t(q), t(hh).bfloat16(), t(hn), pa, t(lane), t(hist), beam, h)
+    got = p_lane(t(q), t(hh).bfloat16(), t(hn), pa, t(lane), t(pos), h)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(n(got), n(ref), **TOL)
 
