@@ -21,9 +21,15 @@ Kernel F (each LayerNorm of the beam step with its residual add, bias
 add and cache-row write) is held against its plain twin at the beam
 step's rows, and kernel G (each layer's lane self-attention) against its
 twin at the beam step's hypotheses and positions; ``--profile
-beam-step`` runs those alone, then times the graphed beam step of both
+beam-step`` runs those alone, then times the graphed beam step of the
 benchmark configurations at 32 and 256 streams (device ms and kernels a
 replay), each block bit-equal to the eager loop.
+
+ESPnet's conformer with its Transformer LM fused into the beam search, at
+the published widths of the benchmark's ``aishell-cb-conformer-lm``
+(``lm_path``, alone with ``--profile lm``): the LM's step against the
+benchmark's plain full forward, the graphed session and engine held
+bit-equal to the eager ones, the engine's finals equal to the session's.
 
 The precision modes: kernel B on bfloat16 log-prob rows against its plain
 version and, to the last bit, against itself on the widened rows; the
@@ -88,6 +94,7 @@ as a process, resumed from its checkpoint.
     python3 chip_smoke.py --profile train-in-process   # train paths, profiles
     python3 chip_smoke.py --profile mesh-step   # the eager step a mesh runs
     python3 chip_smoke.py --profile beam-step   # F, G, graphed beam steps
+    python3 chip_smoke.py --profile lm          # the LM configuration's paths
 
 Imports neither JAX nor the JAX package.
 """
@@ -4360,16 +4367,19 @@ def graph_kernels(graph, reps: int = 10) -> dict:
 
 
 def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
-    """The graphed beam step of both benchmark configurations (the
-    flagship and ESPnet's conformer at the AISHELL-1 widths, random
-    weights with the cells' emission biases) at BEAM_STEP_WIDTHS streams:
+    """The graphed beam step of the benchmark's configurations (the
+    flagship, ESPnet's conformer at the AISHELL-1 widths and that with its
+    Transformer LM, random weights with the cells' emission biases; the
+    LM's configuration is skipped in a checkout without the LM) at
+    BEAM_STEP_WIDTHS streams:
     `blocks` blocks through a ``BlockLoop`` over random frames, each held
     bit-equal to the eager loop (``GraphCheck``), then, every stream
     stopped, the step graph's replays: device ms a step (CUDA events over
     `reps` masked steps, which run every kernel of a live one), kernels a
     replay by the profiler and by the capture's launch record, kernel F's
-    among them (19 a step at six layers) and kernel G's (6; either 0 in a
-    checkout without it). A step's cost in G grows with the hypotheses'
+    among them (19 a step at six layers, 33 more with the LM's 16) and
+    kernel G's (6, 16 more with the LM; either 0 in a checkout without
+    it). A step's cost in G grows with the hypotheses'
     positions (the composition before G read all Lmax rows whatever they
     were): the row gives the loop's mean pos / Lmax, and the step's ms
     again with every stream's position set to BEAM_STEP_POS, a typical
@@ -4386,14 +4396,20 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
     from speechcatcher_tpu_torch.models.asr_model import ASRModel
     from speechcatcher_tpu_torch.serve.engine import _ring_frames
 
-    cbc = json.loads((ROOT / "benchmark" / "configs"
-                      / "aishell-cb-conformer.json").read_text())
-    configs = (("de-xl-transformer", flagship_config(), (2.0, 8.0)),
-               ("aishell-cb-conformer", ModelConfig(**cbc["model"]),
-                (cbc["emission_bias"]["eos"], cbc["emission_bias"]["blank"])))
+    configs = [("de-xl-transformer", flagship_config(), (2.0, 8.0))]
+    for name in ("aishell-cb-conformer", "aishell-cb-conformer-lm"):
+        conf = json.loads((ROOT / "benchmark" / "configs"
+                           / f"{name}.json").read_text())
+        if "lm_layers" in conf["model"] and not hasattr(ModelConfig,
+                                                         "lm_layers"):
+            continue  # a checkout without the LM
+        configs.append((name, ModelConfig(**conf["model"]),
+                        (conf["emission_bias"]["eos"],
+                         conf["emission_bias"]["blank"])))
     fused = optional_wrapper(ADD_LAYER_NORM)
     lane_fn = optional_wrapper(LANE_ATTENTION)
     for name, cfg, biases in configs:
+        lm_layers = getattr(cfg, "lm_layers", 0)
         model = ASRModel.random_init(cfg, seed=3, device=dev)
         with torch.no_grad():
             model.params["decoder"]["output_layer"]["bias"][cfg.eos_id] += \
@@ -4404,8 +4420,10 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
             gen = torch.Generator(device=dev).manual_seed(s_dim)
             memory = torch.randn((s_dim, ecap, cfg.encoder_dim), device=dev,
                                  generator=gen)
-            settings = bs.LoopSettings(BEAM_STEP_BEAM, cfg.pre_beam_size,
-                                       cfg.ctc_weight, True, cfg.max_tokens)
+            settings = bs.LoopSettings(
+                BEAM_STEP_BEAM, cfg.pre_beam_size, cfg.ctc_weight, True,
+                cfg.max_tokens,
+                **({"lm_weight": cfg.lm_weight} if lm_layers else {}))
             loop = BlockLoop(
                 model, bs.fresh_block_state(cfg, s_dim, BEAM_STEP_BEAM, dev),
                 memory, settings,
@@ -4437,8 +4455,9 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
                    f"step_ms_at_pos_{BEAM_STEP_POS}": at_pos,
                    "readback_ms": costs["readback_ms"],
                    "launch_record": record, **graph_kernels(step.graph)}
-            for fn, want in ((fused, 3 * cfg.decoder_layers + 1),
-                             (lane_fn, cfg.decoder_layers)):
+            for fn, want in ((fused, 3 * cfg.decoder_layers + 1
+                              + (2 * lm_layers + 1 if lm_layers else 0)),
+                             (lane_fn, cfg.decoder_layers + lm_layers)):
                 if fn is not None and record.get(fn.__name__) != want:
                     fail(f"beam_step {name} S={s_dim}: {fn.__name__} "
                          f"launched {record.get(fn.__name__)} times a step")
@@ -4446,6 +4465,137 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
             del loop, memory
         del model
         torch.cuda.empty_cache()
+
+
+# The LM step against the plain full forward at the published widths: both
+# float32 (TF32 off), the step through kernels F and G, the reference
+# through whole-sequence cuBLAS products; log-probabilities of about -8.4.
+LM_STEP_TOL = 1e-4
+
+
+def lm_path(dev, counters, smi: str) -> dict:
+    """ESPnet's conformer with its Transformer LM at the published widths
+    (the benchmark's ``aishell-cb-conformer-lm``, random weights from seed
+    3 with its emission biases): the LM's incremental step on the card
+    against the benchmark's plain full causal forward over 20-token
+    prefixes of 2 x 3 hypotheses read through a lane map shuffled every
+    step; then, every graphed block loop and chunk step held bit-equal to
+    the eager one (``GraphCheck``), three utterances through the session
+    and the engine path's ten streams through an 8-slot engine (finals by
+    ``finalize_batch`` and ``finalize``), each final equal to the
+    single-stream session's; the launch counts."""
+    import numpy as np
+    import torch
+
+    from benchmark.reference import cb_conformer_lm as lmr
+    from speechcatcher_tpu_torch.config import ModelConfig
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.models.lm import init_lm_cache, lm_step
+    from speechcatcher_tpu_torch.params import params_to_numpy
+    from speechcatcher_tpu_torch.serve.engine import StreamingEngine
+    from speechcatcher_tpu_torch.streaming import Speech2TextStreaming
+    from speechcatcher_tpu_torch.synth import synth_audio
+
+    conf = json.loads((ROOT / "benchmark" / "configs"
+                       / "aishell-cb-conformer-lm.json").read_text())
+    cfg = ModelConfig(**conf["model"])
+    model = ASRModel.random_init(cfg, seed=3, device=dev)
+    with torch.no_grad():
+        model.params["decoder"]["output_layer"]["bias"][cfg.eos_id] += \
+            conf["emission_bias"]["eos"]
+        model.params["ctc"]["ctc_lo"]["bias"][cfg.blank_id] += \
+            conf["emission_bias"]["blank"]
+
+    # The LM step against the full forward.
+    lm_tree = tensor_tree(params_to_numpy(model.params)["lm"], dev)
+    ref_lm = lmr.LanguageModel(lm_tree, cfg.lm_heads)
+    s_dim, b_dim, steps = 2, 3, 20
+    n = s_dim * b_dim
+    rng = np.random.default_rng(3)
+    ys = rng.integers(1, cfg.vocab_size - 1, size=(s_dim, b_dim, steps))
+    ys[:, :, 0] = cfg.sos_id
+    perm = [rng.permutation(b_dim) for _ in range(steps)]
+    inv = [np.argsort(p) for p in perm]
+    want = {(a, h): ref_lm.logp(ys[a, h]) for a in range(s_dim)
+            for h in range(b_dim)}
+    cache = init_lm_cache(cfg, n, dev)
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(steps):
+            lane = np.zeros((s_dim, b_dim, cfg.max_tokens), np.int32)
+            for b in range(b_dim):
+                lane[:, b, :t] = [inv[u][perm[t][b]] for u in range(t)]
+            tokens = torch.tensor([ys[a, perm[t][b], t] for a in range(s_dim)
+                                   for b in range(b_dim)], device=dev)
+            got = lm_step(model.params["lm"], cache, tokens,
+                          torch.full((n,), t, device=dev),
+                          torch.from_numpy(lane).to(dev),
+                          torch.ones(n, dtype=torch.bool, device=dev), cfg)
+            for a in range(s_dim):
+                for b in range(b_dim):
+                    gap = (got[a * b_dim + b] - want[a, perm[t][b]][t]).abs()
+                    worst = max(worst, float(gap.max()))
+    emit({"phase": "lm_step_vs_reference", "card": smi, "positions": steps,
+          "hypotheses": n, "max_abs_err": worst, "tol": LM_STEP_TOL})
+    if not worst <= LM_STEP_TOL:
+        fail(f"the LM step is {worst} off the full forward")
+
+    rate = cfg.sample_rate
+    for c in counters:
+        c.launches = 0
+    with GraphCheck() as check:
+        s2t = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+        rows = []
+        for i, seconds in enumerate((4.0, 5.0, 6.0)):
+            audio = synth_audio(seconds, seed=100 + i, rate=rate)
+            _, nbest, lat = decode_chunked(s2t, audio, rate)
+            yseq, _, score = nbest[0]
+            if not math.isfinite(score) or len(yseq) < 2:
+                fail(f"lm_path utterance {i}: bad best hypothesis {nbest[0]}")
+            rows.append({"utterance": i, "hyp_len": int(len(yseq)),
+                         "score": score, "p50_chunk_ms":
+                             float(np.median(lat)) * 1e3})
+        chunk = 8192
+        streams = engine_path_streams(rate)
+        engine = StreamingEngine(model, n_slots=8, beam_size=5,
+                                 chunk_samples=chunk, device=dev)
+        finals, tick_s, slot_of = drive_engine(engine, streams, chunk,
+                                               sync=_sync(dev))
+    launches = {c.__name__: c.launches for c in counters}
+    session = Speech2TextStreaming(model=model, beam_size=5, device=dev)
+    worst_rel = 0.0
+    for k, st in enumerate(streams):
+        ry, rx, rs = single_stream_final(session, st["audio"], chunk)
+        ey, ex, es = finals[k]
+        rel = abs(es - rs) / max(1.0, abs(rs))
+        worst_rel = max(worst_rel, rel)
+        if not (np.array_equal(ey, ry) and np.array_equal(ex, rx)
+                and rel <= 1e-4):
+            fail(f"lm_path stream {k}: the engine's final differs from the "
+                 f"session's: {ey.tolist()} / {ry.tolist()}, {es} / {rs}")
+    emit({"phase": "lm_path", "card": smi, "utterances": rows,
+          "blocks_checked": check.blocks, "chunk_steps_checked": check.chunks,
+          "encodes_checked": check.encodes, "streams": len(streams),
+          "hyp_lens": [len(finals[k][0]) for k in range(len(streams))],
+          "slots_reused": len(slot_of) - len(set(slot_of.values())),
+          "p50_tick_ms": float(np.median(tick_s)) * 1e3,
+          "max_score_rel_err": worst_rel,
+          "hbm_bytes_per_stream": engine.hbm_bytes_per_stream(),
+          "graph_bytes_per_stream": engine.graph_bytes_per_stream()})
+    # ESPnet's conformer runs kernel A, never E.
+    check_launches("lm_path", counters, launches,
+                   zero=[c for c in counters
+                         if c.__name__ == "rel_block_attention"])
+    return launches
+
+
+def tensor_tree(tree, dev):
+    """A numpy tree of dicts as tensors on `dev`."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: tensor_tree(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(tree).to(dev)
 
 
 def engine_loops(engine) -> list:
@@ -4904,7 +5054,7 @@ def main() -> int:
                     choices=("utterance", "engine", "conformer", "tiling",
                              "recursion", "recognize", "train",
                              "train-memory", "train-in-process",
-                             "mesh-step", "beam-step"),
+                             "mesh-step", "beam-step", "lm"),
                     help="profile one main-path utterance (default), "
                     "engine ticks at S=8, one conformer utterance, or the "
                     "attention kernels' device time under either tiling "
@@ -4916,8 +5066,9 @@ def main() -> int:
                     "graphed train paths with their profiles in one "
                     "process, or the eager step a mesh runs (one card, tp "
                     "= 2, the NCCL trainer), or kernels F and G and the "
-                    "graphed beam step of both benchmark configurations "
-                    "at 32 and 256 streams, then stop")
+                    "graphed beam step of the benchmark configurations "
+                    "at 32 and 256 streams, or the LM configuration's "
+                    "step, session and engine (lm_path), then stop")
     ap.add_argument("--precision", choices=PRECISIONS, default="float32",
                     help="the model of --profile, --profile engine and "
                     "--profile conformer: float32, that with only the CTC "
@@ -4964,6 +5115,9 @@ def main() -> int:
      ring_append_cols, ring_append_rows, add_layer_norm,
      lane_attention) = counters
 
+    if args.profile == "lm":
+        lm_path(dev, counters, smi)
+        return 0
     if args.profile == "utterance":
         profile_utterance(dev, precision=args.precision)
         return 0
@@ -5121,6 +5275,8 @@ def main() -> int:
                                                  "conformer",
                                                  full_profile=False)
     del conformer
+    # ESPnet's conformer with its Transformer LM at the published widths.
+    by_path["lm"] = lm_path(dev, counters, smi)
     # Training and offline greedy decode: A and E through their autograd
     # Functions at the training shapes, B, C and D refusing grad, then the
     # paths.

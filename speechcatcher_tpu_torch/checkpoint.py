@@ -9,7 +9,9 @@ reference loader:
 - shape-based architecture inference, and the encoder layer decided from
   the keys (``encoder_layer_kind``),
 - a name mapping that keeps encoder./decoder./ctc. keys and drops
-  frontend./normalize_ keys,
+  frontend./normalize_ keys, and ESPnet's ``TransformerLM`` (``lm.*``, as
+  ``ESPnetLanguageModel`` saves it, from the ASR checkpoint or a file of
+  its own) into the ``lm`` subtree,
 - MVN stats from feats_stats.npz stored as mean/std or
   sum/sum_square/count.
 """
@@ -76,6 +78,13 @@ def infer_architecture(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
         arch["vocab_size"] = int(sd["decoder.embed.0.weight"].shape[0])
     if "ctc.ctc_lo.weight" in sd:
         arch["ctc_vocab_size"] = int(sd["ctc.ctc_lo.weight"].shape[0])
+    if _LM_IN in sd:
+        # The LM's widths; its heads are not in the shapes (lm_conf).
+        arch["lm_layers"] = count_layers("lm.encoder.encoders")
+        arch["lm_dim"], arch["lm_embed_dim"] = (int(n) for n in
+                                                sd[_LM_IN].shape)
+        arch["lm_linear_units"] = int(
+            sd["lm.encoder.encoders.0.feed_forward.w_1.weight"].shape[0])
     # Mel dim from first conv input feature width is not recoverable from
     # shapes alone (kernel only); frontend dims come from config.yaml.
     return arch
@@ -144,6 +153,7 @@ def _conv_module(sd, cm: str) -> Dict[str, Any]:
 
 
 _LAYER0 = "encoder.encoders.0."
+_LM_IN = "lm.encoder.embed.0.weight"
 
 
 def _has_macaron(sd: Dict[str, np.ndarray]) -> bool:
@@ -283,17 +293,53 @@ def convert_state_dict(
         }
     }
 
-    return {"encoder": encoder, "decoder": decoder, "ctc": ctc}
+    tree = {"encoder": encoder, "decoder": decoder, "ctc": ctc}
+    if cfg.lm_layers:
+        tree["lm"] = convert_lm_state_dict(sd, cfg)
+    return tree
+
+
+def convert_lm_state_dict(sd: Dict[str, np.ndarray], cfg: ModelConfig
+                          ) -> Dict[str, Any]:
+    """ESPnet's ``TransformerLM`` keys (``lm.embed``, ``lm.encoder.embed``:
+    its linear input layer, Linear at 0 and LayerNorm at 1, Dropout and
+    ReLU holding none; ``lm.encoder.encoders.{i}``, ``lm.encoder.after_norm``
+    and the output layer ``lm.decoder``) → the ``lm`` subtree."""
+    if _LM_IN not in sd:
+        raise ValueError(f"the configuration has an LM of {cfg.lm_layers} "
+                         f"layers and the state dict no lm.* keys")
+    layers = []
+    for i in range(cfg.lm_layers):
+        p = f"lm.encoder.encoders.{i}"
+        layers.append({"self_attn": _mha(sd, f"{p}.self_attn"),
+                       "feed_forward": _ffn(sd, f"{p}.feed_forward"),
+                       "norm1": _norm(sd, f"{p}.norm1"),
+                       "norm2": _norm(sd, f"{p}.norm2")})
+    return {
+        "embed": {"weight": np.asarray(_get(sd, "lm.embed.weight"),
+                                       dtype=np.float32)},
+        "input_layer": {"out": _linear(sd, "lm.encoder.embed.0"),
+                        "norm": _norm(sd, "lm.encoder.embed.1")},
+        "layers": _stack(layers),
+        "after_norm": _norm(sd, "lm.encoder.after_norm"),
+        "output_layer": _linear(sd, "lm.decoder"),
+    }
 
 
 def load_espnet_checkpoint(
     checkpoint_path: Path, cfg: Optional[ModelConfig] = None,
     config_path: Optional[Path] = None,
+    lm_checkpoint_path: Optional[Path] = None,
 ) -> Tuple[Dict[str, Any], ModelConfig, Dict[str, Any]]:
     """Load + convert. Returns (params, possibly-updated cfg, arch info).
     With `config_path` in place of `cfg`, the config is that ESPnet
-    config.yaml's, built for the conformer kind the keys hold."""
+    config.yaml's, built for the conformer kind the keys hold. An LM's
+    ``lm.*`` keys come from the checkpoint or from `lm_checkpoint_path`,
+    ESPnet's LM file (its heads and weight from the config's ``lm_conf``
+    and ``lm_weight``)."""
     sd = _load_state_dict(Path(checkpoint_path))
+    if lm_checkpoint_path is not None:
+        sd.update(_load_state_dict(Path(lm_checkpoint_path)))
     arch = infer_architecture(sd)
     kind = encoder_layer_kind(sd)
     if config_path is not None:
@@ -302,9 +348,13 @@ def load_espnet_checkpoint(
     if cfg is None:
         cfg = ModelConfig()
     updates = {}
+    if arch.get("lm_layers") and not cfg.lm_heads:
+        raise ValueError("the state dict holds an LM and the configuration "
+                         "no lm_conf: its heads are not in the shapes")
     for field in ("vocab_size", "encoder_layers", "decoder_layers",
                   "encoder_dim", "encoder_linear_units",
-                  "decoder_linear_units"):
+                  "decoder_linear_units", "lm_layers", "lm_dim",
+                  "lm_embed_dim", "lm_linear_units"):
         if arch.get(field) and getattr(cfg, field) != arch[field]:
             updates[field] = arch[field]
     if "encoder_dim" in updates:

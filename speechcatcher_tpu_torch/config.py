@@ -20,6 +20,8 @@ CB_CONFORMER = "contextual_block_conformer"
 ENCODER_TYPES = ("transformer", "conformer", CB_CONFORMER)
 # The activations of ``contextual_block_conformer`` layers the port computes.
 ACTIVATIONS = ("swish",)
+# The language models the port fuses into its beam search (ESPnet's ``lm``).
+LM_TYPES = ("transformer",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,19 @@ class ModelConfig:
     ctc_weight: float = 0.3
     pre_beam_size: int = 40
 
+    # External language model, fused by shallow fusion (ESPnet's
+    # ``TransformerLM`` with ``pos_enc: null``): a token embedding of
+    # lm_embed_dim, a linear input layer to lm_dim, lm_layers pre-norm
+    # self-attention layers, an output layer over the vocabulary. 0 layers:
+    # no LM. lm_weight is the weight of its log-probabilities in the joint
+    # score.
+    lm_layers: int = 0
+    lm_dim: int = 0
+    lm_heads: int = 0
+    lm_linear_units: int = 0
+    lm_embed_dim: int = 0
+    lm_weight: float = 0.0
+
     # Streaming capacity limits (fixed shapes of the device state).
     max_enc_frames: int = 2048
     max_tokens: int = 500
@@ -88,6 +103,13 @@ class ModelConfig:
                 and self.activation_type not in ACTIVATIONS):
             raise ValueError(f"activation_type {self.activation_type!r}: the "
                              f"port computes {ACTIVATIONS} alone")
+        if self.lm_layers and (
+                min(self.lm_dim, self.lm_heads, self.lm_linear_units,
+                    self.lm_embed_dim) <= 0
+                or self.lm_dim % self.lm_heads):
+            raise ValueError("an LM needs positive lm_dim, lm_heads, "
+                             "lm_linear_units and lm_embed_dim, lm_dim a "
+                             "multiple of lm_heads")
 
     @property
     def cache_torch_dtype(self) -> torch.dtype:
@@ -174,6 +196,8 @@ class ModelConfig:
         )
         if encoder_type == CB_CONFORMER:
             kwargs.update(_cb_conformer_keys(enc, fr))
+        if "lm_conf" in cfg or "lm" in cfg:
+            kwargs.update(_lm_keys(cfg))
         kwargs.update(overrides)
         return cls(**kwargs)
 
@@ -205,6 +229,27 @@ def _cb_conformer_keys(enc: Dict[str, Any], fr: Dict[str, Any]
                 win_length=fr.get("win_length") or fr.get("n_fft", 512),
                 hop_length=fr.get("hop_length", 128),
                 n_mels=fr.get("n_mels", 80))
+
+
+def _lm_keys(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The LM keys of an ESPnet language-model config (``lm`` and its
+    ``lm_conf``, at ``TransformerLM``'s defaults where absent) and a decode
+    config's ``lm_weight``. Refuses, naming the key, what the port does not
+    compute."""
+    lm = str(cfg.get("lm", "transformer"))
+    if lm not in LM_TYPES:
+        raise ValueError(f"lm {lm!r}: the port fuses {LM_TYPES} alone")
+    conf = cfg.get("lm_conf", {}) or {}
+    if conf.get("pos_enc") is not None:
+        raise ValueError(f"lm_conf.pos_enc {conf['pos_enc']!r}: the port's "
+                         f"transformer LM has no positional encoding "
+                         f"(pos_enc: null)")
+    return dict(lm_embed_dim=int(conf.get("embed_unit", 128)),
+                lm_dim=int(conf.get("att_unit", 256)),
+                lm_heads=int(conf.get("head", 2)),
+                lm_linear_units=int(conf.get("unit", 1024)),
+                lm_layers=int(conf.get("layer", 4)),
+                lm_weight=float(cfg.get("lm_weight", 0.0)))
 
 
 def tiny_config(**overrides: Any) -> ModelConfig:

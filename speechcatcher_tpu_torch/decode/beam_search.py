@@ -2,7 +2,8 @@
 ``speechcatcher_tpu/decode/beam_search.py``).
 
 Hypotheses are structure-of-arrays tensors (yseq/xpos/lane (S, B, Lmax),
-scores (S, B)). One beam step runs the decoder over the full vocabulary,
+scores (S, B)). One beam step runs the decoder (and, where the model has
+one, the fused language model, ``models.lm``) over the full vocabulary,
 keeps the top ``pre_beam`` candidates, scores them with the CTC prefix
 scorer, expands each hypothesis by its top B and prunes the B·B expansions
 to the global top B.
@@ -20,11 +21,12 @@ JAX package's parity tests hold it in.
 Snapshots: JAX arrays are immutable, so a snapshot is a reference. Here the
 same holds because nothing a snapshot holds is ever written in place: every
 step makes new yseq/xpos/lane/score*/ctc.r/ctc.s tensors. Only the CTC
-log-prob ring (ctc_prefix.ctc_extend) and the decoder activation cache
-(models/decoder.decoder_step) are written in place, and no snapshot holds
-either: a snapshot's ring is empty, and the cache is carried beside the
-beam state. The session's state lives at fixed addresses: each block's
-results are written back into the tensors it read (``graphs.write_tree``).
+log-prob ring (ctc_prefix.ctc_extend) and the decoder's and the LM's
+activation caches (models/decoder.decoder_step, models/lm.lm_step) are
+written in place, and no snapshot holds them: a snapshot's ring is empty,
+and the caches are carried beside the beam state. The session's state
+lives at fixed addresses: each block's results are written back into the
+tensors it read (``graphs.write_tree``).
 
 Ties: every top-k is a stable descending sort, so equal scores keep the
 lower index first, as JAX's exact top-k does.
@@ -57,6 +59,12 @@ from speechcatcher_tpu_torch.models.decoder import (
     init_decoder_cache,
     project_cross_kv,
 )
+from speechcatcher_tpu_torch.models.lm import (
+    LMCache,
+    check_lm_supported,
+    init_lm_cache,
+    lm_step,
+)
 
 NEG_INF = -1.0e30
 
@@ -72,6 +80,9 @@ class BeamArrays(NamedTuple):
     score_dec: torch.Tensor  # (S, B) accumulated decoder score
     score_ctc: torch.Tensor  # (S, B) accumulated CTC score
     ctc: CTCScorerState
+    # (S, B) accumulated LM score; None without an LM, so that a model
+    # without one carries, selects and copies nothing more.
+    score_lm: Optional[torch.Tensor] = None
 
 
 class StepFlags(NamedTuple):
@@ -107,6 +118,7 @@ def init_beam_arrays(cfg: ModelConfig, n_streams: int, beam: int,
         score_dec=zeros,
         score_ctc=zeros.clone(),
         ctc=ctc,
+        score_lm=zeros.clone() if cfg.lm_layers else None,
     )
 
 
@@ -130,8 +142,17 @@ def _beam_step_core(
     ctc_weight: float,
     use_bbd: bool,
     penalty: float = 0.0,
+    lm_cache: Optional[LMCache] = None,
+    lm_weight: float = 0.0,
 ) -> Tuple[BeamArrays, DecoderCache, StepFlags]:
-    """One synchronous beam step for all streams."""
+    """One synchronous beam step for all streams. With an LM (``lm_cache``)
+    it is a third full scorer beside the decoder, by shallow fusion as
+    ESPnet's ``BatchBeamSearchOnline`` weighs it: the joint score is
+    ``(1 - w)·dec + w·ctc + lm_weight·lm + penalty`` and the pre-beam the
+    top K of the full scorers' ``(1 - w)·dec + lm_weight·lm``
+    (``pre_beam_score_key="full"``). Without one the pre-beam is the top K
+    of ``dec`` itself, the same order, and the step launches what it did
+    before the LM existed."""
     s_dim, _, lmax = arrays.yseq.shape
     n = s_dim * beam
     vocab = cfg.vocab_size
@@ -140,17 +161,26 @@ def _beam_step_core(
 
     last_tok = arrays.yseq.gather(
         2, (ylen - 1)[:, None, None].expand(-1, beam, 1))[:, :, 0]  # (S, B)
+    tokens = last_tok.reshape(n)
+    pos = (ylen - 1).repeat_interleave(beam)
+    write = stepping.repeat_interleave(beam)
 
-    # Pass 1: decoder scores over the full vocabulary.
+    # Pass 1: decoder (and LM) scores over the full vocabulary.
     dec_logp, new_cache = decoder_step(
-        params["decoder"], dec_pe, dec_cache, None, last_tok.reshape(n),
-        (ylen - 1).repeat_interleave(beam), vis_len, arrays.lane,
-        stepping.repeat_interleave(beam), cfg, beam, cross_kv=cross_kv,
+        params["decoder"], dec_pe, dec_cache, None, tokens, pos, vis_len,
+        arrays.lane, write, cfg, beam, cross_kv=cross_kv,
     )
     dec_logp = dec_logp.reshape(s_dim, beam, vocab)
+    lm_logp = full = None
+    if lm_cache is not None:
+        # Its rows go at the parent's lane, as the decoder's do.
+        lm_logp = lm_step(params["lm"], lm_cache, tokens, pos, arrays.lane,
+                          write, cfg).reshape(s_dim, beam, vocab)
+        full = (1.0 - ctc_weight) * dec_logp + lm_weight * lm_logp
 
-    # Pre-beam: top-K by decoder score.
-    _, cand_ids = _topk_stable(dec_logp, min(pre_beam, vocab))
+    # Pre-beam: top-K by the full scorers' weighted sum.
+    _, cand_ids = _topk_stable(dec_logp if full is None else full,
+                               min(pre_beam, vocab))
 
     # Pass 2: CTC prefix scores of the K candidates.
     olen = ylen - 1
@@ -158,8 +188,11 @@ def _beam_step_core(
         arrays.ctc, last_tok, olen, cand_ids, blank=cfg.blank_id,
         eos=cfg.eos_id,
     )
-    combined = ((1.0 - ctc_weight) * dec_logp + ctc_weight * ctc_scores
-                + penalty)
+    if full is None:
+        combined = ((1.0 - ctc_weight) * dec_logp + ctc_weight * ctc_scores
+                    + penalty)
+    else:
+        combined = full + ctc_weight * ctc_scores + penalty
 
     # Expand: per-hypothesis top B, then the global top B of the B·B.
     top_scores, top_tokens = _topk_stable(combined, beam)       # (S, B, B)
@@ -199,6 +232,8 @@ def _beam_step_core(
         score_dec=lineage(arrays.score_dec) + gather_tok(dec_logp),
         score_ctc=lineage(arrays.score_ctc) + gather_tok(ctc_scores),
         ctc=new_ctc,
+        score_lm=(None if lm_logp is None else
+                  lineage(arrays.score_lm) + gather_tok(lm_logp)),
     )
 
     eos = cfg.eos_id
@@ -219,8 +254,12 @@ def _beam_step_core(
     )
 
 
-def _sel0(m: torch.Tensor, x, y: torch.Tensor) -> torch.Tensor:
-    """where over the leading stream axis (x may be a scalar)."""
+def _sel0(m: torch.Tensor, x, y: Optional[torch.Tensor]
+          ) -> Optional[torch.Tensor]:
+    """where over the leading stream axis (x may be a scalar); None for a
+    field that is None (the LM's, without an LM)."""
+    if y is None:
+        return None
     return torch.where(m.reshape((m.shape[0],) + (1,) * (y.dim() - 1)), x, y)
 
 
@@ -249,12 +288,14 @@ def select_arrays(mask: torch.Tensor, a: BeamArrays, b: BeamArrays
             r=_sel0(mask, a.ctc.r, b.ctc.r),
             s=_sel0(mask, a.ctc.s, b.ctc.s),
         ),
+        score_lm=_sel0(mask, a.score_lm, b.score_lm),
     )
 
 
 class BlockDecodeState(NamedTuple):
-    """Carry of the block-decode loop. The decoder cache rides along (its
-    rows are append-only) and is never selected or snapshotted."""
+    """Carry of the block-decode loop. The decoder cache, and the LM's
+    beside it, ride along (their rows are append-only) and are never
+    selected or snapshotted."""
 
     arrays: BeamArrays
     prev_arrays: BeamArrays
@@ -263,6 +304,7 @@ class BlockDecodeState(NamedTuple):
     process_idx: torch.Tensor  # (S,) int32
     output_index: torch.Tensor  # (S,) int32
     stepping: torch.Tensor     # (S,) bool
+    lm_cache: Optional[LMCache] = None  # None without an LM
 
 
 class LoopSettings(NamedTuple):
@@ -275,6 +317,7 @@ class LoopSettings(NamedTuple):
     max_length: int
     penalty: float = 0.0
     eos_commit: str = "native"
+    lm_weight: float = 0.0
 
 
 def block_extend(params, state: BlockDecodeState, frames: torch.Tensor,
@@ -305,7 +348,7 @@ def block_step(params, dec_pe: torch.Tensor, cross_kv,
     new, dec_cache, flags = _beam_step_core(
         params, dec_pe, cross_kv, st.dec_cache, old, vis_len, stepping,
         cfg, loop.beam, loop.pre_beam, loop.ctc_weight, loop.use_bbd,
-        loop.penalty,
+        loop.penalty, st.lm_cache, loop.lm_weight,
     )
     output_index = torch.where(stepping, st.output_index + 1,
                                st.output_index)
@@ -338,6 +381,7 @@ def block_step(params, dec_pe: torch.Tensor, cross_kv,
         output_index=output_index,
         stepping=(cont & (process_idx < max_length)
                   & (arrays.ylen + 1 < lmax)),
+        lm_cache=st.lm_cache,
     )
 
 
@@ -362,6 +406,7 @@ def block_rewind(st: BlockDecodeState, stepping0: torch.Tensor
         process_idx=torch.where(rewind, st.process_idx - 1, st.process_idx),
         output_index=st.output_index,
         stepping=torch.zeros_like(st.stepping),
+        lm_cache=st.lm_cache,
     )
 
 
@@ -386,6 +431,7 @@ def decode_block_device(
     max_length: int,
     penalty: float = 0.0,
     eos_commit: str = "native",
+    lm_weight: float = 0.0,
 ) -> BlockDecodeState:
     """The beam loop of one block, eagerly: steps until no stream is
     stepping, reading ``any(stepping)`` on the host before each step.
@@ -395,7 +441,7 @@ def decode_block_device(
     non-final blocks."""
     check_eos_commit(eos_commit)
     loop = LoopSettings(beam, pre_beam, ctc_weight, use_bbd, max_length,
-                        penalty, eos_commit)
+                        penalty, eos_commit, lm_weight)
     cross_kv = project_cross_kv(params["decoder"], memory, cfg.decoder_heads,
                                 state.dec_cache.h.dtype)
     st = state
@@ -408,7 +454,8 @@ def decode_block_device(
 def fresh_block_state(cfg: ModelConfig, n_streams: int, beam: int,
                       device: torch.device) -> BlockDecodeState:
     """The block-loop state of fresh sessions: a live beam, an empty-ring
-    snapshot that is not valid, a zero decoder cache and zero counters."""
+    snapshot that is not valid, zero decoder and LM caches and zero
+    counters."""
     flags = dict(device=device)
     return BlockDecodeState(
         arrays=init_beam_arrays(cfg, n_streams, beam, device),
@@ -419,6 +466,8 @@ def fresh_block_state(cfg: ModelConfig, n_streams: int, beam: int,
         process_idx=torch.zeros((n_streams,), dtype=torch.int32, **flags),
         output_index=torch.zeros((n_streams,), dtype=torch.int32, **flags),
         stepping=torch.zeros((n_streams,), dtype=torch.bool, **flags),
+        lm_cache=(init_lm_cache(cfg, n_streams * beam, device)
+                  if cfg.lm_layers else None),
     )
 
 
@@ -448,7 +497,8 @@ class BlockwiseSynchronousBeamSearch:
     encoder step (``graphs.ChunkStep``) and each block's loop
     (``graphs.BlockLoop``) run as CUDA graphs in one memory pool, eagerly
     on the CPU and under a tp group (whose collectives cannot be
-    captured)."""
+    captured). ``lm_weight`` is the model configuration's unless given; it
+    weighs the fused LM where the model has one."""
 
     def __init__(
         self,
@@ -462,13 +512,17 @@ class BlockwiseSynchronousBeamSearch:
         coverage_weight: float = 0.0,
         eos_commit: str = "native",
         memory_dtype: torch.dtype = torch.float32,
+        lm_weight: Optional[float] = None,
     ):
         check_eos_commit(eos_commit)
+        check_lm_supported(model.cfg)
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
         self.beam_size = beam_size
         self.ctc_weight = ctc_weight
+        self.lm_weight = (self.cfg.lm_weight if lm_weight is None
+                          else lm_weight)
         self.use_bbd = use_bbd
         self.eos_commit = eos_commit
         self.penalty = penalty
@@ -499,7 +553,7 @@ class BlockwiseSynchronousBeamSearch:
         check_eos_commit(self.eos_commit)
         return LoopSettings(self.beam_size, self.pre_beam, self.ctc_weight,
                             self.use_bbd, self.max_length, self.penalty,
-                            self.eos_commit)
+                            self.eos_commit, self.lm_weight)
 
     def reset(self):
         """Reset streaming state between utterances; the device state is

@@ -32,8 +32,8 @@ a block where the eager loop (``beam_search.decode_block_device``) makes
 steps + 1. A step after every stream has stopped is a bit-exact identity,
 so the unrolled loop is exact. Each graph ends by copying its results into
 the tensors it read (``write_tree``); the CTC log-prob ring, the raw frame
-ring and the decoder cache are read and appended where they lie, never
-copied per block.
+ring and the decoder's and the LM's caches are read and appended where they
+lie, never copied per block.
 
 No switch and no fallback: on a CUDA device a capture or replay that fails
 raises. The same three programs run eagerly on the CPU and under a tp group
@@ -84,7 +84,12 @@ STEPS_PER_REPLAY = 1
 # Trees of tensors (NamedTuples, lists, tuples)
 # ---------------------------------------------------------------------------
 
+# A tree's None is an absent leaf (the beam's LM fields without an LM): it
+# holds nothing, maps to None and copies nothing.
+
 def tree_leaves(tree) -> List[torch.Tensor]:
+    if tree is None:
+        return []
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, (tuple, list)):
@@ -93,6 +98,8 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def tree_map(fn: Callable, tree):
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, list):
@@ -371,6 +378,10 @@ class BlockLoop:
         # blocks by their live steps.
         self.blocks = self.steps = self.syncs = self.max_steps = 0
         self.step_counts: collections.Counter = collections.Counter()
+        # The LM rows a beam step scores (every hypothesis of every stream),
+        # for the tracer's ``lm.rows``; 0 without an LM.
+        self.lm_rows = (memory.shape[0] * settings.beam
+                        if model.cfg.lm_layers else 0)
 
     def run(self, vis, n_new, new_vis, stepping, block_final) -> None:
         """Decode one block: per-stream frames visible so far, frames added,
@@ -457,6 +468,8 @@ class BlockLoop:
         steps = 0
         while True:
             step.replay()
+            if self.lm_rows:
+                TRACER.count("lm.rows", self.lm_rows * STEPS_PER_REPLAY)
             with TRACER.span("beam.sync"):
                 any_stepping, live = self._flag.read()
             self.syncs += 1
@@ -479,6 +492,8 @@ class BlockLoop:
         flag = torch.zeros(2, dtype=torch.int32, device=self.memory.device)
         while bool(self.state.stepping.any()):
             self._step(self.state, held["cross_kv"], flag, steps=1)
+            if self.lm_rows:
+                TRACER.count("lm.rows", self.lm_rows)
         self._epilogue(self.state, self.stepping0)
 
 

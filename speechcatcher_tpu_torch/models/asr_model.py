@@ -35,7 +35,7 @@ class ASRModel:
     """Bundle of everything a decoding session needs."""
 
     cfg: ModelConfig
-    params: Dict[str, Any]   # {"encoder", "decoder", "ctc"}
+    params: Dict[str, Any]   # {"encoder", "decoder", "ctc"[, "lm"]}
     frontend: Frontend
     tokenizer: Tokenizer
     enc_pe: torch.Tensor
@@ -53,8 +53,10 @@ class ASRModel:
         tokenizer it gets the dummy one."""
         dev = resolve_device(device)
         params = params_from_numpy(tree, dev)
-        for part in ("encoder", "decoder"):
-            params[part]["layers"] = unstack_layers(params[part]["layers"])
+        for part in ("encoder", "decoder", "lm"):
+            if part in params:
+                params[part]["layers"] = unstack_layers(
+                    params[part]["layers"])
         frontend = Frontend(
             n_fft=cfg.n_fft, hop_length=cfg.hop_length,
             win_length=cfg.win_length, n_mels=cfg.n_mels,

@@ -27,6 +27,11 @@ only below its position; on the CPU its twin is the composition it replaces
 (a gather of the whole cache, two contractions, the masked softmax), bit for
 bit.
 
+A beam step's self-attention sublayer (norm1 through F with the cache write,
+the query, G, the output projection) and its feed-forward sublayer are
+``self_attention_sublayer`` and ``feed_forward_sublayer``; the fused
+language model's layers (``models.lm``) run the same two.
+
 Cross-attention K/V are linear in the encoder frames, which do not change
 within a decoded block, so ``project_cross_kv`` computes them once per block
 and every beam step of the block reuses them; the numbers are those of
@@ -171,6 +176,37 @@ def _attend_cached_lane(
     return out.reshape(n, h * dk)
 
 
+def self_attention_sublayer(p_norm: Params, p_attn: Params, h: torch.Tensor,
+                            y: Optional[torch.Tensor],
+                            b: Optional[torch.Tensor], cache_l: torch.Tensor,
+                            pos: torch.Tensor, write: torch.Tensor,
+                            lane: torch.Tensor, n_head: int):
+    """One pre-norm self-attention sublayer of a beam step over a layer's
+    lane-mapped cache ``cache_l`` (N, Lmax, d): the norm (kernel F) adds the
+    pending sublayer output ``y`` and its bias ``b`` to the residual ``h``
+    and writes this step's normalised row into the cache at ``pos`` where
+    ``write``; the query, the attention over the rows below ``pos`` through
+    the lane map (kernel G) and the output projection follow. Returns the
+    new (h, y, b), the projection's bias left pending. The decoder's layers
+    and the fused LM's (``models.lm``) both run it."""
+    h, hn = add_layer_norm(p_norm, h, y, b, cache_l, pos, write)
+    q = linear(p_attn["linear_q"], hn)
+    att = _attend_cached_lane(q, cache_l, hn, p_attn, lane, pos, n_head)
+    y, b = row_parallel_product(p_attn["linear_out"], att)
+    return h, y, b
+
+
+def feed_forward_sublayer(p_norm: Params, p_ff: Params, h: torch.Tensor,
+                          y: torch.Tensor, b: Optional[torch.Tensor]):
+    """One pre-norm ReLU feed-forward sublayer of a beam step: the norm
+    (kernel F) adds the pending ``y`` and ``b`` to ``h``; returns the new
+    (h, y, b), ``w_2``'s bias left pending."""
+    h, hn = add_layer_norm(p_norm, h, y, b)
+    y, b = row_parallel_product(
+        p_ff["w_2"], torch.relu(linear(p_ff["w_1"], copy_to_tp(hn))))
+    return h, y, b
+
+
 def _attend_cross_blocked(
     q: torch.Tensor,      # (N, d) queries, (S, B) order
     mk: torch.Tensor,     # (S, h, T, dk) memory keys, head-major
@@ -270,21 +306,16 @@ def decoder_step(
     # dropped, as JAX's mode="drop" scatter drops them.
     h, y, b = x, None, None
     for l, p_layer in enumerate(params["layers"]):
-        h_l = cache.h[l]
-        h, hn = add_layer_norm(p_layer["norm1"], h, y, b, h_l, pos, write)
-        q = linear(p_layer["self_attn"]["linear_q"], hn)
-        att = _attend_cached_lane(q, h_l, hn, p_layer["self_attn"], lane,
-                                  pos, cfg.decoder_heads)
-        y, b = row_parallel_product(p_layer["self_attn"]["linear_out"], att)
+        h, y, b = self_attention_sublayer(
+            p_layer["norm1"], p_layer["self_attn"], h, y, b, cache.h[l], pos,
+            write, lane, cfg.decoder_heads)
         h, hn = add_layer_norm(p_layer["norm2"], h, y, b)
         q = linear(p_layer["src_attn"]["linear_q"], hn)
         mk_l, mv_l = cross_kv[l]
         att = _attend_cross_blocked(q, mk_l, mv_l, mem_valid)
         y, b = row_parallel_product(p_layer["src_attn"]["linear_out"], att)
-        h, hn = add_layer_norm(p_layer["norm3"], h, y, b)
-        p_ff = p_layer["feed_forward"]
-        y, b = row_parallel_product(
-            p_ff["w_2"], torch.relu(linear(p_ff["w_1"], copy_to_tp(hn))))
+        h, y, b = feed_forward_sublayer(p_layer["norm3"],
+                                        p_layer["feed_forward"], h, y, b)
     if cfg.normalize_before:
         _, h = add_layer_norm(params["after_norm"], h, y, b)
     else:

@@ -68,7 +68,8 @@ def _replica(engine: StreamingEngine, model: ASRModel, n_slots: int,
         ctc_weight=engine.ctc_weight, use_bbd=engine.use_bbd,
         chunk_samples=engine.A, pre_beam_size=engine.pre_beam,
         penalty=engine.penalty, max_length=engine.max_length,
-        eos_commit=engine.eos_commit, device=device)
+        eos_commit=engine.eos_commit, device=device,
+        lm_weight=engine.lm_weight)
 
 
 class _Counters:

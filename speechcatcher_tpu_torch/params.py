@@ -163,14 +163,41 @@ def _decoder(rng, cfg: ModelConfig) -> Dict[str, Any]:
             "output_layer": _linear(rng, d, cfg.vocab_size)}
 
 
-def random_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
-    """Random numpy parameter tree with the JAX package's exact layout."""
-    rng = np.random.default_rng(seed)
+def _lm(rng, cfg: ModelConfig) -> Dict[str, Any]:
+    """ESPnet's ``TransformerLM`` (``pos_enc: null``): the token embedding,
+    the linear input layer (Linear, LayerNorm, ReLU), pre-norm layers of
+    self-attention and a ReLU feed-forward, the after-norm and the output
+    layer over the vocabulary."""
+    d = cfg.lm_dim
+    lead = (cfg.lm_layers,)
     return {
+        "embed": {"weight": rng.standard_normal(
+            (cfg.vocab_size, cfg.lm_embed_dim), dtype=np.float32)},
+        "input_layer": {"out": _linear(rng, cfg.lm_embed_dim, d),
+                        "norm": _layer_norm(d)},
+        "layers": {
+            "self_attn": _mha(rng, d, lead),
+            "feed_forward": _ffn(rng, d, cfg.lm_linear_units, lead),
+            "norm1": _layer_norm(d, lead),
+            "norm2": _layer_norm(d, lead),
+        },
+        "after_norm": _layer_norm(d),
+        "output_layer": _linear(rng, d, cfg.vocab_size),
+    }
+
+
+def random_params(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
+    """Random numpy parameter tree with the JAX package's exact layout (and,
+    with ``lm_layers``, the fused LM's ``lm`` subtree, drawn last)."""
+    rng = np.random.default_rng(seed)
+    tree = {
         "encoder": _encoder(rng, cfg),
         "decoder": _decoder(rng, cfg),
         "ctc": {"ctc_lo": _linear(rng, cfg.encoder_dim, cfg.vocab_size)},
     }
+    if cfg.lm_layers:
+        tree["lm"] = _lm(rng, cfg)
+    return tree
 
 
 def tree_map(fn, tree):

@@ -173,6 +173,7 @@ def _decode_segments_batched(
         use_bbd=s2t.use_bbd,
         chunk_samples=chunk_length,
         device=s2t.model.device,
+        lm_weight=s2t.beam_search.lm_weight,
     )
     results: List = [None] * len(spans_samples)
     pending = list(enumerate(spans_samples))[::-1]  # pop() from the front

@@ -12,7 +12,8 @@ length masks.
   (K, S) int32 transfer each.
 - Device state is capacity-padded: waveform carry, pre/post-subsample
   feature carries, the emitted-encoder-frame ring ``enc_out``, the CTC
-  log-prob ring and forward variables, beam arrays, the decoder cache.
+  log-prob ring and forward variables, beam arrays, the decoder cache and,
+  with a fused LM, the LM's cache.
 - A tick encodes every consuming stream, then runs beam rounds over the
   host-known schedule (``_round_schedule``): each round makes one block
   visible to the ready streams (``ctc_log_softmax`` → ``ctc_extend``) and
@@ -37,11 +38,11 @@ rows past the end where the JAX one-hot scatter clipped them to the last.
 
 In place, and why it is safe: every tensor of the engine's state stays at
 the address it was allocated at, which the graphs read. The rings (``raw``,
-``post``, ``enc_out``, the CTC log-prob ring, the decoder cache) are
-appended in place and no snapshot holds them; every other field is computed
-anew and copied back over the old one (``graphs.write_tree``). ``finalize``
-copies the slot's state into the single-stream finalizer's, so nothing lands
-in the engine's rings through a view.
+``post``, ``enc_out``, the CTC log-prob ring, the decoder cache and the
+LM's) are appended in place and no snapshot holds them; every other field
+is computed anew and copied back over the old one (``graphs.write_tree``).
+``finalize`` copies the slot's state into the single-stream finalizer's, so
+nothing lands in the engine's rings through a view.
 
 The host's parts of a tick and of the finals (readback, plan, encode,
 extract, drain, reset, ...) are spans of the port's tracer
@@ -81,11 +82,13 @@ from speechcatcher_tpu_torch.decode.graphs import (
     Upload,
     capture_graphs,
     clone_tree,
+    tree_leaves,
     write_tree,
 )
 from speechcatcher_tpu_torch.device import resolve_device
 from speechcatcher_tpu_torch.models.asr_model import ASRModel
 from speechcatcher_tpu_torch.models.decoder import DecoderCache
+from speechcatcher_tpu_torch.models.lm import LMCache
 from speechcatcher_tpu_torch.models.encoder import (
     EncoderState,
     apply_layers_infer,
@@ -375,11 +378,11 @@ def _reset_program(mask: torch.Tensor, arrays: BeamArrays,
                    output_index: torch.Tensor, cfg: ModelConfig, beam: int):
     """Fresh-session state for the masked slots, as new tensors.
 
-    Three large per-stream buffers are left as they are: the decoder cache
-    (a fresh session writes each position's rows before any step reads
-    them), the enc_out ring and the CTC log-prob ring (every read is bounded
-    by buf_len / ctc.enc_len, both reset, and a fresh session's appends
-    overwrite the rows before they are read)."""
+    Large per-stream buffers are left as they are: the decoder cache and
+    the LM's (a fresh session writes each position's rows before any step
+    reads them), the enc_out ring and the CTC log-prob ring (every read is
+    bounded by buf_len / ctc.enc_len, both reset, and a fresh session's
+    appends overwrite the rows before they are read)."""
     fresh = init_beam_arrays(cfg, mask.shape[0], beam, mask.device,
                              snapshot=True)
     sel = select_arrays(mask, fresh, arrays)
@@ -406,22 +409,32 @@ def _rows_arrays(a: BeamArrays, rows: torch.Tensor) -> BeamArrays:
         score_ctc=a.score_ctc[rows],
         ctc=CTCScorerState(logp=a.ctc.logp[rows], enc_len=a.ctc.enc_len[rows],
                            r=a.ctc.r[rows], s=a.ctc.s[rows]),
+        score_lm=None if a.score_lm is None else a.score_lm[rows],
     )
+
+
+def _cache_rows(h: torch.Tensor, rows: torch.Tensor,
+                beam: int) -> torch.Tensor:
+    """The given streams' hypothesis rows of a (L, S·B, Lmax, d) cache, as
+    an (L, F·B, Lmax, d) copy."""
+    l_dim, s_b, lmax, d = h.shape
+    h = h.reshape(l_dim, s_b // beam, beam, lmax, d)[:, rows]
+    return h.reshape(l_dim, rows.shape[0] * beam, lmax, d)
 
 
 def _extract_rows(buffers: EngineBuffers, arrays: BeamArrays,
                   prev_arrays: BeamArrays, dec_cache: DecoderCache,
-                  prev_valid, process_idx, output_index,
-                  rows: torch.Tensor, beam: int):
+                  lm_cache: Optional[LMCache], prev_valid, process_idx,
+                  output_index, rows: torch.Tensor, beam: int):
     """Copy the state of F slots into a compact F-wide working set, so the
     final encode, drain and final rounds run at width F, not S."""
-    l_dim, s_b, lmax, d = dec_cache.h.shape
-    h = dec_cache.h.reshape(l_dim, s_b // beam, beam, lmax, d)[:, rows]
     return (
         EngineBuffers(*[x[rows] for x in buffers]),
         _rows_arrays(arrays, rows),
         _rows_arrays(prev_arrays, rows),
-        DecoderCache(h=h.reshape(l_dim, rows.shape[0] * beam, lmax, d)),
+        DecoderCache(h=_cache_rows(dec_cache.h, rows, beam)),
+        None if lm_cache is None else LMCache(
+            h=_cache_rows(lm_cache.h, rows, beam)),
         prev_valid[rows],
         process_idx[rows],
         output_index[rows],
@@ -500,6 +513,7 @@ class StreamingEngine:
         max_length: Optional[int] = None,
         eos_commit: str = "native",
         device: Union[str, torch.device] = "cuda",
+        lm_weight: Optional[float] = None,
     ):
         dev = resolve_device(device)
         if model.device.type != dev.type:
@@ -512,6 +526,8 @@ class StreamingEngine:
         self.S = n_slots
         self.beam = beam_size
         self.ctc_weight = ctc_weight
+        # The fused LM's weight: the model configuration's unless given.
+        self.lm_weight = cfg.lm_weight if lm_weight is None else lm_weight
         self.use_bbd = use_bbd
         self.pre_beam = min(pre_beam_size or cfg.pre_beam_size, cfg.vocab_size)
         self.penalty = penalty
@@ -573,6 +589,7 @@ class StreamingEngine:
             model, beam_size=beam_size, ctc_weight=ctc_weight,
             use_bbd=use_bbd, penalty=penalty, max_length=self.max_length,
             eos_commit=eos_commit, memory_dtype=cfg.enc_ring_torch_dtype,
+            lm_weight=self.lm_weight,
         )
         # Its chunk step runs eagerly: a final's signature follows the
         # slot's carried fills and the tail's length, more than
@@ -589,7 +606,7 @@ class StreamingEngine:
                             else None)
         self._settings = LoopSettings(beam_size, self.pre_beam, ctc_weight,
                                       use_bbd, self.max_length, penalty,
-                                      eos_commit)
+                                      eos_commit, self.lm_weight)
         self._loop = self._block_loop(self.block, self.buffers.enc_out)
         self._enc_ints = Upload((15, self.S), torch.int32, dev)
         self._audio_in: Dict[np.dtype, Upload] = {}
@@ -608,6 +625,10 @@ class StreamingEngine:
     @property
     def dec_cache(self) -> DecoderCache:
         return self.block.dec_cache
+
+    @property
+    def lm_cache(self) -> Optional[LMCache]:
+        return self.block.lm_cache
 
     @property
     def prev_valid_dev(self) -> torch.Tensor:
@@ -678,9 +699,7 @@ class StreamingEngine:
         """Bytes of device state per stream slot, by component (weights
         excluded: one copy, shared by all slots)."""
         def tree_bytes(t) -> int:
-            if isinstance(t, torch.Tensor):
-                return t.numel() * t.element_size()
-            return sum(tree_bytes(x) for x in t)
+            return sum(x.numel() * x.element_size() for x in tree_leaves(t))
 
         per = {
             "frontend_buffers": tree_bytes(self.buffers),
@@ -688,6 +707,8 @@ class StreamingEngine:
             "rewind_snapshot": tree_bytes(self.prev_arrays),
             "decoder_cache": tree_bytes(self.dec_cache),
         }
+        if self.lm_cache is not None:
+            per["lm_cache"] = tree_bytes(self.lm_cache)
         return {k: v // self.S for k, v in per.items()} | {
             "total": sum(per.values()) // self.S
         }
@@ -1097,12 +1118,18 @@ class StreamingEngine:
         # along.
         b = self.beam
         one = slice(s, s + 1)
-        write_tree(st.block[:6], (
-            _rows_arrays(self.arrays, one),
-            _rows_arrays(self.prev_arrays, one),
-            DecoderCache(h=self.dec_cache.h[:, s * b:(s + 1) * b]),
-            self.prev_valid_dev[one], self.process_idx_dev[one],
-            self.output_index_dev[one]))
+        hyps = slice(s * b, (s + 1) * b)
+        write_tree(
+            (st.block.arrays, st.block.prev_arrays, st.block.dec_cache,
+             st.block.lm_cache, st.block.prev_valid, st.block.process_idx,
+             st.block.output_index),
+            (_rows_arrays(self.arrays, one),
+             _rows_arrays(self.prev_arrays, one),
+             DecoderCache(h=self.dec_cache.h[:, hyps]),
+             None if self.lm_cache is None else LMCache(
+                 h=self.lm_cache.h[:, hyps]),
+             self.prev_valid_dev[one], self.process_idx_dev[one],
+             self.output_index_dev[one]))
         st.memory.copy_(buf.enc_out[one, :cfg.max_enc_frames])
 
         # The right-aligned wave carry and the last audio, as the session's
@@ -1241,11 +1268,12 @@ class StreamingEngine:
             cst = loop.state
             write_tree(
                 (cb, cst.arrays, cst.prev_arrays, cst.dec_cache,
-                 cst.prev_valid, cst.process_idx, cst.output_index),
+                 cst.lm_cache, cst.prev_valid, cst.process_idx,
+                 cst.output_index),
                 _extract_rows(self.buffers, self.arrays, self.prev_arrays,
-                              self.dec_cache, self.prev_valid_dev,
-                              self.process_idx_dev, self.output_index_dev,
-                              rows, self.beam))
+                              self.dec_cache, self.lm_cache,
+                              self.prev_valid_dev, self.process_idx_dev,
+                              self.output_index_dev, rows, self.beam))
 
         do_f = np.arange(f) < n_fin
         buf_f = c.buf_len[padded].astype(np.int64)

@@ -118,7 +118,9 @@ class Speech2TextStreaming:
     the encoder's linear weights as int8 with a per-channel scale, and
     "int8-all" every eligible linear's. These modes change the ``model``
     they are given: its ``params`` are replaced by the cast (and quantised)
-    tree and its ``cfg`` gets ``cache_dtype="bfloat16"``.
+    tree and its ``cfg`` gets ``cache_dtype="bfloat16"``. A model with a
+    fused LM runs in "float32" alone; ``lm_weight`` weighs the LM, the
+    model configuration's unless given.
     """
 
     DTYPES = ("float32", "float16", "bfloat16", "int8", "int8-all")
@@ -134,6 +136,7 @@ class Speech2TextStreaming:
         model: Optional[ASRModel] = None,
         penalty: float = 0.0,
         coverage_weight: float = 0.0,
+        lm_weight: Optional[float] = None,
     ):
         if dtype not in self.DTYPES:
             raise ValueError(f"dtype must be one of {self.DTYPES}, got "
@@ -147,6 +150,9 @@ class Speech2TextStreaming:
             raise ValueError(f"model lies on {model.device}, session asked "
                              f"for {dev}")
         if dtype != "float32":
+            if model.cfg.lm_layers:
+                raise ValueError(f"dtype {dtype!r}: a model with a fused LM "
+                                 f"runs in float32 alone")
             model.params = cast_params(model.params)
             model.cfg = model.cfg.replace(cache_dtype="bfloat16")
             if dtype == "int8":
@@ -168,6 +174,7 @@ class Speech2TextStreaming:
             use_bbd=use_bbd,
             penalty=penalty,
             coverage_weight=coverage_weight,
+            lm_weight=lm_weight,
         )
         self.reset()
 

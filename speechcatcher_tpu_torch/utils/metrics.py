@@ -135,6 +135,16 @@ class Tracer:
             return _OFF
         return _Span(self, name)
 
+    def annotate(self, name: str):
+        """A ``record_function`` range of `name` while ``torch.profiler``
+        records, else the shared no-op; no span. For work inside a program
+        that may be captured into a CUDA graph, where no span may go: the
+        range is host-side, so it names the work of eager runs only (a
+        replay runs no host code)."""
+        if torch.autograd._profiler_enabled():
+            return torch.profiler.record_function(name)
+        return _OFF
+
     def count(self, name: str, n: int = 1) -> None:
         if self.on:
             with self._lock:

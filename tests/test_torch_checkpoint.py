@@ -492,7 +492,46 @@ def test_the_recipe_gives_the_benchmarks_configuration():
                        .read_text())["model"]
     cfg = ModelConfig.from_espnet_dict(RECIPE, max_enc_frames=768,
                                        max_tokens=192)
+    got = dataclasses.asdict(cfg)
+    # The configuration names no LM: its keys are at "none".
+    assert {k: got.pop(k) for k in LM_KEYS} == {
+        k: getattr(ModelConfig, k) for k in LM_KEYS}
+    assert got == model
+
+
+LM_KEYS = ("lm_layers", "lm_dim", "lm_heads", "lm_linear_units",
+           "lm_embed_dim", "lm_weight")
+# The recipe's Transformer LM (its lm_conf), as the benchmark's
+# ``aishell-cb-conformer-lm`` assumes it, and the decode config's weight.
+LM_RECIPE = {"lm": "transformer",
+             "lm_conf": {"pos_enc": None, "embed_unit": 128, "att_unit": 512,
+                         "head": 8, "unit": 2048, "layer": 16,
+                         "dropout_rate": 0.1},
+             "lm_weight": 0.3}
+
+
+def test_the_recipe_with_its_lm_gives_the_benchmarks_configuration():
+    import dataclasses
+    import json
+
+    model = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                        / "configs" / "aishell-cb-conformer-lm.json")
+                       .read_text())["model"]
+    cfg = ModelConfig.from_espnet_dict(RECIPE | LM_RECIPE,
+                                       max_enc_frames=768, max_tokens=192)
     assert dataclasses.asdict(cfg) == model
+
+
+@pytest.mark.parametrize("key,value", [("lm", "seq_rnn"),
+                                       ("pos_enc", "sinusoidal")])
+def test_an_lm_the_port_does_not_compute_is_refused(key, value):
+    conf = RECIPE | LM_RECIPE
+    if key == "lm":
+        conf = conf | {"lm": value}
+    else:
+        conf = conf | {"lm_conf": dict(LM_RECIPE["lm_conf"], pos_enc=value)}
+    with pytest.raises(ValueError, match=key):
+        ModelConfig.from_espnet_dict(conf)
 
 
 @pytest.mark.parametrize("key,value", [("use_cnn_module", False),

@@ -23,8 +23,10 @@ CPU = torch.device("cpu")
 
 
 # Fields the port's config has and the JAX package's has not: the keys of
-# ESPnet's contextual-block conformer, a kind the JAX package lacks.
-PORT_ONLY = ("macaron_style", "activation_type")
+# ESPnet's contextual-block conformer, a kind the JAX package lacks, and
+# those of the fused language model, which it lacks too.
+PORT_ONLY = ("macaron_style", "activation_type", "lm_layers", "lm_dim",
+             "lm_heads", "lm_linear_units", "lm_embed_dim", "lm_weight")
 
 
 def shared_fields(cfg) -> dict:

@@ -24,6 +24,7 @@ import torch
 
 from benchmark.harness import owners
 from speechcatcher_tpu_torch.config import tiny_config
+from speechcatcher_tpu_torch.decode import beam_search as bs
 from speechcatcher_tpu_torch.decode import graphs
 from speechcatcher_tpu_torch.models.asr_model import ASRModel
 from speechcatcher_tpu_torch.params import random_params
@@ -36,6 +37,10 @@ from speechcatcher_tpu_torch.utils.metrics import TRACER, Tracer
 CFG = tiny_config()
 CHUNK = 8192
 TREE = random_params(CFG, 2)
+# The same with a fused LM (``models.lm``).
+LM_CFG = tiny_config(lm_layers=2, lm_dim=16, lm_heads=2, lm_linear_units=32,
+                     lm_embed_dim=8, lm_weight=0.3)
+LM_TREE = random_params(LM_CFG, 2)
 
 # Each span of the serving path and the spans it may lie in.
 PARENTS = {
@@ -103,10 +108,11 @@ def graphed_on_cpu(mp) -> list:
     return made
 
 
-def serve(long_seconds=(2.0, 2.0, 2.0), short_seconds=0.25):
+def serve(long_seconds=(2.0, 2.0, 2.0), short_seconds=0.25, cfg=CFG,
+          tree=TREE):
     """The long sessions ticked while they hold a chunk, then every
     session's final in one tick; returns every tick's messages."""
-    engine = StreamingEngine(ASRModel.from_numpy(CFG, TREE, device="cpu"),
+    engine = StreamingEngine(ASRModel.from_numpy(cfg, tree, device="cpu"),
                              n_slots=len(long_seconds) + 1, beam_size=2,
                              chunk_samples=CHUNK, device="cpu")
     mgr = SessionManager(engine)
@@ -184,6 +190,60 @@ def test_final_counters_match_the_batch(runs):
     assert counts["engine.final.slots"] == 3
     assert counts["engine.final.rows"] == 4
     assert counts["engine.final.fallbacks"] == 1
+    # No LM, no LM rows.
+    assert "lm.rows" not in counts
+
+
+def lm_steps_seen(mp) -> list:
+    """The rows (width x beam) of every LM step the beam steps run."""
+    seen = []
+    step = bs.lm_step
+
+    def counted(params, cache, tokens, *args):
+        seen.append(tokens.shape[0])
+        return step(params, cache, tokens, *args)
+
+    mp.setattr(bs, "lm_step", counted)
+    return seen
+
+
+def test_lm_rows_count_width_times_beam_each_step(monkeypatch):
+    """``lm.rows`` adds each step replay's width x beam, on the graphed
+    route of the tick, the compact finals and the fallback."""
+    made = graphed_on_cpu(monkeypatch)
+    seen = lm_steps_seen(monkeypatch)
+    TRACER.reset()
+    TRACER.start()
+    try:
+        serve(cfg=LM_CFG, tree=LM_TREE)
+    finally:
+        TRACER.stop()
+    counts = TRACER.export()["counts"]
+    TRACER.reset()
+    assert counts["lm.rows"] == sum(seen) > 0
+    assert counts["lm.rows"] == sum(lp.syncs * lp.lm_rows
+                                    for lp in made)
+    assert len(set(seen)) > 1    # the tick's width and compact ones
+
+
+def test_lm_step_is_a_range_in_an_eager_trace(monkeypatch):
+    """The eager route's LM steps are ``lm.step`` ranges of the profiler's
+    trace, one a step; the tracer's spans stay its own."""
+    seen = lm_steps_seen(monkeypatch)
+    TRACER.reset()
+    TRACER.start()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            serve(long_seconds=(1.2,), short_seconds=0.2, cfg=LM_CFG,
+                  tree=LM_TREE)
+    finally:
+        TRACER.stop()
+    spans = {s[0] for s in TRACER.export()["spans"]}
+    TRACER.reset()
+    names = Counter(e.name for e in prof.events())
+    assert names["lm.step"] == len(seen) > 0
+    assert "lm.step" not in spans
 
 
 def test_spans_are_profiler_annotations(tmp_path):
@@ -204,6 +264,7 @@ def test_spans_are_profiler_annotations(tmp_path):
                           if e.get("cat") == "user_annotation")
     assert spans["serve.tick"] > 0 and spans["engine.final.fallback"] > 0
     assert annotations == spans
+    assert "lm.step" not in annotations
 
 
 def test_off_reads_no_clock_and_counts_nothing(monkeypatch):
