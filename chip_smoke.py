@@ -9,7 +9,7 @@ flagship width (random weights from a seed), for the transformer encoder and
 for the conformer encoder (``flagship_config(encoder_type="conformer")``):
 three utterances through ``Speech2TextStreaming``, and ten streams through
 the batched ``StreamingEngine`` (8 slots), each final held against the
-single-stream session. Each path reads the launch counts of all seven
+single-stream session. Each path reads the launch counts of all eight
 kernels, set to 0 just before it. It replays the fixtures blessed by the JAX
 package (a transformer utterance that stops early and a token-rich one, a
 conformer utterance and a token-rich one, one engine run), decodes at small width on the card
@@ -19,11 +19,13 @@ before it.
 
 Kernel F (each LayerNorm of the beam step with its residual add, bias
 add and cache-row write) is held against its plain twin at the beam
-step's rows, and kernel G (each layer's lane self-attention) against its
-twin at the beam step's hypotheses and positions; ``--profile
-beam-step`` runs those alone, then times the graphed beam step of the
-benchmark configurations at 32 and 256 streams (device ms and kernels a
-replay), each block bit-equal to the eager loop.
+step's rows, kernel G (each layer's lane self-attention) against its
+twin at the beam step's hypotheses and positions, and kernel H (each
+layer's cross-attention) against its twin at the beam step's, the
+sessions' and a model directory's streams, beams and encoder lengths;
+``--profile beam-step`` runs those alone, then times the graphed beam step
+of the benchmark configurations at 32 and 256 streams (device ms and
+kernels a replay), each block bit-equal to the eager loop.
 
 ESPnet's conformer with its Transformer LM fused into the beam search, at
 the published widths of the benchmark's ``aishell-cb-conformer-lm``
@@ -93,7 +95,7 @@ as a process, resumed from its checkpoint.
     python3 chip_smoke.py --profile train-memory       # step and eval memory
     python3 chip_smoke.py --profile train-in-process   # train paths, profiles
     python3 chip_smoke.py --profile mesh-step   # the eager step a mesh runs
-    python3 chip_smoke.py --profile beam-step   # F, G, graphed beam steps
+    python3 chip_smoke.py --profile beam-step   # F, G, H, graphed beam steps
     python3 chip_smoke.py --profile lm          # the LM configuration's paths
 
 Imports neither JAX nor the JAX package.
@@ -1099,6 +1101,181 @@ def check_lane_attention(dev, timed=True, widths=LANE_ATTENTION_WIDTHS,
                             "library": "none: no PyTorch call reads rows "
                                        "through a lane map"}
                     rows.append(row)
+    return rows
+
+
+# Kernel H's calls: (configuration, heads, dk, beam, T, streams). The beam
+# step's at the serving beam 3 over the ring's T = 832 rows, at the drain's
+# compact width 32 and the backlog tick's 256 slots, for both
+# configurations' decoder heads; the sessions' and engines' beam 5 (its
+# second weighted-sum pass, one live query of four) at one stream and 8
+# slots; and ``recognize_path``'s model directory without a config.yaml (4
+# heads of 128 over a 2,112-row ring at beam 5: 61 KB of shared memory, the
+# launch's opt-in). CROSS_ATTENTION_SMALL: the rt64 finals' compact widths
+# 1-4, where the (stream, head) blocks leave most SMs idle.
+CROSS_ATTENTION = "speechcatcher_tpu_torch.ops.kernels.cross_attention"
+CROSS_ATTENTION_WIDTHS = (("de-xl-transformer", 8, 64, 3, 832, (32, 256)),
+                          ("aishell-cb-conformer", 4, 64, 3, 832, (32, 256)),
+                          ("de-xl-transformer", 8, 64, 5, 832, (1, 8)),
+                          ("model-dir", 4, 128, 5, 2112, (1, 4)))
+CROSS_ATTENTION_SMALL = (1, 2, 4)
+CROSS_ATTENTION_TOL = 1e-5
+
+
+def cross_attention_error(got, q, mk, mv, enc_len):
+    """H's distance from its twin evaluated in float64, as (the largest
+    error over its tolerance, which passes at <= 1; the largest error; the
+    largest |out|). The tolerance is CROSS_ATTENTION_TOL of the largest
+    |out|. With bfloat16 K/V the weights are rounded to bfloat16 from the
+    kernel's float32 softmax and from the twin's float64 one: a weight
+    within a float32 ulp of a bfloat16 rounding boundary may round either
+    way (about 5e-5 of the weights), which moves its output row by one
+    bfloat16 ulp of that weight, at most 2^-7 w_t |v_t|. So there each row
+    also admits four such moves of its largest weighted V row."""
+    import torch
+
+    from speechcatcher_tpu_torch.ops.kernels.cross_attention import (
+        cross_attention_plain,
+    )
+
+    q64 = q.double()
+    ref = cross_attention_plain(q64, mk, mv, enc_len)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = (got.double() - ref).abs()
+    tol = torch.full_like(err, CROSS_ATTENTION_TOL * scale)
+    if mk.dtype == torch.bfloat16:
+        s, h, t, dk = mk.shape
+        beam = q64.shape[0] // s
+        valid = (torch.arange(t, device=got.device)[None, :]
+                 < enc_len.long()[:, None])[:, None, None, :]
+        qh = q64.reshape(s, beam, h, dk).transpose(1, 2)
+        sc = torch.matmul(qh.to(torch.bfloat16).double(),
+                          mk.double().transpose(2, 3)) / dk ** 0.5
+        w = torch.softmax(torch.where(valid, sc, -1e300), dim=-1)
+        w = torch.where(valid, w, 0.0)
+        most = (w[..., None] * mv.double()[:, :, None].abs()
+                ).amax(dim=(3, 4))                       # (S, h, B)
+        tol = tol + 4 * 2.0 ** -7 * most.transpose(1, 2).reshape(
+            s * beam, h, 1).expand(-1, -1, dk).reshape(s * beam, h * dk)
+    return float((err / tol).max()), float(err.max()), scale
+
+
+def check_cross_attention(dev, timed=True, widths=CROSS_ATTENTION_WIDTHS,
+                          small=CROSS_ATTENTION_SMALL):
+    """Kernel H against its plain twin at `widths` (CROSS_ATTENTION_WIDTHS)
+    for float32 and bfloat16 K/V, each stream's ``enc_len`` as backlog256
+    gives it (``backlog_enc_lens``: whole uploads up to 32 streams, as the
+    drain sees them, part-way streams above, as the tick does) with the
+    edges 0, 1, T - 1 and T among them: within ``cross_attention_error``'s
+    bound of the twin evaluated in float64 (the card tests' bound), and the
+    kernel's result bit-equal when every K/V row at t >= enc_len holds NaN
+    (it never reads one; the twin would, as 0 x NaN). With `timed`, each
+    case also gets CUDA-event ms, device us, the bound (bytes: the enc_len
+    rows of K and V read once, q read, the result written; operations 4 S
+    h B L dk), the old path's ms (the twin in float32, the composition the
+    step ran before H: both products over all T rows, the masks and the
+    re-layouts) and, for float32 K/V, the library's ms (one
+    ``F.scaled_dot_product_attention`` over the same views with the
+    enc_len boolean mask, in interleaved pairs with H; its rows at enc_len
+    0 are NaN, as SDPA gives a row with no key); and the first width's
+    float32 call at `small` streams (the rt64 finals' widths) the same.
+    Returns the rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.models.decoder import head_major
+    from speechcatcher_tpu_torch.ops.kernels.cross_attention import (
+        cross_attention,
+        cross_attention_plain,
+    )
+
+    cfg = flagship_config()
+    rows = []
+    cases = [(c, h, dk, beam, t, s, dt)
+             for c, h, dk, beam, t, streams in widths for s in streams
+             for dt in (torch.float32, torch.bfloat16)]
+    if timed:
+        cases += [widths[0][:5] + (s, torch.float32) for s in small]
+    for config, heads, dk, beam, t, s, dtype in cases:
+        rng = np.random.default_rng([s, heads, dk, beam])
+
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape).astype(np.float32)).to(dev)
+
+        lens = backlog_enc_lens(cfg, s, final=s <= 32, seed=s)
+        if s >= 4:
+            lens[:4] = (0, 1, t - 1, t)
+        enc_len = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        q = rand(s * beam, heads * dk)
+        mk = head_major(rand(s, t, heads * dk), heads, dtype)
+        mv = head_major(rand(s, t, heads * dk), heads, dtype)
+        got = cross_attention(q, mk, mv, enc_len)
+        twin = cross_attention_plain(q, mk, mv, enc_len)
+        hidden = (torch.arange(t, device=dev)[None, :]
+                  >= enc_len.long()[:, None])[:, None, :, None]
+        again = cross_attention(
+            q, torch.where(hidden, float("nan"), mk.float()).to(dtype),
+            torch.where(hidden, float("nan"), mv.float()).to(dtype),
+            enc_len)
+        worst, abs_err, scale = cross_attention_error(got, q, mk, mv,
+                                                      enc_len)
+        what = (f"cross_attention {config} S={s} beam={beam} T={t} "
+                f"{str(dtype)[6:]}")
+        if not torch.equal(again, got):
+            fail(f"{what}: a K/V row at t >= enc_len changed the result")
+        if not worst <= 1.0:
+            fail(f"{what}: error {worst:.3g} times its bound (relative "
+                 f"error {abs_err / scale:.3g})")
+        row = {"name": "cross_attention", "route": "cuda",
+               "source": "speechcatcher_tpu_torch/csrc/cross_attention.cu",
+               "replaces": "none (the JAX package's cross-attention is "
+                           "XLA)",
+               "config": config, "shape": [s, heads, t, dk], "beam": beam,
+               "kv_dtype": str(dtype)[6:],
+               "enc_len_mean": float(lens.mean()),
+               "max_rel_err": abs_err / scale, "max_abs_err": abs_err,
+               "err_over_bound": worst,
+               "tol": CROSS_ATTENTION_TOL,
+               "rel_err_to_float32_twin": float(
+                   (got - twin).abs().max()) / scale}
+        if timed:
+            def kernel():
+                cross_attention(q, mk, mv, enc_len)
+
+            read = int(np.minimum(lens, t).sum())
+            b_ms, b_by = bound(
+                2 * read * heads * dk * mk.element_size()
+                + 4 * 2 * s * beam * heads * dk + 4 * s,
+                4 * beam * read * heads * dk)
+            row |= {
+                "ms": cuda_ms(kernel, 100),
+                "device_us": device_us(kernel, "cross_attention_kernel"),
+                "plain_ms": cuda_ms(lambda: cross_attention_plain(
+                    q, mk, mv, enc_len), 50),
+                "plain": "the twin in float32: the old path's composition",
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library": "none: SDPA takes no bfloat16 K/V beside a "
+                           "float32 query"}
+            if dtype == torch.float32:
+                lib_q = q.reshape(s, beam, heads, dk).transpose(1, 2)
+                lib_mask = ~hidden.transpose(2, 3)       # (S, 1, 1, T)
+
+                def library():
+                    F.scaled_dot_product_attention(lib_q, mk, mv,
+                                                   attn_mask=lib_mask)
+
+                ms, lib_ms, k_all, l_all = timed_pairs(kernel, library,
+                                                       reps=100)
+                row |= {"ms": ms, "ms_runs": k_all, "library_ms": lib_ms,
+                        "library_ms_runs": l_all,
+                        "library": "F.scaled_dot_product_attention, the "
+                                   "enc_len boolean mask (timed only; the "
+                                   "port never calls it)"}
+        rows.append(row)
     return rows
 
 
@@ -3757,7 +3934,7 @@ TP_TRAIN_LOSS_RTOL = 1e-4
 
 
 def kernel_counters():
-    """(the seven kernel wrappers, the two autograd Functions): what
+    """(the eight kernel wrappers, the two autograd Functions): what
     carries a launch count."""
     from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import (
         add_layer_norm,
@@ -3765,6 +3942,9 @@ def kernel_counters():
     from speechcatcher_tpu_torch.ops.kernels.block_attention import (
         BlockAttentionFn,
         block_attention,
+    )
+    from speechcatcher_tpu_torch.ops.kernels.cross_attention import (
+        cross_attention,
     )
     from speechcatcher_tpu_torch.ops.kernels.ctc_recursion import (
         ctc_forward_recursion,
@@ -3783,7 +3963,7 @@ def kernel_counters():
 
     return ([block_attention, rel_block_attention, ctc_forward_recursion,
              ring_append_cols, ring_append_rows, add_layer_norm,
-             lane_attention],
+             lane_attention, cross_attention],
             [BlockAttentionFn, RelBlockAttentionFn])
 
 
@@ -4344,9 +4524,48 @@ BEAM_STEP_BEAM = 3
 BEAM_STEP_POS = 32
 
 
+# backlog256's uploads (benchmark/traffic/backlog256.json): log-normal,
+# median 6 s, sigma 0.5, 2-20 s.
+BACKLOG_UTTERANCE_S = (6.0, 0.5, 2.0, 20.0)
+
+
+def backlog_enc_lens(cfg, s_dim: int, final: bool, seed: int):
+    """Encoder frames visible to `s_dim` streams as backlog256 gives them:
+    a final's whole upload (the drain), or a tick's stream part-way
+    through it (uniform). Capped at the configuration's max_enc_frames."""
+    import numpy as np
+
+    median, sigma, lo, hi = BACKLOG_UTTERANCE_S
+    rng = np.random.default_rng(seed)
+    secs = np.clip(rng.lognormal(math.log(median), sigma, s_dim), lo, hi)
+    if not final:
+        secs = secs * rng.random(s_dim)
+    frame_s = cfg.hop_length * cfg.subsample / cfg.sample_rate
+    return np.clip(np.round(secs / frame_s), 1,
+                   cfg.max_enc_frames).astype(np.int64)
+
+
+def step_at_enc_lens(loop, enc_lens, reps: int) -> float:
+    """The masked step's device ms (``replay_costs``) with the step's
+    visible frames (the uploaded row the step reads as ``vis_len``) set to
+    `enc_lens`, then restored. Every stream is stopped, so the state stays
+    bit-equal; only the work that reads the frames changes."""
+    import torch
+
+    row = loop.ints.dev[2]
+    saved = row.clone()
+    row.copy_(torch.as_tensor(enc_lens, dtype=row.dtype, device=row.device))
+    try:
+        return replay_costs(loop, reps)["masked_step_ms"]
+    finally:
+        row.copy_(saved)
+
+
 def graph_kernels(graph, reps: int = 10) -> dict:
     """Kernels one replay of `graph` runs on the card, by torch.profiler
-    over `reps` replays: all of them, and kernels F's and G's."""
+    over `reps` replays: all of them, kernels F's, G's and H's, cuBLAS's
+    ``gemmSN`` ones (the cross-attention's value product before H) and the
+    twelve that took the most device time, with their launches and us."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4356,14 +4575,25 @@ def graph_kernels(graph, reps: int = 10) -> dict:
         for _ in range(reps):
             graph.replay()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    names = [e.name for e in kernels]
+    by_name: dict = {}
+    for e in kernels:
+        n, us = by_name.get(e.name[:80], (0, 0.0))
+        by_name[e.name[:80]] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return {"kernels_per_replay": len(names) / reps,
             "add_layer_norm_per_replay":
                 sum("add_layer_norm_kernel" in n for n in names) / reps,
             "lane_attention_per_replay":
-                sum("lane_attention_kernel" in n for n in names) / reps}
+                sum("lane_attention_kernel" in n for n in names) / reps,
+            "cross_attention_per_replay":
+                sum("cross_attention_kernel" in n for n in names) / reps,
+            "gemmSN_per_replay": sum("gemmSN" in n for n in names) / reps,
+            "top_kernels_per_replay": {k: [n / reps, us / reps]
+                                       for k, (n, us) in top}}
 
 
 def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
@@ -4378,12 +4608,15 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
     `reps` masked steps, which run every kernel of a live one), kernels a
     replay by the profiler and by the capture's launch record, kernel F's
     among them (19 a step at six layers, 33 more with the LM's 16) and
-    kernel G's (6, 16 more with the LM; either 0 in a checkout without
-    it). A step's cost in G grows with the hypotheses'
-    positions (the composition before G read all Lmax rows whatever they
-    were): the row gives the loop's mean pos / Lmax, and the step's ms
-    again with every stream's position set to BEAM_STEP_POS, a typical
-    drain position (5 tokens a second into a 6 s utterance)."""
+    kernel G's (6, 16 more with the LM) and kernel H's (6; any of them 0
+    in a checkout without it). A step's cost in G grows with the
+    hypotheses' positions (the composition before G read all Lmax rows
+    whatever they were): the row gives the loop's mean pos / Lmax, and the
+    step's ms again with every stream's position set to BEAM_STEP_POS, a
+    typical drain position (5 tokens a second into a 6 s utterance). H's
+    grows with the streams' visible frames (the composition before it read
+    all T ring rows): the step's ms again with each stream's frames drawn
+    as backlog256 gives them (``step_at_enc_lens``)."""
     import functools
     import json
 
@@ -4408,6 +4641,7 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
                          conf["emission_bias"]["blank"])))
     fused = optional_wrapper(ADD_LAYER_NORM)
     lane_fn = optional_wrapper(LANE_ATTENTION)
+    cross_fn = optional_wrapper(CROSS_ATTENTION)
     for name, cfg, biases in configs:
         lm_layers = getattr(cfg, "lm_layers", 0)
         model = ASRModel.random_init(cfg, seed=3, device=dev)
@@ -4444,6 +4678,11 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
             mean_pos = float((ylen - 1).float().mean()) / cfg.max_tokens
             costs = replay_costs(loop, reps)
             again = replay_costs(loop, reps)["masked_step_ms"]
+            # The drain's widths see whole uploads, the tick's streams
+            # part-way through theirs.
+            drawn = backlog_enc_lens(cfg, s_dim, final=s_dim <= 32,
+                                     seed=s_dim)
+            at_lens = [step_at_enc_lens(loop, drawn, reps) for _ in range(2)]
             ylen.fill_(BEAM_STEP_POS + 1)
             at_pos = [replay_costs(loop, reps)["masked_step_ms"]
                       for _ in range(2)]
@@ -4453,11 +4692,15 @@ def beam_step_costs(dev, smi: str, blocks: int = 3, reps: int = 40) -> None:
                    "mean_pos_over_lmax": mean_pos,
                    "step_ms": costs["masked_step_ms"], "step_ms_again": again,
                    f"step_ms_at_pos_{BEAM_STEP_POS}": at_pos,
+                   "step_ms_at_backlog_enc_len": at_lens,
+                   "backlog_enc_len_mean": float(drawn.mean()),
+                   "backlog_enc_len_max": int(drawn.max()),
                    "readback_ms": costs["readback_ms"],
                    "launch_record": record, **graph_kernels(step.graph)}
             for fn, want in ((fused, 3 * cfg.decoder_layers + 1
                               + (2 * lm_layers + 1 if lm_layers else 0)),
-                             (lane_fn, cfg.decoder_layers + lm_layers)):
+                             (lane_fn, cfg.decoder_layers + lm_layers),
+                             (cross_fn, cfg.decoder_layers)):
                 if fn is not None and record.get(fn.__name__) != want:
                     fail(f"beam_step {name} S={s_dim}: {fn.__name__} "
                          f"launched {record.get(fn.__name__)} times a step")
@@ -5108,12 +5351,15 @@ def main() -> int:
         if optional_wrapper(LANE_ATTENTION) is not None:
             for row in check_lane_attention(dev):
                 emit({"phase": "kernel", **row})
+        if optional_wrapper(CROSS_ATTENTION) is not None:
+            for row in check_cross_attention(dev):
+                emit({"phase": "kernel", **row})
         beam_step_costs(dev, smi)
         return 0
     counters, fns = kernel_counters()
     (block_attention, rel_block_attention, ctc_forward_recursion,
      ring_append_cols, ring_append_rows, add_layer_norm,
-     lane_attention) = counters
+     lane_attention, cross_attention) = counters
 
     if args.profile == "lm":
         lm_path(dev, counters, smi)
@@ -5193,6 +5439,11 @@ def main() -> int:
     checks += check_lane_attention(dev, timed=False)
     kernels += check_lane_attention(dev, widths=LANE_ATTENTION_WIDTHS[:1],
                                     sizes=(96,), positions=(32,))[:1]
+    # H: every case checked, the drain's width-32 flagship call timed.
+    checks += check_cross_attention(dev, timed=False)
+    kernels += check_cross_attention(
+        dev, widths=(CROSS_ATTENTION_WIDTHS[0][:5] + ((32,),),),
+        small=())[:1]
     for k in checks + kernels:
         emit({"phase": "kernel", **k})
     check_gemm(dev, cfg)

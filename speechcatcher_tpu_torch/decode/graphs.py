@@ -382,15 +382,23 @@ class BlockLoop:
         # for the tracer's ``lm.rows``; 0 without an LM.
         self.lm_rows = (memory.shape[0] * settings.beam
                         if model.cfg.lm_layers else 0)
+        # The K/V rows a beam step's cross-attention reads a layer (each
+        # stream's visible frames, set by ``run``) and the ring's rows, for
+        # the tracer's ``cross.rows`` and ``cross.ring_rows``.
+        self.cross_rows = 0
+        self.cross_ring_rows = memory.shape[0] * memory.shape[1]
 
     def run(self, vis, n_new, new_vis, stepping, block_final) -> None:
         """Decode one block: per-stream frames visible so far, frames added,
         frames visible after, whether the stream steps, whether the block
         is its last."""
         with TRACER.span("beam.block"):
-            self.ints.put(np.stack([np.asarray(x) for x in
-                                    (vis, n_new, new_vis, stepping,
-                                     block_final)]).astype(np.int32))
+            ints = np.stack([np.asarray(x) for x in
+                             (vis, n_new, new_vis, stepping,
+                              block_final)]).astype(np.int32)
+            self.ints.put(ints)
+            self.cross_rows = int(np.minimum(ints[2],
+                                             self.memory.shape[1]).sum())
             if self.graphed:
                 self._run_graphs()
             else:
@@ -468,8 +476,7 @@ class BlockLoop:
         steps = 0
         while True:
             step.replay()
-            if self.lm_rows:
-                TRACER.count("lm.rows", self.lm_rows * STEPS_PER_REPLAY)
+            self._count_step(STEPS_PER_REPLAY)
             with TRACER.span("beam.sync"):
                 any_stepping, live = self._flag.read()
             self.syncs += 1
@@ -492,9 +499,15 @@ class BlockLoop:
         flag = torch.zeros(2, dtype=torch.int32, device=self.memory.device)
         while bool(self.state.stepping.any()):
             self._step(self.state, held["cross_kv"], flag, steps=1)
-            if self.lm_rows:
-                TRACER.count("lm.rows", self.lm_rows)
+            self._count_step(1)
         self._epilogue(self.state, self.stepping0)
+
+    def _count_step(self, steps: int) -> None:
+        """The tracer's counters of `steps` beam steps."""
+        if self.lm_rows:
+            TRACER.count("lm.rows", self.lm_rows * steps)
+        TRACER.count("cross.rows", self.cross_rows * steps)
+        TRACER.count("cross.ring_rows", self.cross_ring_rows * steps)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,13 @@ only below its position; on the CPU its twin is the composition it replaces
 (a gather of the whole cache, two contractions, the masked softmax), bit for
 bit.
 
+Kernel H (``ops.kernels.cross_attention``): each layer's cross-attention,
+from the queries to the weighted sum of V, is one launch that reads each
+stream's K/V rows in place, only below its encoder length, for all B
+hypotheses of the stream at once; on the CPU its twin is the composition it
+replaces (both products over the ring's T rows, the rest masked), bit for
+bit.
+
 A beam step's self-attention sublayer (norm1 through F with the cache write,
 the query, G, the output projection) and its feed-forward sublayer are
 ``self_attention_sublayer`` and ``feed_forward_sublayer``; the fused
@@ -36,10 +43,9 @@ Cross-attention K/V are linear in the encoder frames, which do not change
 within a decoded block, so ``project_cross_kv`` computes them once per block
 and every beam step of the block reuses them; the numbers are those of
 projecting at every step. They are stored head-major, (S, h, T, dk) a layer:
-the two contractions batch over (stream, head), and in the (S, T, d) rows of
-the projection that batch is no view, so every beam step would copy all of
-K and V into it. Laid out once a block, a step copies only its query and
-output rows.
+kernel H takes a block a (stream, head), whose rows then lie together, and
+in the (S, T, d) rows of the projection they do not. Laid out once a block,
+a step copies no K or V.
 
 Precision: the cache and the projected K/V are stored in ``cfg.cache_dtype``.
 The self-attention contracts in float32 over widened operands (the JAX
@@ -64,7 +70,7 @@ import torch
 
 from speechcatcher_tpu_torch.config import ModelConfig
 from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import add_layer_norm
-from speechcatcher_tpu_torch.ops.kernels.block_attention import MASK_MIN
+from speechcatcher_tpu_torch.ops.kernels.cross_attention import cross_attention
 from speechcatcher_tpu_torch.ops.kernels.lane_attention import lane_attention
 from speechcatcher_tpu_torch.ops.layers import (
     Params,
@@ -207,32 +213,6 @@ def feed_forward_sublayer(p_norm: Params, p_ff: Params, h: torch.Tensor,
     return h, y, b
 
 
-def _attend_cross_blocked(
-    q: torch.Tensor,      # (N, d) queries, (S, B) order
-    mk: torch.Tensor,     # (S, h, T, dk) memory keys, head-major
-    mv: torch.Tensor,     # (S, h, T, dk)
-    valid: torch.Tensor,  # (S, T) bool
-) -> torch.Tensor:
-    """Cross-attention over projected K/V shared by a stream's B hyps, on
-    the heads the K/V hold (the rank's under a tp group). The query is
-    rounded to the K dtype and the attention weights to the V dtype; both
-    contractions run on the widened operands, so the products are exact
-    and accumulate in float32. Batched over (stream, head), which merges
-    into one batch dimension of K and V as they lie: only the query and
-    the output rows are re-laid out."""
-    s, h, t, dk = mk.shape
-    n = q.shape[0]
-    b = n // s
-    qh = q.reshape(s, b, h, dk).transpose(1, 2).to(mk.dtype).float()
-    scores = torch.matmul(qh, mk.float().transpose(2, 3)) / math.sqrt(dk)
-    keep = valid[:, None, None, :]
-    scores = torch.where(keep, scores, MASK_MIN)
-    attn = torch.softmax(scores, dim=-1)
-    attn = torch.where(keep, attn, 0.0)
-    out = torch.matmul(attn.to(mv.dtype).float(), mv.float())
-    return out.transpose(1, 2).reshape(n, h * dk)
-
-
 def head_major(x: torch.Tensor, n_head: int,
                dtype: torch.dtype) -> torch.Tensor:
     """(S, T, h·dk) projected rows as a contiguous (S, h, T, dk) tensor of
@@ -250,10 +230,10 @@ def project_cross_kv(params: Params, memory: torch.Tensor, n_head: int,
                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Per-layer (K, V) of the raw encoder frames (S, Tmax, d), head-major:
     (S, h, Tmax, dk) in `cache_dtype` (``head_major``), the layout in
-    which ``_attend_cross_blocked`` contracts them without a copy; laid
-    out here, once a block, instead of in each beam step. The frames are
-    made finite first: stale or NaN rows past enc_len would leak through
-    the masked value contraction as 0·NaN."""
+    which kernel H reads them in place; laid out here, once a block,
+    instead of in each beam step. The frames are made finite first: the
+    CPU twin's masked value contraction would pass stale or NaN rows past
+    enc_len on as 0·NaN."""
     mem_s = torch.where(torch.isfinite(memory), memory, 0.0).to(cache_dtype)
     return [
         (head_major(linear(p["src_attn"]["linear_k"], mem_s), n_head,
@@ -289,14 +269,9 @@ def decoder_step(
     if cross_kv is None:
         cross_kv = project_cross_kv(params, memory, cfg.decoder_heads,
                                     cache_dt)
-    tmax = cross_kv[0][0].shape[2]
-    dev = tokens.device
-
     pos = pos.long()
     x = (vocab_lookup(params["embed"]["weight"], tokens.long()) * math.sqrt(d)
          + pe[pos])
-    mem_valid = (torch.arange(tmax, device=dev)[None, :]
-                 < enc_len.long()[:, None])
 
     # The residual stream is h plus a pending sublayer output y and its
     # bias b, which the next norm's kernel adds (h + (y + b), the order of
@@ -312,7 +287,7 @@ def decoder_step(
         h, hn = add_layer_norm(p_layer["norm2"], h, y, b)
         q = linear(p_layer["src_attn"]["linear_q"], hn)
         mk_l, mv_l = cross_kv[l]
-        att = _attend_cross_blocked(q, mk_l, mv_l, mem_valid)
+        att = cross_attention(q, mk_l, mv_l, enc_len)
         y, b = row_parallel_product(p_layer["src_attn"]["linear_out"], att)
         h, y, b = feed_forward_sublayer(p_layer["norm3"],
                                         p_layer["feed_forward"], h, y, b)

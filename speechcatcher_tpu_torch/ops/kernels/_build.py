@@ -49,6 +49,8 @@ _SIGNATURES = {
     "sc_add_layer_norm": [_P] * 12,
     # qk, cache, hn_self, lane, pos, out, plan, stream
     "sc_lane_attention": [_P] * 8,
+    # q, mk, mv, enc_len, out, plan, stream
+    "sc_cross_attention": [_P] * 7,
 }
 
 

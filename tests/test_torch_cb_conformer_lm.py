@@ -20,7 +20,10 @@ layout drawn by the benchmark's ``make_tree``, then made non-trivial
   same operations in the same order, calls the kernel wrappers as often and
   in the same order, and leaves every leaf of the state bit-equal to the
   record ``fixtures/torch_port_beam_step_no_lm.json`` (blessed on the
-  commit before the LM: ``python tests/test_torch_cb_conformer_lm.py``);
+  commit before the LM: ``python tests/test_torch_cb_conformer_lm.py``;
+  its operations and wrapper calls blessed again when kernel H took the
+  cross-attention, whose twin builds the mask a layer: the state digests
+  did not move);
 - an ESPnet ``TransformerLM`` state dict (``lm.*`` keys, built here from
   the reference's tree), in the ASR checkpoint or a file of its own, loads
   into that tree and decodes as it does;
@@ -275,6 +278,7 @@ NO_LM_CASES = {
 # attribute the step reaches them through.
 WRAPPERS = ((decoder_module, "add_layer_norm", "F"),
             (decoder_module, "lane_attention", "G"),
+            (decoder_module, "cross_attention", "H"),
             (ctc_prefix, "ctc_forward_recursion_streams", "B"),
             (ctc_prefix, "ring_append_cols", "C"))
 

@@ -11,13 +11,17 @@ a few thousand) and equal to the last bit on every frame outside
 rows widened to float32; C and D exact; F's normalised rows within 1e-5 of
 the largest (only the order of its two float32 sums differs), its residual
 sums and cache rows exact; G within 2e-6 of the largest |u| of its twin
-evaluated in float64 and blind to rows at t >= pos.
+evaluated in float64 and blind to rows at t >= pos; H within 1e-5 of the
+largest output of its twin evaluated in float64 (with bfloat16 K/V, each
+row also admits four weights rounded across a bfloat16 boundary) and blind
+to K/V rows at t >= enc_len.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import cross_attention_error
 from speechcatcher_tpu_torch.models.encoder import block_attention_mask
 from speechcatcher_tpu_torch.ops.kernels.add_layer_norm import (
     add_layer_norm,
@@ -41,6 +45,9 @@ from speechcatcher_tpu_torch.ops.kernels.rel_attention import (
     rel_block_attention_plain,
 )
 from speechcatcher_tpu_torch.ops.kernels import _build
+from speechcatcher_tpu_torch.ops.kernels.cross_attention import (
+    cross_attention,
+)
 from speechcatcher_tpu_torch.ops.kernels.lane_attention import (
     lane_attention,
     lane_attention_plain,
@@ -605,6 +612,148 @@ def test_lane_attention_stream_and_graph(dev):
     ops["lane"].copy_(torch.randint(0, 3, ops["lane"].shape))
     graph.replay()
     _lane_attention_close(got, ops)
+
+
+def _cross_attention_operands(dev, s, beam, h, t, dk, kv_dtype, seed=0):
+    """H's operands: the queries as the decoder's (N, h·dk) rows, K/V as
+    ``head_major`` lays them out, and each stream's encoder length: the
+    edges 0, 1, T - 1 and T first, the rest drawn from [0, T]."""
+    from speechcatcher_tpu_torch.models.decoder import head_major
+
+    rng = np.random.default_rng(seed)
+
+    def rows(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    lens = rng.integers(0, t + 1, s)
+    edges = [0, 1, t - 1, t] if s > 1 else [1 + t // 5]
+    lens[:min(s, 4)] = edges[:min(s, 4)]
+    return {"q": rows(s * beam, h * dk),
+            "mk": head_major(rows(s, t, h * dk), h, kv_dtype),
+            "mv": head_major(rows(s, t, h * dk), h, kv_dtype),
+            "enc_len": torch.from_numpy(lens.astype(np.int32)).to(dev)}
+
+
+def _cross_attention_close(got, ops):
+    """H within the card's bound of its twin evaluated in float64
+    (``chip_smoke.cross_attention_error``: 1e-5 of the largest |out|, with
+    bfloat16 K/V four weights a row rounded across a bfloat16 boundary),
+    and finite."""
+    worst, abs_err, scale = cross_attention_error(got, **ops)
+    assert worst <= 1.0, (worst, abs_err / scale)
+    assert bool(torch.isfinite(got).all())
+
+
+# Every (h, dk, beam) a configuration runs: the flagship (8 x 64) and the
+# conformers (4 x 64) at the serving beam 3, the sessions' 5 and the
+# endpointing default 10, tp = 2's 4 x 64, the tiny (2 x 8) configuration,
+# a model directory without a config.yaml (4 x 128 over a 2048-frame ring
+# at the sessions' beam 5: more than 48 KB of shared memory a block), the
+# card tests' 64-wide flagship (4 x 16) and the tiny one with 4 heads (4 x
+# 4): each of the kernel's three row splits (one, two or four float4s a
+# lane).
+CROSS_WIDTHS = [(8, 64, 3, 832), (4, 64, 3, 832), (4, 64, 5, 832),
+                (4, 64, 10, 832), (2, 8, 3, 160), (2, 8, 5, 160),
+                (4, 128, 5, 2112), (4, 16, 3, 832), (4, 4, 3, 160)]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 4, 32, 256])
+@pytest.mark.parametrize("h,dk,beam,t", CROSS_WIDTHS)
+def test_cross_attention_kernel(dev, h, dk, beam, t, s, kv_dtype):
+    ops = _cross_attention_operands(dev, s, beam, h, t, dk, kv_dtype,
+                                    seed=s + h + beam)
+    before = cross_attention.launches
+    got = cross_attention(**ops)
+    assert cross_attention.launches == before + 1
+    _cross_attention_close(got, ops)
+    # Rows at t >= enc_len hold NaN: the kernel never reads one (the twin
+    # would, as 0 x NaN), so the result is finite and the same.
+    hidden = (torch.arange(t, device=dev)[None, :]
+              >= ops["enc_len"].long()[:, None])[:, None, :, None]
+    poisoned = {k: torch.where(hidden, float("nan"), ops[k].float()).to(
+        kv_dtype) for k in ("mk", "mv")}
+    again = cross_attention(**{**ops, **poisoned})
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    assert not bool(got.reshape(s, beam, -1)[
+        ops["enc_len"] == 0].any())                  # enc_len 0: zeros
+    with pytest.raises(ValueError):
+        cross_attention(**{**ops, "enc_len": ops["enc_len"].cpu()})
+
+
+def test_cross_attention_stream_and_graph(dev):
+    """H on a side stream, then captured in a CUDA graph and replayed with
+    new encoder lengths (int64 ones, as the session's step hands them)."""
+    ops = _cross_attention_operands(dev, 32, 3, 8, 832, 64, torch.float32)
+    ops["enc_len"] = ops["enc_len"].long()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(ops["q"]) == side.cuda_stream
+        _cross_attention_close(cross_attention(**ops), ops)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cross_attention(**ops)
+    ops["enc_len"].copy_(torch.arange(32) * 26)
+    graph.replay()
+    _cross_attention_close(got, ops)
+
+
+def test_a_graphed_beam_step_attends_across_through_h(dev):
+    """The flagship's decoder (6 layers, T = 832 ring rows) in a graphed
+    block loop: the step graph's capture records 6 launches of H, a replay
+    runs 6 ``cross_attention_kernel``s, and an eager step makes no product
+    over the ring's 832 rows, so none of the old path's two products'
+    kernels (which cuBLAS kernel a product takes depends on its shape:
+    ``gemmSN`` also serves the decoder's linears at 4 streams)."""
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechcatcher_tpu_torch.config import flagship_config
+    from speechcatcher_tpu_torch.decode import beam_search as bs
+    from speechcatcher_tpu_torch.decode.graphs import (
+        STEPS_PER_REPLAY,
+        BlockLoop,
+        clone_tree,
+    )
+    from speechcatcher_tpu_torch.models.asr_model import ASRModel
+    from speechcatcher_tpu_torch.serve.engine import _ring_frames
+
+    cfg = flagship_config(encoder_layers=1)
+    model = ASRModel.random_init(cfg, seed=3, device=dev)
+    s_dim, beam = 4, 3
+    ecap = -(-(cfg.max_enc_frames + cfg.block_size) // 64) * 64
+    memory = torch.randn((s_dim, ecap, cfg.encoder_dim), device=dev)
+    loop = BlockLoop(
+        model, bs.fresh_block_state(cfg, s_dim, beam, dev), memory,
+        bs.LoopSettings(beam, cfg.pre_beam_size, cfg.ctc_weight, True,
+                        cfg.max_tokens),
+        frames=functools.partial(_ring_frames, memory, cfg.block_size),
+        extcap=cfg.block_size)
+    n = cfg.block_size
+    loop.run(np.zeros(s_dim), np.full(s_dim, n), np.full(s_dim, n),
+             np.ones(s_dim), np.zeros(s_dim))
+    step = loop._graphs[1]
+    record = {f.__name__: k for (f, _), k in step.launches.items()}
+    assert record["cross_attention"] == 6 * STEPS_PER_REPLAY
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step.graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("cross_attention_kernel" in k for k in names) == 6
+    state = clone_tree(loop.state)
+    flag = torch.zeros(2, dtype=torch.int32, device=dev)
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        loop._step(state, loop._held["cross_kv"], flag, steps=1)
+    ring = [e.input_shapes for e in prof.events()
+            if e.name in ("aten::bmm", "aten::matmul", "aten::mm")
+            and any(ecap in shape for shape in e.input_shapes)]
+    assert ring == []
 
 
 @pytest.mark.parametrize("n,h,w,dk", [

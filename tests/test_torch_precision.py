@@ -431,7 +431,7 @@ def test_attend_cross_blocked_matches_jax(kv_dtype):
         _attend_cross_blocked as j_cross,
     )
     from speechcatcher_tpu_torch.models.decoder import (
-        _attend_cross_blocked as p_cross,
+        cross_attention as p_cross,
         head_major,
     )
 
@@ -441,11 +441,12 @@ def test_attend_cross_blocked_matches_jax(kv_dtype):
     ref = j_cross(jnp.asarray(q), jnp.asarray(mk).astype(jdt),
                   jnp.asarray(mv).astype(jdt), jnp.asarray(valid), 2)
     pk, pv = head_major(t(mk), 2, pdt), head_major(t(mv), 2, pdt)
-    got = p_cross(t(q), pk, pv, t(valid))
+    enc_len = t(valid.sum(axis=1))
+    got = p_cross(t(q), pk, pv, enc_len)
     assert got.dtype == torch.float32 and ref.dtype == jnp.float32
     np.testing.assert_allclose(n(got), n(ref), **TOL)
     if kv_dtype == "bfloat16":
-        unrounded = p_cross(t(q), pk.float(), pv.float(), t(valid))
+        unrounded = p_cross(t(q), pk.float(), pv.float(), enc_len)
         assert float((unrounded - got).abs().max()) > 1e-3
 
 

@@ -226,6 +226,41 @@ def test_lm_rows_count_width_times_beam_each_step(monkeypatch):
     assert len(set(seen)) > 1    # the tick's width and compact ones
 
 
+def test_cross_rows_count_the_rows_each_step_attends(monkeypatch):
+    """``cross.rows`` adds, each step replay, the K/V rows a layer's
+    cross-attention reads (every stream's visible frames, capped at the
+    ring), and ``cross.ring_rows`` the ring's S x T: the same sums as the
+    cross-attention's own operands, one call a layer, on the graphed route
+    of the tick, the compact finals and the fallback."""
+    from speechcatcher_tpu_torch.models import decoder as dec
+
+    made = graphed_on_cpu(monkeypatch)
+    seen = []
+    attend = dec.cross_attention
+
+    def counted(q, mk, mv, enc_len):
+        seen.append((int(enc_len.clamp(max=mk.shape[2]).sum()),
+                     mk.shape[0] * mk.shape[2]))
+        return attend(q, mk, mv, enc_len)
+
+    monkeypatch.setattr(dec, "cross_attention", counted)
+    TRACER.reset()
+    TRACER.start()
+    try:
+        serve()
+    finally:
+        TRACER.stop()
+    counts = TRACER.export()["counts"]
+    TRACER.reset()
+    layers = CFG.decoder_layers
+    assert len(seen) % layers == 0
+    assert counts["cross.rows"] * layers == sum(r for r, _ in seen) > 0
+    assert counts["cross.ring_rows"] * layers == sum(t for _, t in seen)
+    assert 0 < counts["cross.rows"] < counts["cross.ring_rows"]
+    assert counts["cross.ring_rows"] == sum(
+        lp.syncs * lp.cross_ring_rows for lp in made)
+
+
 def test_lm_step_is_a_range_in_an_eager_trace(monkeypatch):
     """The eager route's LM steps are ``lm.step`` ranges of the profiler's
     trace, one a step; the tracer's spans stay its own."""
